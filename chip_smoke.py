@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
+            sm_90a (one nvcc per source, all at once) into build/kernels/.
+2. kernels  each kernel against its plain PyTorch version on the card, at
+            full tinyllama-1.1b shapes and at the smoke shapes, fp32 and
+            bf16: ragged lengths, sentinel table entries, page-straddling
+            chunks, inert rows and an empty decode row.
+3. serve    full-width tinyllama-1.1b (random weights from a seeded
+            torch.Generator, bf16 compute) serves 16 greedy requests shaped
+            like the repo's mixed workload through ``submit`` +
+            ``run_until_drained``; both kernels' launch counters must move.
+4. timing   each kernel's wrapper at the serving shapes against its plain
+            version (CUDA events), with its roofline bound.
+5. profile  torch.profiler over a separate serving run: device busy and
+            idle share, kernels and host ops per engine step, top kernels.
+6. stream   the same engine in fp32: kernel path vs plain path must emit
+            token-identical greedy streams.
+
+The last lines are the card (nvidia-smi name and power limit), the kernel
+table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.common.params import init_params, map_tree  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import prefill_attention as pf  # noqa: E402
+from repro_torch.models.lm import lm_paged_cache_specs  # noqa: E402
+from repro_torch.serve import RequestState, ServeEngine  # noqa: E402
+from repro_torch.train.state import model_specs  # noqa: E402
+from repro_torch.train.step import make_prefill_chunk_step  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+# max abs error, kernel vs plain: fp32 sums in another order (~1e-6 seen);
+# bf16 outputs may round one bf16 ulp apart (2^-6 at |x| in [2, 4))
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ARCH = "tinyllama-1.1b"
+PAGE = 16
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rotate(items):
+    """A function returning the next of ``items`` on each call: one input
+    set per layer, so repeated timing does not run out of L2."""
+    cyc = itertools.cycle(items)
+    return lambda: next(cyc)
+
+
+# -- inputs ------------------------------------------------------------------
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def paged_pool(gen, B, KV, D, max_pages, lens, dtype):
+    """Pools with spare pages and a scrambled table giving each row exactly
+    the pages ``lens`` need; every other entry is a sentinel (>= num_pages)."""
+    need = [-(-int(n) // PAGE) for n in lens]
+    num_pages = sum(need) + 3
+    ids = torch.randperm(num_pages, generator=gen, device="cuda").tolist()
+    bt = torch.full((B, max_pages), num_pages, dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(ids[:n], dtype=torch.int32)
+        bt[b, n:] += b  # sentinels past num_pages too
+        ids = ids[n:]
+    kp = randn(gen, (num_pages, PAGE, KV, D), dtype)
+    vp = randn(gen, (num_pages, PAGE, KV, D), dtype)
+    return kp, vp, bt.cuda()
+
+
+def i32(x):
+    return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+
+def decode_case(gen, H, KV, D, max_pages, lens, dtype):
+    B = len(lens)
+    kp, vp, bt = paged_pool(gen, B, KV, D, max_pages, lens, dtype)
+    return randn(gen, (B, H, D), dtype), kp, vp, bt, i32(lens)
+
+
+def prefill_case(gen, T, H, KV, D, max_pages, base, clens, dtype):
+    B = len(base)
+    kp, vp, bt = paged_pool(gen, B, KV, D, max_pages,
+                            [max(b + c, 1) for b, c in zip(base, clens)], dtype)
+    return (randn(gen, (B, T, H, D), dtype), randn(gen, (B, T, KV, D), dtype),
+            randn(gen, (B, T, KV, D), dtype), kp, vp, bt, i32(base), i32(clens))
+
+
+def check_decode(args):
+    """(max abs error vs plain, empty rows exactly zero)."""
+    got = dec.decode_attention_paged_kernel(*args)
+    want = dec.decode_attention_paged_plain(*args)
+    empty = args[4] == 0
+    return ((got.float() - want.float()).abs().max().item(),
+            bool((got[empty] == 0).all()))
+
+
+def check_prefill(args):
+    """(max abs error vs plain, pools equal and padding rows exactly zero);
+    each side writes its own copy of the pools."""
+    q, kn, vn, kp, vp, bt, base, clens = args
+    got, gk, gv = pf.prefill_attention_paged_kernel(
+        q, kn, vn, kp.clone(), vp.clone(), bt, base, clens)
+    want, wk, wv = pf.prefill_attention_paged_plain(
+        q, kn, vn, kp.clone(), vp.clone(), bt, base, clens)
+    pad = torch.arange(q.shape[1], device="cuda")[None, :] >= clens[:, None]
+    ok = torch.equal(gk, wk) and torch.equal(gv, wv) and bool((got[pad] == 0).all())
+    return (got.float() - want.float()).abs().max().item(), ok
+
+
+# -- phases ------------------------------------------------------------------
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    secs = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in logs.items()}
+    emit({"phase": "build", "ok": True, "seconds": secs, "gpu": gpu_line(),
+          "nvcc": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
+
+
+def phase_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    shapes = {"full": (32, 4, 64, 32, 64),   # H, KV, D, max_pages, chunk T
+              "smoke": (8, 2, 16, 8, 8)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for sname, (H, KV, D, mp, T) in shapes.items():
+            S = PAGE * mp
+            # empty row, one token, page edges, half, nearly full, full
+            lens = [0, 1, PAGE - 1, PAGE, PAGE + 1, S // 2 + 3, S - 1, S]
+            err, ok = check_decode(decode_case(gen, H, KV, D, mp, lens, dtype))
+            cases.append({"kernel": "decode_attention_paged", "shape": sname,
+                          "dtype": str(dtype), "max_abs_err": err,
+                          "tol": TOL[dtype], "empty_rows_zero": ok})
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"decode kernel disagrees: {cases[-1]}")
+            # full chunk at 0, inside one page, inert row, straddling and
+            # deep chunks, one ending on the last page, one token, one
+            # straddling the first page edge
+            base = [0, 5, 13, 100 % (S - T), 37 % (S - T), S - T, 0, PAGE - 4]
+            clens = [T, 3, 0, T, T // 2 + 1, T, 1, T - 1]
+            err, ok = check_prefill(prefill_case(gen, T, H, KV, D, mp, base,
+                                                 clens, dtype))
+            cases.append({"kernel": "prefill_attention_paged", "shape": sname,
+                          "dtype": str(dtype), "max_abs_err": err,
+                          "tol": TOL[dtype], "pools_equal_pad_zero": ok})
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"prefill kernel disagrees: {cases[-1]}")
+    emit({"phase": "kernels", "ok": True,
+          "kernels": ["decode_attention_paged", "prefill_attention_paged"],
+          "cases": cases})
+
+
+def mixed_requests(n: int, vocab: int, seed: int):
+    """The repo's mixed workload shape (benchmarks/workload.py) at the real
+    vocabulary: ~80% prompts of 4-16 tokens, ~20% of 96-160 (at least two),
+    16-32 new tokens each."""
+    rng = np.random.default_rng(seed)
+    is_long = rng.random(n) < 0.2
+    is_long[: max(2, n // 16)] = True
+    lens = np.where(is_long, rng.integers(96, 161, n), rng.integers(4, 17, n))
+    gens = rng.integers(16, 33, n)
+    prompts = [rng.integers(1, vocab, int(l)).astype(np.int32) for l in lens]
+    return list(zip(prompts, gens.tolist()))
+
+
+def serve_engine(cfg, params, **kw):
+    return ServeEngine(cfg, max_slots=8, max_len=512, page_size=PAGE,
+                       prefill_chunk_tokens=64, params=params, **kw)
+
+
+def phase_serve(cfg, params):
+    work = mixed_requests(16, cfg.vocab_size, SEED)
+    warm = serve_engine(cfg, params)  # cuBLAS handles, library loads
+    for p, _ in work[:2]:
+        warm.submit(p, max_new_tokens=4)
+    warm.run_until_drained()
+    del warm
+
+    eng = serve_engine(cfg, params)
+    torch.cuda.synchronize()
+    dec.decode_attention_paged_kernel.launches = 0
+    pf.prefill_attention_paged_kernel.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"decode_attention_paged": dec.decode_attention_paged_kernel.launches,
+                "prefill_attention_paged": pf.prefill_attention_paged_kernel.launches}
+    bad = [r.rid for r in reqs
+           if r.state is not RequestState.DONE or len(r.tokens) != r.max_new_tokens
+           or not all(0 <= t < cfg.padded_vocab for t in r.tokens)]
+    if bad:
+        raise AssertionError(f"requests not served in full: {bad}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    stats = eng.stats()
+    ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+    gaps = np.array([g for r in reqs for g in r.inter_token_s]) * 1e3
+    tokens = sum(len(r.tokens) for r in reqs)
+    out = {"phase": "serve", "ok": True, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "compute_dtype": str(cfg.compute_dtype), "requests": len(reqs),
+           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p95": float(np.percentile(ttft, 95)),
+           # one decode step emits one token per decoding slot, so the gap
+           # between a request's tokens is one engine step (with its
+           # prefill chunk, when one ran)
+           "step_ms_p50": float(np.percentile(gaps, 50)),
+           "step_ms_p95": float(np.percentile(gaps, 95)),
+           "decode_steps": stats["decode_steps"],
+           "prefill_chunks": stats["prefill_chunks"],
+           "launches": launches,
+           "launches_per_decode_step":
+               launches["decode_attention_paged"] / stats["decode_steps"],
+           "launches_per_prefill_chunk":
+               launches["prefill_attention_paged"] / stats["prefill_chunks"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    # the widest buckets the run used, and the first eight requests' final
+    # lengths, shape the timing inputs
+    shapes = {"decode_mb": max(mb for mb, _ in eng._seen_shapes["decode"]),
+              "prefill_T_mb": max(eng._seen_shapes["prefill"]),
+              "lens": [len(p) + g for p, g in work[:8]]}
+    return out, shapes
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bytes_,
+               flops, lib_ms, at):
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library_note": "SDPA over K/V pre-gathered to contiguous "
+                            "[B,H,S,D]: no table gather, no cache write",
+            "bytes": bytes_, "flops": flops, "at": at}
+
+
+def sdpa_inputs(q, kp, vp, bt, mask, H, KV):
+    """The library yardstick's inputs: K/V gathered through the table and
+    repeated to every head ahead of time, so its call does less work."""
+    k = ref._gather_pages(kp, bt).repeat_interleave(H // KV, 2).transpose(1, 2)
+    v = ref._gather_pages(vp, bt).repeat_interleave(H // KV, 2).transpose(1, 2)
+    return q, k.contiguous(), v.contiguous(), mask
+
+
+def sdpa(q, k, v, mask):
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_timing(cfg, serve, shapes):
+    """Each wrapper at the serving shapes, rotating over one input set per
+    layer so the pools are not served from L2 (as on the real path)."""
+    dt = cfg.compute_dtype
+    H, KV, D, L, B = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers, 8
+    esz = torch.finfo(dt).bits // 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+
+    mb = shapes["decode_mb"]
+    lens = [min(n, mb * PAGE) for n in shapes["lens"]]
+    cases = [decode_case(gen, H, KV, D, mb, lens, dt) for _ in range(L)]
+    err = max(check_decode(a)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: dec.decode_attention_paged_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: dec.decode_attention_paged_plain(*nxt()))
+    lib = rotate([sdpa_inputs(q[:, :, None], kp, vp, bt,
+                              (torch.arange(mb * PAGE, device="cuda")[None, :]
+                               < cl[:, None])[:, None, None, :], H, KV)
+                  for q, kp, vp, bt, cl in cases])
+    lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    live = sum(lens)
+    bytes_ = (2 * live * KV * D * esz          # live K and V, read once
+              + 2 * B * H * D * esz            # q read, out written
+              + 4 * B * (mb + 1))              # table and lengths
+    rows.append(kernel_row(
+        "decode_attention_paged", "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
+        "src/repro/kernels/decode_attention.py:199", serve["launches"], err, ms,
+        plain_ms, bytes_, 4 * H * D * live, lib_ms,
+        {"B": B, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mb,
+         "cache_len": lens, "dtype": str(dt)}))
+
+    # a 64-token chunk of a long prompt at base 64 while the other rows
+    # decode (inert in this call): the widest chunk the main path runs
+    T, mbp = shapes["prefill_T_mb"]
+    base, clens = [64] + [0] * (B - 1), [T] + [0] * (B - 1)
+    cases = [prefill_case(gen, T, H, KV, D, mbp, base, clens, dt) for _ in range(L)]
+    err = max(check_prefill(a)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: pf.prefill_attention_paged_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: pf.prefill_attention_paged_plain(*nxt()))
+
+    def scatter():  # the wrapper's plain cache write alone
+        q, kn, vn, kp, vp, bt, bs, cl = nxt()
+        pf.write_chunk_paged(kp, bt, kn, bs, cl)
+        pf.write_chunk_paged(vp, bt, vn, bs, cl)
+
+    scatter_ms = cuda_ms(scatter)
+
+    def causal_mask(bs):
+        qpos = bs[:, None] + torch.arange(T, device="cuda")[None, :]
+        kpos = torch.arange(mbp * PAGE, device="cuda")
+        return (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+
+    lib = rotate([sdpa_inputs(q.transpose(1, 2).contiguous(), kp, vp, bt,
+                              causal_mask(bs), H, KV)
+                  for q, kn, vn, kp, vp, bt, bs, cl in cases])
+    lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    valid_q = sum(clens)
+    prefix = sum(b + c for b, c in zip(base, clens))
+    bytes_ = (2 * 2 * valid_q * KV * D * esz   # fresh K/V read, written to pool
+              + 2 * prefix * KV * D * esz      # each row's prefix read
+              + valid_q * H * D * esz          # valid queries read
+              + B * T * H * D * esz            # out written, padding rows too
+              + 4 * B * (mbp + 2))             # table, base, lengths
+    flops = 4 * H * D * sum(b + i + 1 for b, c in zip(base, clens) for i in range(c))
+    rows.append(kernel_row(
+        "prefill_attention_paged", "src/repro_torch/kernels/csrc/prefill_attention_paged.cu",
+        "src/repro/kernels/prefill_attention.py:222", serve["launches"], err, ms,
+        plain_ms, bytes_, flops, lib_ms,
+        {"B": B, "T": T, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mbp,
+         "base": base, "chunk_lens": clens, "dtype": str(dt),
+         "scatter_ms": scatter_ms}))
+    emit({"phase": "timing", "ok": True, "rows": rows})
+    return rows
+
+
+def phase_profile(cfg, params, n: int = 8):
+    """Where a serving run's time goes: torch.profiler over the first
+    ``n`` requests of the workload (a separate, unmeasured run; the
+    profiler's own host cost inflates the wall time and the idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    work = mixed_requests(16, cfg.vocab_size, SEED)[:n]
+    eng = serve_engine(cfg, params)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, g in work:
+            eng.submit(p, max_new_tokens=g)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}  # name -> [device ms, launches]
+    for e in kernels:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # the port's own kernels: device time per launch, free of the host
+    # cost that the CUDA-event timing of back-to-back wrapper calls carries
+    ours = {}
+    for name in ("decode_split_kernel", "decode_combine_kernel", "prefill_kernel"):
+        hits = [v for k, v in by_name.items() if f"::{name}<" in k]
+        ms, launches = sum(v[0] for v in hits), sum(v[1] for v in hits)
+        ours[name] = {"ms": ms, "launches": launches,
+                   "us_per_launch": 1e3 * ms / launches if launches else None}
+    stats = eng.stats()
+    steps = stats["decode_steps"] + stats["prefill_chunks"]
+    cpu_ops = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith("aten::") and e.cpu_parent is None)
+    emit({"phase": "profile", "ok": True, "requests": n, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+          "gpu_kernels": len(kernels), "engine_steps": steps,
+          "gpu_kernels_per_step": len(kernels) / steps,
+          "top_level_aten_ops_per_step": cpu_ops / steps,
+          "port_kernels": ours,
+          "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
+                          for k, v in top]})
+
+
+def top2_gap(cfg, params, prompt, prefix):
+    """Top-2 logit gap of the plain path where two streams part."""
+    cfg = cfg.with_overrides(decode_impl="ref")
+    toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])
+    pages = -(-len(toks) // PAGE)
+    cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                     lm_paged_cache_specs(cfg, pages, PAGE))
+    _, last, _ = make_prefill_chunk_step(cfg)(
+        params, i32(toks[None]), i32([0]), i32([len(toks)]), cache,
+        i32([list(range(pages))]))
+    top = torch.topk(last[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_stream(cfg, params, n: int = 4):
+    """fp32 greedy streams: kernel path == plain path, token for token."""
+    cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
+    work = mixed_requests(n, cfg.vocab_size, SEED + 2)
+    streams = {}
+    for impl in ("auto", "ref"):
+        eng = serve_engine(cfg32, params, decode_impl=impl)
+        reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
+        eng.run_until_drained()
+        streams[impl] = [r.tokens for r in reqs]
+    for i, (a, b) in enumerate(zip(streams["auto"], streams["ref"])):
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            emit({"phase": "stream", "ok": False, "request": i,
+                  "first_diverging_step": step, "kernel": a[step],
+                  "plain": b[step],
+                  "plain_top2_logit_gap": top2_gap(cfg32, params, work[i][0],
+                                                   b[:step])})
+            raise AssertionError("kernel and plain greedy streams diverge")
+    emit({"phase": "stream", "ok": True, "requests": n,
+          "tokens": sum(len(s) for s in streams["auto"]),
+          "compute_dtype": str(cfg32.compute_dtype), "identical": True})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    phase_kernels()
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(gen, model_specs(cfg), "cuda")
+    serve, shapes = phase_serve(cfg, params)
+    rows = phase_timing(cfg, serve, shapes)
+    phase_profile(cfg, params)
+    phase_stream(cfg, params)
+    print(gpu_line(), flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Dispatch for the paged attention ops (mirror of the paged half of
+``repro.kernels.ops``).  The model code calls these with
+``impl=cfg.decode_impl``:
+
+* ``"auto"``: the hand-written CUDA kernel for CUDA tensors, the plain
+  PyTorch version for CPU tensors (decided by the tensor's device only);
+* ``"cuda"``: the kernel, raising on CPU tensors;
+* ``"ref"``: the plain version on every device.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import DECODE_IMPLS
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import prefill_attention as _pf
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode impl {impl!r}: expected one of "
+                         f"{'|'.join(DECODE_IMPLS)}")
+
+
+def decode_attention_paged(q, k_pages, v_pages, block_table, cache_len, *,
+                           impl: str = "auto"):
+    """q [B,H,D]; pools [num_pages,page_size,KV,D]; block_table [B,max_pages]
+    int32 (sentinel >= num_pages = unallocated); cache_len [B] -> [B,H,D]."""
+    _check_impl(impl)
+    if impl == "auto":
+        return _dec.decode_attention_paged(q, k_pages, v_pages, block_table,
+                                           cache_len)
+    if impl == "cuda":
+        return _dec.decode_attention_paged_kernel(q, k_pages, v_pages,
+                                                  block_table, cache_len)
+    return _dec.decode_attention_paged_plain(q, k_pages, v_pages, block_table,
+                                             cache_len)
+
+
+def prefill_attention_paged(q, k_new, v_new, k_pages, v_pages, block_table,
+                            base, chunk_lens, *, impl: str = "auto"):
+    """Ragged cache-writing prefill through per-row block tables.
+    q [B,T,H,D]; k_new, v_new [B,T,KV,D]; pools [num_pages,page_size,KV,D]
+    (written in place); block_table [B,max_pages] int32; base, chunk_lens
+    [] or [B] -> (out [B,T,H,D], k_pages, v_pages)."""
+    _check_impl(impl)
+    args = (q, k_new, v_new, k_pages, v_pages, block_table, base, chunk_lens)
+    if impl == "auto":
+        return _pf.prefill_attention_paged(*args)
+    if impl == "cuda":
+        return _pf.prefill_attention_paged_kernel(*args)
+    return _pf.prefill_attention_paged_plain(*args)

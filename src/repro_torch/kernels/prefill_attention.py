@@ -1,0 +1,130 @@
+"""Ragged cache-writing paged prefill attention: the CUDA kernel's wrapper,
+its plain PyTorch version, and the cache scatter (mirror of the paged half
+of ``repro.kernels.prefill_attention``).
+
+A ``[B, T]`` slab of fresh prompt tokens (row ``b`` carries
+``chunk_lens[b]`` valid tokens, the rest right-padding) is scattered into
+the shared page pool ``[num_pages, page_size, KV, D]`` at each row's own
+``base[b]`` offset through its block table, then attended causally over
+the row's whole prefix ``[0, base[b] + i]``.  Padding query rows come out
+as exact zeros; rows with ``chunk_lens == 0`` are inert.
+
+The JAX function returns new pools; here the pools are updated **in
+place** (saving a copy of every pool per call) and returned, so the
+signature stays ``(out, k_pages, v_pages)``.
+
+``prefill_attention_paged`` takes the plain version for CPU tensors and
+launches ``csrc/prefill_attention_paged.cu`` for CUDA tensors; there is no
+fallback between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as _ref
+
+# the plain version of the kernel: masked scatter, gather through the
+# clamped table, fp32 softmax, zeros for padding rows
+prefill_attention_paged_plain = _ref.prefill_attention_paged_ref
+
+
+def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
+                      new: torch.Tensor, base, chunk_lens) -> torch.Tensor:
+    """Scatter ``new [B, T, ...]`` through per-row block tables into the
+    shared page pool, in place.  Unallocated logical pages hit the
+    sentinel (>= num_pages) and the write drops, as do padding positions
+    (``j >= chunk_lens[b]``)."""
+    num_pages, page_size = pages.shape[0], pages.shape[1]
+    B, T = new.shape[0], new.shape[1]
+    max_pages = block_table.shape[1]
+    dev = pages.device
+    base = _ref.as_rows(base, B, dev)
+    clens = _ref.as_rows(chunk_lens, B, dev)
+    j = torch.arange(T, device=dev)[None, :]
+    pos = base[:, None] + j
+    lp = pos // page_size
+    rows = torch.arange(B, device=dev)[:, None]
+    phys = torch.where(
+        (j < clens[:, None]) & (lp < max_pages),
+        block_table.to(torch.int64)[rows, lp.clamp(max=max_pages - 1)],
+        num_pages)
+    keep = (phys >= 0) & (phys < num_pages)
+    pages[phys[keep], (pos % page_size)[keep]] = new[keep].to(pages.dtype)
+    return pages
+
+
+def _check(q, k_new, v_new, k_pages, v_pages, block_table):
+    B, T, H, D = q.shape
+    num_pages, page_size, KV, Dk = k_pages.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"prefill kernel needs CUDA tensors, got {q.device}")
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
+                    ("v_pages", v_pages), ("block_table", block_table)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.dtype not in build.KERNEL_DTYPES:
+        raise ValueError(f"prefill kernel takes fp32/bf16, got {q.dtype}")
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
+                    ("v_pages", v_pages)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+    if block_table.dtype != torch.int32:
+        raise ValueError("block_table must be int32")
+    if D not in build.HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape:
+        raise ValueError(f"head dim {D} (pools {tuple(k_pages.shape)}) not in "
+                         f"{build.HEAD_DIMS}")
+    if H % KV or H // KV > 128 or k_new.shape != (B, T, KV, D) \
+            or v_new.shape != k_new.shape or block_table.shape[0] != B:
+        raise ValueError("shape mismatch: q [B,T,H,D], k/v_new [B,T,KV,D], "
+                         "block_table [B,max_pages], H % KV == 0, H/KV <= 128")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", block_table)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
+                                   block_table, base, chunk_lens):
+    """Launch the CUDA kernel (CUDA tensors only, raises otherwise).  The
+    cache write is the plain scatter, done in place before the launch.
+    Returns ``(out [B, T, H, D], k_pages, v_pages)``."""
+    _check(q, k_new, v_new, k_pages, v_pages, block_table)
+    B, T, H, D = q.shape
+    num_pages, page_size, KV, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    base32 = _ref.as_rows(base, B, q.device).to(torch.int32).contiguous()
+    clens32 = _ref.as_rows(chunk_lens, B, q.device).to(torch.int32).contiguous()
+    write_chunk_paged(k_pages, block_table, k_new, base32, clens32)
+    write_chunk_paged(v_pages, block_table, v_new, base32, clens32)
+    out = torch.empty_like(q)
+    lib = build.load("prefill_attention_paged")
+    err = lib.prefill_attention_paged(
+        build.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_table.data_ptr(), base32.data_ptr(),
+        clens32.data_ptr(), out.data_ptr(), B, T, H, KV, D, num_pages,
+        page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on_error("prefill_attention_paged", err)
+    prefill_attention_paged_kernel.launches += 1
+    return out, k_pages, v_pages
+
+
+prefill_attention_paged_kernel.launches = 0
+
+
+def prefill_attention_paged(q, k_new, v_new, k_pages, v_pages, block_table,
+                            base, chunk_lens):
+    """q [B,T,H,D]; k_new, v_new [B,T,KV,D]; pools [num_pages,page_size,KV,D]
+    (updated in place); block_table [B,max_pages] int32 (sentinel >=
+    num_pages = unallocated); base, chunk_lens [] or [B].  CPU tensors take
+    the plain version, CUDA tensors the kernel.  Returns
+    ``(out, k_pages, v_pages)``."""
+    if q.device.type == "cpu":
+        return prefill_attention_paged_plain(
+            q, k_new, v_new, k_pages, v_pages, block_table, base, chunk_lens)
+    return prefill_attention_paged_kernel(
+        q, k_new, v_new, k_pages, v_pages, block_table, base, chunk_lens)

@@ -1,0 +1,93 @@
+"""Plain PyTorch oracles for the paged attention kernels (mirror of the
+paged half of ``repro.kernels.ref``): the ground truth the CUDA kernels
+are held against on the card, and the path CPU tensors take.
+
+One deliberate difference from the JAX oracle: a decode row with
+``cache_len == 0`` returns zeros, as the kernels (the Pallas one and the
+CUDA one) do, where the JAX oracle returns the mean of V.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def as_rows(x, B: int, device) -> torch.Tensor:
+    """Scalar or [B] lengths -> [B] int64 on ``device``."""
+    return torch.as_tensor(x, device=device).to(torch.int64).reshape(-1).expand(B)
+
+
+def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """[num_pages, page, KV, D] pool through a [B, max_pages] table ->
+    contiguous [B, max_pages*page, KV, D]; sentinel entries are clamped,
+    they only address positions past a row's live prefix."""
+    num_pages, page_size, KV, D = pages.shape
+    B, max_pages = block_table.shape
+    bt = block_table.to(torch.int64).clamp(0, num_pages - 1)
+    return pages[bt].reshape(B, max_pages * page_size, KV, D)
+
+
+def decode_attention_ref(q, k, v, cache_len) -> torch.Tensor:
+    """q [B,H,D]; k,v [B,S,KV,D] (cache-native) -> [B,H,D]; ``cache_len``
+    [] or [B].  Rows with ``cache_len == 0`` are zeros."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kf = k.repeat_interleave(G, dim=2).float()
+    vf = v.repeat_interleave(G, dim=2).float()
+    s = torch.einsum("bhd,bshd->bhs", q.float(), kf) / math.sqrt(D)
+    cl = as_rows(cache_len, B, q.device)[:, None, None]
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    s = torch.where(pos < cl, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", p, vf)
+    out = torch.where(cl > 0, out, 0.0)
+    return out.to(q.dtype)
+
+
+def decode_attention_paged_ref(q, k_pages, v_pages, block_table,
+                               cache_len) -> torch.Tensor:
+    """Paged oracle: gather each row's pages through its block table into
+    a contiguous view, then run the masked reference."""
+    return decode_attention_ref(q, _gather_pages(k_pages, block_table),
+                                _gather_pages(v_pages, block_table), cache_len)
+
+
+def prefill_attend_ref(q, kc, vc, base, clens) -> torch.Tensor:
+    """Masked causal attention of a [B,T] chunk over a contiguous
+    [B,S,KV,D] cache at per-row offsets; padding rows exact zero."""
+    B, T, H, D = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    G = H // KV
+    dev = q.device
+    base = as_rows(base, B, dev)
+    clens = as_rows(clens, B, dev)
+    kf = kc.repeat_interleave(G, dim=2).float()  # [B,S,H,D]
+    vf = vc.repeat_interleave(G, dim=2).float()
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) / math.sqrt(D)
+    qpos = base[:, None] + torch.arange(T, device=dev)[None, :]       # [B,T]
+    mask = torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None]
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", p, vf)
+    valid = torch.arange(T, device=dev)[None, :] < clens[:, None]     # [B,T]
+    out = torch.where(valid[:, :, None, None], out, 0.0)
+    return out.to(q.dtype)
+
+
+def prefill_attention_paged_ref(q, k_new, v_new, k_pages, v_pages,
+                                block_table, base, chunk_lens):
+    """Paged prefill oracle: write the chunk through the block tables (in
+    place), gather each row's pages into a contiguous view, and attend.
+    Returns ``(out [B,T,H,D], k_pages, v_pages)``."""
+    from repro_torch.kernels.prefill_attention import write_chunk_paged
+
+    write_chunk_paged(k_pages, block_table, k_new, base, chunk_lens)
+    write_chunk_paged(v_pages, block_table, v_new, base, chunk_lens)
+    out = prefill_attend_ref(q, _gather_pages(k_pages, block_table),
+                             _gather_pages(v_pages, block_table), base,
+                             chunk_lens)
+    return out, k_pages, v_pages

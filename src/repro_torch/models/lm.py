@@ -1,0 +1,168 @@
+"""Decoder-only token LM on the paged serving path (mirror of the dense
+GQA subset of ``repro.models.lm``).
+
+Layers follow ``configs.base.block_pattern``: head layers, then a unit
+repeated ``reps`` times whose parameters (and paged caches) are stacked on
+a leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail
+layers.  Where JAX scans the unit, ``lm_apply`` loops over that dim; the
+per-layer cache slices are views, so the in-place pool writes land in the
+stacked tensors.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.params import Param, map_tree
+from repro_torch.configs.base import ModelConfig, block_pattern
+from repro_torch.models import blocks as B
+
+_PORTED_KINDS = (("attn", "mlp"),)
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    head, unit, _, tail = block_pattern(cfg)
+    kinds = set((*head, *unit, *tail))
+    if not kinds <= set(_PORTED_KINDS):
+        raise NotImplementedError(
+            f"the port runs dense GQA blocks only, got {sorted(kinds, key=str)} "
+            f"for {cfg.name}: MLA, MoE, windowed and recurrent blocks are "
+            f"later slices (ROADMAP.md queue 1, items 6 and 9)")
+
+
+def _temporal_paged_cache_specs(cfg: ModelConfig, num_pages: int,
+                                page_size: int):
+    """One shared page pool per layer; the block table lives outside the
+    cache tree (every layer appends at the same positions)."""
+    _, KV = cfg.padded_gqa()
+    cdt = cfg.compute_dtype
+    return {
+        "k_pages": Param((num_pages, page_size, KV, cfg.qk_head_dim),
+                         ("cache_seq", None, "cache_heads", None),
+                         dtype=cdt, init="zeros"),
+        "v_pages": Param((num_pages, page_size, KV, cfg.head_dim),
+                         ("cache_seq", None, "cache_heads", None),
+                         dtype=cdt, init="zeros"),
+    }
+
+
+def _stack(specs: Any, reps: int) -> Any:
+    return map_tree(
+        lambda p: Param((reps,) + p.shape, ("layers",) + p.axes, p.dtype,
+                        p.init, p.scale), specs)
+
+
+def _layer_tree(cfg: ModelConfig, make) -> Dict[str, Any]:
+    head, unit, reps, tail = block_pattern(cfg)
+    return {
+        "head_layers": {f"h{i}": make(tk, ck) for i, (tk, ck) in enumerate(head)},
+        "unit": _stack({f"b{i}": make(tk, ck) for i, (tk, ck) in enumerate(unit)},
+                       reps),
+        "tail_layers": {f"t{i}": make(tk, ck) for i, (tk, ck) in enumerate(tail)},
+    }
+
+
+def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _check_kinds(cfg)
+    specs: Dict[str, Any] = {
+        "embed": Param((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                       init="embed"),
+        "final_norm": B.rmsnorm_specs(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Param((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
+    layers = _layer_tree(
+        cfg, lambda tk, ck: {"t": B.attn_specs(cfg), "c": B.mlp_specs(cfg)})
+    specs.update(head_layers=layers["head_layers"], unit=layers["unit"],
+                 tail_layers=layers["tail_layers"])
+    return specs
+
+
+def lm_paged_cache_specs(cfg: ModelConfig, num_pages: int,
+                         page_size: int) -> Dict[str, Any]:
+    _check_kinds(cfg)
+    return _layer_tree(
+        cfg, lambda tk, ck: _temporal_paged_cache_specs(cfg, num_pages, page_size))
+
+
+def _pack_cache(raw: Dict, length, block_table) -> Dict:
+    """Join a layer's pools with the runtime lengths and the shared block
+    table into the structure ``attn_apply`` expects."""
+    return {"k_pages": raw["k_pages"], "v_pages": raw["v_pages"],
+            "block_table": block_table, "len": length}
+
+
+def _unpack_cache(cache: Dict) -> Dict:
+    return {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
+
+
+def lm_apply(
+    cfg: ModelConfig,
+    params: Dict[str, Any],
+    inputs: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[Dict] = None,
+    cache_len=None,
+    *,
+    block_table: Optional[torch.Tensor] = None,
+    chunk_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Returns ``(logits [B,S,V], cache, aux_loss)``.
+
+    ``inputs`` are int tokens [B,S]; ``cache`` is a paged cache tree
+    (``lm_paged_cache_specs``) shared through ``block_table`` ([B,
+    max_pages] int32).  With ``chunk_lens`` ([B]) the call is a ragged
+    chunked prefill and ``cache_len`` each row's base offset; without it,
+    ``S == 1`` and ``cache_len`` [B] is each row's decode position.
+    Positions default to ``base + arange(S)`` per row (prefill) or
+    ``cache_len`` (decode).  The pools are updated in place and the
+    returned cache tree holds the same tensors."""
+    _check_kinds(cfg)
+    if cache is None or block_table is None or cache_len is None:
+        raise NotImplementedError(
+            "the port's lm_apply runs the paged serving path only (cache, "
+            "cache_len and block_table); training and the contiguous cache "
+            "are later slices (ROADMAP.md queue 1)")
+    if inputs.ndim != 2:
+        raise NotImplementedError("embedding inputs are a later slice")
+    head, unit, reps, tail = block_pattern(cfg)
+    x = params["embed"][inputs].to(cfg.compute_dtype)
+    Bsz, S = inputs.shape
+    dev = inputs.device
+    cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32)
+    if positions is None:
+        if chunk_lens is not None:
+            base = cache_len.reshape(-1).expand(Bsz)
+            positions = base[:, None] + torch.arange(S, dtype=torch.int32,
+                                                      device=dev)[None, :]
+        else:
+            positions = cache_len.reshape(-1).expand(Bsz)[:, None]
+
+    def run_layer(ck, p, x, c):
+        cc = _pack_cache(c, cache_len, block_table)
+        x, nc = B.attn_apply(cfg, p["t"], x, positions, cc,
+                             chunk_lens=chunk_lens)
+        if ck == "mlp":
+            x = B.mlp_apply(cfg, p["c"], x)
+        return x, _unpack_cache(nc)
+
+    new_cache: Dict[str, Any] = {"head_layers": {}, "tail_layers": {}}
+    for i, (_, ck) in enumerate(head):
+        x, new_cache["head_layers"][f"h{i}"] = run_layer(
+            ck, params["head_layers"][f"h{i}"], x, cache["head_layers"][f"h{i}"])
+    for r in range(reps):
+        for j, (_, ck) in enumerate(unit):
+            p_r = map_tree(lambda t: t[r], params["unit"][f"b{j}"])
+            c_r = map_tree(lambda t: t[r], cache["unit"][f"b{j}"])
+            x, _ = run_layer(ck, p_r, x, c_r)  # views: pools written in place
+    new_cache["unit"] = cache["unit"]
+    for i, (_, ck) in enumerate(tail):
+        x, new_cache["tail_layers"][f"t{i}"] = run_layer(
+            ck, params["tail_layers"][f"t{i}"], x, cache["tail_layers"][f"t{i}"])
+
+    x = B.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    head_w = (params["embed"].T if cfg.tie_embeddings
+              else params["lm_head"]).to(cfg.compute_dtype)
+    logits = x.to(cfg.compute_dtype) @ head_w
+    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)

@@ -1,0 +1,74 @@
+"""The CUDA kernels of ``repro_torch`` against their plain PyTorch versions,
+on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
+elsewhere; on the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no jax, so it runs where only torch is installed."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.kernels import prefill_attention as tpa  # noqa: E402
+
+# fp32 sums in another order; bf16 outputs may round one bf16 ulp apart
+TOLS = [("float32", 1e-4), ("bfloat16", 2e-2)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (run on the card)")
+
+
+def _randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_decode_kernel_matches_plain(dtype, tol):
+    """Full tinyllama widths; an empty row, page edges and sentinels."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    B, H, KV, D, page, mp = 5, 32, 4, 64, 16, 16
+    num_pages = B * mp + 2
+    lens = np.array([0, 1, 16, 17, 256], np.int32)
+    bt = rng.permutation(num_pages)[:B * mp].reshape(B, mp).astype(np.int32)
+    for b, n in enumerate(lens):
+        bt[b, -(-n // page):] = num_pages + b  # sentinels past each length
+    args = (_randn(rng, (B, H, D), dt), _randn(rng, (num_pages, page, KV, D), dt),
+            _randn(rng, (num_pages, page, KV, D), dt), torch.from_numpy(bt).cuda(),
+            torch.from_numpy(lens).cuda())
+    got = tda.decode_attention_paged_kernel(*args)
+    want = tda.decode_attention_paged_plain(*args)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_prefill_kernel_matches_plain(dtype, tol):
+    """Full tinyllama widths: a full chunk, a straddling partial chunk, an
+    inert row; the pools are written identically, padding rows are zero."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    B, T, H, KV, D, page, mp = 3, 64, 32, 4, 64, 16, 8
+    num_pages = B * mp + 1
+    bt = rng.permutation(num_pages)[:B * mp].reshape(B, mp).astype(np.int32)
+    bt[1, 4:] = num_pages + 1  # sentinels past row 1's frontier (57 tokens)
+    q, kn, vn = (_randn(rng, s, dt) for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kp, vp = (_randn(rng, (num_pages, page, KV, D), dt) for _ in range(2))
+    rest = [torch.from_numpy(a).cuda() for a in
+            (bt, np.array([0, 37, 100], np.int32), np.array([64, 20, 0], np.int32))]
+    go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(), *rest)
+    wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(), *rest)
+    torch.cuda.synchronize()
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert (go[1, 20:] == 0).all() and (go[2] == 0).all()
