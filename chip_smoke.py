@@ -3,23 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line per layout; any failure exits
+non-zero:
 
 1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
             sm_90a (one nvcc per source, all at once) into build/kernels/.
-2. kernels  each kernel against its plain PyTorch version on the card, at
-            full tinyllama-1.1b shapes and at the smoke shapes, fp32 and
-            bf16: ragged lengths, sentinel table entries, page-straddling
-            chunks, inert rows and an empty decode row.
+2. kernels  each of the four kernels against its plain PyTorch version on
+            the card, at full tinyllama-1.1b shapes and at the smoke
+            shapes, fp32 and bf16: ragged, empty, full and past-the-end
+            lengths, a scalar length, a window, an S that is not a power of
+            two, sentinel table entries, page-straddling chunks, inert rows
+            and chunks whose tokens run past the end of the cache.
 3. serve    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, bf16 compute) serves 16 greedy requests shaped
             like the repo's mixed workload through ``submit`` +
-            ``run_until_drained``; both kernels' launch counters must move.
+            ``run_until_drained``, once on the paged KV cache and once on
+            the contiguous slot cache.  Every launch counter is zeroed just
+            before each run and read just after: the layout's two kernels
+            must have launched, the other layout's two must not.
 4. timing   each kernel's wrapper at the serving shapes against its plain
-            version (CUDA events), with its roofline bound.
-5. profile  torch.profiler over a separate serving run: device busy and
-            idle share, kernels and host ops per engine step, top kernels.
-6. stream   the same engine in fp32: kernel path vs plain path must emit
+            version and a PyTorch SDPA yardstick (CUDA events), with its
+            roofline bound.
+5. profile  torch.profiler over a separate serving run per layout: device
+            busy and idle share, kernels and host ops per engine step, the
+            port's kernels' device time per launch, top kernels.
+6. stream   the same engines in fp32: on each layout the kernel path and
+            the plain path, and the two layouts' kernel paths, must emit
             token-identical greedy streams.
 
 The last lines are the card (nvidia-smi name and power limit), the kernel
@@ -57,7 +66,21 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ARCH = "tinyllama-1.1b"
 PAGE = 16
+MAX_LEN = 512
 SEED = 0
+LAYOUTS = ("paged", "contiguous")
+# each wrapper's launch counter, and the kernels each layout's path runs
+COUNTED = {"decode_attention_paged": dec.decode_attention_paged_kernel,
+           "prefill_attention_paged": pf.prefill_attention_paged_kernel,
+           "decode_attention": dec.decode_attention_kernel,
+           "prefill_attention": pf.prefill_attention_kernel}
+PATH_KERNELS = {"paged": ("decode_attention_paged", "prefill_attention_paged"),
+                "contiguous": ("decode_attention", "prefill_attention")}
+# each kernel's device symbols (torch.profiler event names)
+SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_kernel"),
+           "prefill_attention_paged": ("prefill_kernel",),
+           "decode_attention": ("contig_decode_split_kernel", "decode_combine_kernel"),
+           "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_kernel")}
 
 
 def emit(obj) -> None:
@@ -132,6 +155,43 @@ def prefill_case(gen, T, H, KV, D, max_pages, base, clens, dtype):
             randn(gen, (B, T, KV, D), dtype), kp, vp, bt, i32(base), i32(clens))
 
 
+def contig_decode_case(gen, H, KV, D, S, lens, dtype):
+    """q and contiguous caches for ``lens`` (a list: one row each; an
+    int: three rows sharing one scalar length)."""
+    B = len(lens) if isinstance(lens, list) else 3
+    return (randn(gen, (B, H, D), dtype), randn(gen, (B, S, KV, D), dtype),
+            randn(gen, (B, S, KV, D), dtype), i32(lens))
+
+
+def contig_prefill_case(gen, T, H, KV, D, S, base, clens, dtype):
+    B = len(base)
+    return (randn(gen, (B, T, H, D), dtype), randn(gen, (B, T, KV, D), dtype),
+            randn(gen, (B, T, KV, D), dtype), randn(gen, (B, S, KV, D), dtype),
+            randn(gen, (B, S, KV, D), dtype), i32(base), i32(clens))
+
+
+def check_contig_decode(args, window=0):
+    """(max abs error vs plain, empty rows exactly zero)."""
+    got = dec.decode_attention_kernel(*args, window=window)
+    want = dec.decode_attention_plain(*args, window=window)
+    empty = args[3].expand(got.shape[0]) == 0
+    return ((got.float() - want.float()).abs().max().item(),
+            bool((got[empty] == 0).all()))
+
+
+def check_contig_prefill(args):
+    """(max abs error vs plain, caches equal and padding rows exactly
+    zero); each side writes its own copy of the caches."""
+    q, kn, vn, kc, vc, base, clens = args
+    got, gk, gv = pf.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(),
+                                              base, clens)
+    want, wk, wv = pf.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(),
+                                              base, clens)
+    pad = torch.arange(q.shape[1], device="cuda")[None, :] >= clens[:, None]
+    ok = torch.equal(gk, wk) and torch.equal(gv, wv) and bool((got[pad] == 0).all())
+    return (got.float() - want.float()).abs().max().item(), ok
+
+
 def check_decode(args):
     """(max abs error vs plain, empty rows exactly zero)."""
     got = dec.decode_attention_paged_kernel(*args)
@@ -196,8 +256,37 @@ def phase_kernels():
                           "tol": TOL[dtype], "pools_equal_pad_zero": ok})
             if not (err <= TOL[dtype] and ok):
                 raise AssertionError(f"prefill kernel disagrees: {cases[-1]}")
-    emit({"phase": "kernels", "ok": True,
-          "kernels": ["decode_attention_paged", "prefill_attention_paged"],
+            # contiguous decode: empty row, one token, S-1, S, past S; a
+            # scalar length; a window; an S that is not a power of two
+            for case, S2, lens, window in (
+                    ("lengths", S, [0, 1, 37, S // 2 + 3, S - 1, S, S + 5], 0),
+                    ("scalar", S, S // 2 + 1, 0),
+                    ("window", S, [5, 40, S // 2, S], 40),
+                    ("S=200", 200, [0, 1, 100, 199, 200], 0)):
+                err, ok = check_contig_decode(
+                    contig_decode_case(gen, H, KV, D, S2, lens, dtype), window)
+                cases.append({"kernel": "decode_attention", "shape": sname,
+                              "case": case, "dtype": str(dtype),
+                              "max_abs_err": err, "tol": TOL[dtype],
+                              "empty_rows_zero": ok})
+                if not (err <= TOL[dtype] and ok):
+                    raise AssertionError(f"contiguous decode kernel disagrees: "
+                                         f"{cases[-1]}")
+            # contiguous prefill: a full chunk at 0, a partial chunk, an
+            # inert row, a chunk ending exactly at S with padding past it,
+            # a chunk whose valid tokens run past S (they drop), a row
+            # wholly past S
+            base = [0, 37, 5, S - T // 2, S - 3, S + 2]
+            clens = [T, T // 2 + 1, 0, T // 2, T, 4]
+            err, ok = check_contig_prefill(contig_prefill_case(
+                gen, T, H, KV, D, S, base, clens, dtype))
+            cases.append({"kernel": "prefill_attention", "shape": sname,
+                          "dtype": str(dtype), "max_abs_err": err,
+                          "tol": TOL[dtype], "caches_equal_pad_zero": ok})
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"contiguous prefill kernel disagrees: "
+                                     f"{cases[-1]}")
+    emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
 
 
@@ -215,41 +304,59 @@ def mixed_requests(n: int, vocab: int, seed: int):
 
 
 def serve_engine(cfg, params, **kw):
-    return ServeEngine(cfg, max_slots=8, max_len=512, page_size=PAGE,
+    return ServeEngine(cfg, max_slots=8, max_len=MAX_LEN, page_size=PAGE,
                        prefill_chunk_tokens=64, params=params, **kw)
 
 
-def phase_serve(cfg, params):
+def zero_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def phase_serve(cfg, params, layout):
+    """The main path on one KV layout: every counter zeroed just before
+    the run and read just after."""
     work = mixed_requests(16, cfg.vocab_size, SEED)
-    warm = serve_engine(cfg, params)  # cuBLAS handles, library loads
+    warm = serve_engine(cfg, params, kv_layout=layout)  # cuBLAS, libraries
     for p, _ in work[:2]:
         warm.submit(p, max_new_tokens=4)
     warm.run_until_drained()
     del warm
 
-    eng = serve_engine(cfg, params)
+    eng = serve_engine(cfg, params, kv_layout=layout)
     torch.cuda.synchronize()
-    dec.decode_attention_paged_kernel.launches = 0
-    pf.prefill_attention_paged_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention_paged": dec.decode_attention_paged_kernel.launches,
-                "prefill_attention_paged": pf.prefill_attention_paged_kernel.launches}
+    launches = read_counts()
     bad = [r.rid for r in reqs
            if r.state is not RequestState.DONE or len(r.tokens) != r.max_new_tokens
            or not all(0 <= t < cfg.padded_vocab for t in r.tokens)]
     if bad:
         raise AssertionError(f"requests not served in full: {bad}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    dec_name, pf_name = PATH_KERNELS[layout]
+    if min(launches[dec_name], launches[pf_name]) <= 0:
+        raise AssertionError(f"a kernel never launched on the {layout} path: "
+                             f"{launches}")
+    others = {n: c for n, c in launches.items() if n not in PATH_KERNELS[layout]}
+    if any(others.values()):
+        raise AssertionError(f"the {layout} path launched another layout's "
+                             f"kernels: {others}")
     stats = eng.stats()
+    if stats["kv_layout"] != layout:
+        raise AssertionError(f"engine reports layout {stats['kv_layout']}")
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     gaps = np.array([g for r in reqs for g in r.inter_token_s]) * 1e3
     tokens = sum(len(r.tokens) for r in reqs)
-    out = {"phase": "serve", "ok": True, "arch": cfg.name,
+    out = {"phase": "serve", "ok": True, "kv_layout": layout, "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "compute_dtype": str(cfg.compute_dtype), "requests": len(reqs),
            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -263,33 +370,38 @@ def phase_serve(cfg, params):
            "decode_steps": stats["decode_steps"],
            "prefill_chunks": stats["prefill_chunks"],
            "launches": launches,
-           "launches_per_decode_step":
-               launches["decode_attention_paged"] / stats["decode_steps"],
-           "launches_per_prefill_chunk":
-               launches["prefill_attention_paged"] / stats["prefill_chunks"],
+           "launches_per_decode_step": launches[dec_name] / stats["decode_steps"],
+           "launches_per_prefill_chunk": launches[pf_name] / stats["prefill_chunks"],
+           "kv_cache_capacity_bytes": stats["kv_cache_capacity_bytes"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     # the widest buckets the run used, and the first eight requests' final
     # lengths, shape the timing inputs
-    shapes = {"decode_mb": max(mb for mb, _ in eng._seen_shapes["decode"]),
-              "prefill_T_mb": max(eng._seen_shapes["prefill"]),
-              "lens": [len(p) + g for p, g in work[:8]]}
+    shapes = {"lens": [len(p) + g for p, g in work[:8]]}
+    if layout == "paged":
+        shapes["decode_mb"] = max(mb for mb, _ in eng._seen_shapes["decode"])
+        shapes["prefill_T_mb"] = max(eng._seen_shapes["prefill"])
     return out, shapes
 
 
-def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bytes_,
-               flops, lib_ms, at):
+def kernel_row(name, replaces, launches, err, ms, plain_ms, bytes_, flops,
+               lib_ms, lib_note, at):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"name": name, "route": "cuda", "source": source,
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-            "library_note": "SDPA over K/V pre-gathered to contiguous "
-                            "[B,H,S,D]: no table gather, no cache write",
+            "library_ms": lib_ms, "library_note": lib_note,
             "bytes": bytes_, "flops": flops, "at": at}
+
+
+PAGED_SDPA = ("SDPA over K/V pre-gathered to contiguous [B,H,S,D]: no table "
+              "gather, no cache write")
+CONTIG_SDPA = ("SDPA over the cache with K/V pre-expanded to [B,H,S,D] and a "
+               "length (decode) or causal (prefill) mask: no cache write")
 
 
 def sdpa_inputs(q, kp, vp, bt, mask, H, KV):
@@ -304,7 +416,36 @@ def sdpa(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def phase_timing(cfg, serve, shapes):
+def contig_sdpa_inputs(q, k, v, mask, H, KV):
+    """The library yardstick's inputs over a contiguous cache: K/V repeated
+    to every head ahead of time, so its call does less work."""
+    k = k.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+    return q, k, v, mask
+
+
+def causal_mask(base, T, S):
+    """[B, 1, T, S]: key position <= the query's position base + t."""
+    qpos = base[:, None] + torch.arange(T, device="cuda")[None, :]
+    kpos = torch.arange(S, device="cuda")
+    return (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+
+
+def prefill_bytes(base, clens, T, B, H, KV, D, esz, index_bytes):
+    valid_q = sum(clens)
+    prefix = sum(b + c for b, c in zip(base, clens))
+    return (2 * 2 * valid_q * KV * D * esz   # fresh K/V read, written to cache
+            + 2 * prefix * KV * D * esz      # each row's prefix read
+            + valid_q * H * D * esz          # valid queries read
+            + B * T * H * D * esz            # out written, padding rows too
+            + index_bytes)                   # table, base, lengths
+
+
+def prefill_flops(base, clens, H, D):
+    return 4 * H * D * sum(b + i + 1 for b, c in zip(base, clens) for i in range(c))
+
+
+def phase_timing(cfg, launches, shapes):
     """Each wrapper at the serving shapes, rotating over one input set per
     layer so the pools are not served from L2 (as on the real path)."""
     dt = cfg.compute_dtype
@@ -330,9 +471,8 @@ def phase_timing(cfg, serve, shapes):
               + 2 * B * H * D * esz            # q read, out written
               + 4 * B * (mb + 1))              # table and lengths
     rows.append(kernel_row(
-        "decode_attention_paged", "src/repro_torch/kernels/csrc/decode_attention_paged.cu",
-        "src/repro/kernels/decode_attention.py:199", serve["launches"], err, ms,
-        plain_ms, bytes_, 4 * H * D * live, lib_ms,
+        "decode_attention_paged", "src/repro/kernels/decode_attention.py:199",
+        launches, err, ms, plain_ms, bytes_, 4 * H * D * live, lib_ms, PAGED_SDPA,
         {"B": B, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mb,
          "cache_len": lens, "dtype": str(dt)}))
 
@@ -352,43 +492,72 @@ def phase_timing(cfg, serve, shapes):
         pf.write_chunk_paged(vp, bt, vn, bs, cl)
 
     scatter_ms = cuda_ms(scatter)
-
-    def causal_mask(bs):
-        qpos = bs[:, None] + torch.arange(T, device="cuda")[None, :]
-        kpos = torch.arange(mbp * PAGE, device="cuda")
-        return (kpos[None, None, :] <= qpos[:, :, None])[:, None]
-
     lib = rotate([sdpa_inputs(q.transpose(1, 2).contiguous(), kp, vp, bt,
-                              causal_mask(bs), H, KV)
+                              causal_mask(bs, T, mbp * PAGE), H, KV)
                   for q, kn, vn, kp, vp, bt, bs, cl in cases])
     lib_ms = cuda_ms(lambda: sdpa(*lib()))
-    valid_q = sum(clens)
-    prefix = sum(b + c for b, c in zip(base, clens))
-    bytes_ = (2 * 2 * valid_q * KV * D * esz   # fresh K/V read, written to pool
-              + 2 * prefix * KV * D * esz      # each row's prefix read
-              + valid_q * H * D * esz          # valid queries read
-              + B * T * H * D * esz            # out written, padding rows too
-              + 4 * B * (mbp + 2))             # table, base, lengths
-    flops = 4 * H * D * sum(b + i + 1 for b, c in zip(base, clens) for i in range(c))
     rows.append(kernel_row(
-        "prefill_attention_paged", "src/repro_torch/kernels/csrc/prefill_attention_paged.cu",
-        "src/repro/kernels/prefill_attention.py:222", serve["launches"], err, ms,
-        plain_ms, bytes_, flops, lib_ms,
+        "prefill_attention_paged", "src/repro/kernels/prefill_attention.py:222",
+        launches, err, ms, plain_ms,
+        prefill_bytes(base, clens, T, B, H, KV, D, esz, 4 * B * (mbp + 2)),
+        prefill_flops(base, clens, H, D), lib_ms, PAGED_SDPA,
         {"B": B, "T": T, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mbp,
          "base": base, "chunk_lens": clens, "dtype": str(dt),
          "scatter_ms": scatter_ms}))
+
+    # the contiguous slot cache: each slot owns a [MAX_LEN, KV, D] row
+    S = MAX_LEN
+    lens = [min(n, S) for n in shapes["lens"]]
+    cases = [contig_decode_case(gen, H, KV, D, S, lens, dt) for _ in range(L)]
+    err = max(check_contig_decode(a)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: dec.decode_attention_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: dec.decode_attention_plain(*nxt()))
+    lib = rotate([contig_sdpa_inputs(
+        q[:, :, None], k, v,
+        (torch.arange(S, device="cuda")[None, :] < cl[:, None])[:, None, None, :],
+        H, KV) for q, k, v, cl in cases])
+    lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    live = sum(lens)
+    bytes_ = (2 * live * KV * D * esz          # live K and V, read once
+              + 2 * B * H * D * esz            # q read, out written
+              + 4 * B)                         # lengths
+    rows.append(kernel_row(
+        "decode_attention", "src/repro/kernels/decode_attention.py:114",
+        launches, err, ms, plain_ms, bytes_, 4 * H * D * live, lib_ms, CONTIG_SDPA,
+        {"B": B, "H": H, "KV": KV, "D": D, "S": S, "cache_len": lens,
+         "window": 0, "dtype": str(dt)}))
+
+    cases = [contig_prefill_case(gen, T, H, KV, D, S, base, clens, dt)
+             for _ in range(L)]
+    err = max(check_contig_prefill(a)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: pf.prefill_attention_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: pf.prefill_attention_plain(*nxt()))
+    lib = rotate([contig_sdpa_inputs(q.transpose(1, 2).contiguous(), kc, vc,
+                                     causal_mask(bs, T, S), H, KV)
+                  for q, kn, vn, kc, vc, bs, cl in cases])
+    lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    rows.append(kernel_row(
+        "prefill_attention", "src/repro/kernels/prefill_attention.py:162",
+        launches, err, ms, plain_ms,
+        prefill_bytes(base, clens, T, B, H, KV, D, esz, 4 * B * 2),
+        prefill_flops(base, clens, H, D), lib_ms, CONTIG_SDPA,
+        {"B": B, "T": T, "H": H, "KV": KV, "D": D, "S": S, "base": base,
+         "chunk_lens": clens, "dtype": str(dt)}))
     emit({"phase": "timing", "ok": True, "rows": rows})
     return rows
 
 
-def phase_profile(cfg, params, n: int = 8):
-    """Where a serving run's time goes: torch.profiler over the first
-    ``n`` requests of the workload (a separate, unmeasured run; the
-    profiler's own host cost inflates the wall time and the idle share)."""
+def phase_profile(cfg, params, layout, n: int = 8):
+    """Where a serving run's time goes on one layout: torch.profiler over
+    the first ``n`` requests of the workload (a separate, unmeasured run;
+    the profiler's own host cost inflates the wall time and the idle
+    share).  Returns the device time per launch of the layout's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     work = mixed_requests(16, cfg.vocab_size, SEED)[:n]
-    eng = serve_engine(cfg, params)
+    eng = serve_engine(cfg, params, kv_layout=layout)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -409,17 +578,21 @@ def phase_profile(cfg, params, n: int = 8):
     # the port's own kernels: device time per launch, free of the host
     # cost that the CUDA-event timing of back-to-back wrapper calls carries
     ours = {}
-    for name in ("decode_split_kernel", "decode_combine_kernel", "prefill_kernel"):
-        hits = [v for k, v in by_name.items() if f"::{name}<" in k]
-        ms, launches = sum(v[0] for v in hits), sum(v[1] for v in hits)
-        ours[name] = {"ms": ms, "launches": launches,
-                   "us_per_launch": 1e3 * ms / launches if launches else None}
+    for kernel in PATH_KERNELS[layout]:
+        for name in SYMBOLS[kernel]:
+            hits = [v for k, v in by_name.items() if f"::{name}<" in k]
+            ms, launches = sum(v[0] for v in hits), sum(v[1] for v in hits)
+            if not launches:
+                raise AssertionError(f"the profiler saw no {name} launch")
+            ours[name] = {"ms": ms, "launches": launches,
+                          "us_per_launch": 1e3 * ms / launches}
     stats = eng.stats()
     steps = stats["decode_steps"] + stats["prefill_chunks"]
     cpu_ops = sum(1 for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.name.startswith("aten::") and e.cpu_parent is None)
-    emit({"phase": "profile", "ok": True, "requests": n, "wall_ms": wall_ms,
+    emit({"phase": "profile", "ok": True, "kv_layout": layout, "requests": n,
+          "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
           "gpu_kernels": len(kernels), "engine_steps": steps,
@@ -428,6 +601,8 @@ def phase_profile(cfg, params, n: int = 8):
           "port_kernels": ours,
           "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
                           for k, v in top]})
+    return {kernel: sum(ours[name]["us_per_launch"] for name in SYMBOLS[kernel])
+            for kernel in PATH_KERNELS[layout]}
 
 
 def top2_gap(cfg, params, prompt, prefix):
@@ -445,27 +620,37 @@ def top2_gap(cfg, params, prompt, prefix):
 
 
 def phase_stream(cfg, params, n: int = 4):
-    """fp32 greedy streams: kernel path == plain path, token for token."""
+    """fp32 greedy streams, token for token: on each layout the kernel
+    path equals the plain path, and the contiguous kernel path equals the
+    paged one."""
     cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
     work = mixed_requests(n, cfg.vocab_size, SEED + 2)
     streams = {}
-    for impl in ("auto", "ref"):
-        eng = serve_engine(cfg32, params, decode_impl=impl)
-        reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
-        eng.run_until_drained()
-        streams[impl] = [r.tokens for r in reqs]
-    for i, (a, b) in enumerate(zip(streams["auto"], streams["ref"])):
-        if a != b:
-            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            emit({"phase": "stream", "ok": False, "request": i,
-                  "first_diverging_step": step, "kernel": a[step],
-                  "plain": b[step],
-                  "plain_top2_logit_gap": top2_gap(cfg32, params, work[i][0],
-                                                   b[:step])})
-            raise AssertionError("kernel and plain greedy streams diverge")
+    for layout in LAYOUTS:
+        for impl in ("auto", "ref"):
+            eng = serve_engine(cfg32, params, decode_impl=impl, kv_layout=layout)
+            reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
+            eng.run_until_drained()
+            streams[layout, impl] = [r.tokens for r in reqs]
+    pairs = ((("paged", "auto"), ("paged", "ref")),
+             (("contiguous", "auto"), ("contiguous", "ref")),
+             (("contiguous", "auto"), ("paged", "auto")))
+    for x, y in pairs:
+        for i, (a, b) in enumerate(zip(streams[x], streams[y])):
+            if a != b:
+                step = next(j for j, (s, t) in enumerate(zip(a, b)) if s != t)
+                emit({"phase": "stream", "ok": False, "request": i,
+                      "streams": ["/".join(x), "/".join(y)],
+                      "first_diverging_step": step, "tokens": [a[step], b[step]],
+                      "plain_top2_logit_gap": top2_gap(cfg32, params, work[i][0],
+                                                       streams["paged", "ref"][i][:step])})
+                raise AssertionError(f"greedy streams {x} and {y} diverge")
     emit({"phase": "stream", "ok": True, "requests": n,
-          "tokens": sum(len(s) for s in streams["auto"]),
-          "compute_dtype": str(cfg32.compute_dtype), "identical": True})
+          "tokens": sum(len(s) for s in streams["paged", "auto"]),
+          "compute_dtype": str(cfg32.compute_dtype),
+          "identical": ["paged kernel == paged plain",
+                        "contiguous kernel == contiguous plain",
+                        "contiguous kernel == paged kernel"]})
 
 
 def main() -> int:
@@ -480,9 +665,17 @@ def main() -> int:
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, model_specs(cfg), "cuda")
-    serve, shapes = phase_serve(cfg, params)
-    rows = phase_timing(cfg, serve, shapes)
-    phase_profile(cfg, params)
+    launches, shapes = {}, None
+    for layout in LAYOUTS:
+        serve, layout_shapes = phase_serve(cfg, params, layout)
+        launches.update({n: serve["launches"][n] for n in PATH_KERNELS[layout]})
+        shapes = shapes or layout_shapes  # the paged run's buckets
+    rows = phase_timing(cfg, launches, shapes)
+    device_us = {}
+    for layout in LAYOUTS:
+        device_us.update(phase_profile(cfg, params, layout))
+    for row in rows:
+        row["device_us_per_launch"] = device_us[row["name"]]
     phase_stream(cfg, params)
     print(gpu_line(), flush=True)
     emit({"kernels": rows})

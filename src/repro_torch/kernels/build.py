@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes.  Libraries land in
 ``build/kernels/`` at the repository root, named by a hash of their
-source and flags, so an edited source is never served by a stale
-library.  The first launch of a kernel builds it; ``build_all`` builds
-every source at once, one ``nvcc`` per source, all running together.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is never served by a stale library.  The first launch
+of a kernel builds it; ``build_all`` builds every source at once, one
+``nvcc`` per source, all running together.
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of each library's entry point (pointers and the stream as
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 SIGNATURES = {
+    # dtype, q, k, v, cache_len, m, l, acc, out,
+    # B, S, H, KV, D, span, nsplit, window, scale, stream
+    "decode_attention": [_I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
+    # dtype, q, k_new, v_new, k_cache, v_cache, base, chunk_lens, out,
+    # B, T, S, H, KV, D, scale, stream
+    "prefill_attention": [_I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
     # dtype, q, k_pages, v_pages, block_table, cache_len, m, l, acc, out,
     # B, H, KV, D, num_pages, page_size, max_pages, span, nsplit, scale, stream
     "decode_attention_paged": [_I] + [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
@@ -53,7 +60,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path: a hash of its source, every shared header in
+    ``csrc/`` (any source may include one) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"

@@ -30,24 +30,11 @@
 //   * a second, tiny kernel merges the fp32 partials into [B, H, D] in
 //     q's dtype.
 // Plain FMA on CUDA cores; wgmma/TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // grid (nsplit, B*KV), kThreads threads.  Partials are laid out
 // [B*KV, nsplit, G] (m, l) and [B*KV, nsplit, G, D] (acc).
@@ -166,36 +153,6 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   for (int i = tid; i < G * D; i += kThreads) acc_dst[i] = acc_s[i];
 }
 
-// grid (B*KV), kThreads threads: merge the nsplit partials of each head.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
-    const float* __restrict__ m_in, const float* __restrict__ l_in,
-    const float* __restrict__ acc_in, T* __restrict__ out, int H, int KV,
-    int nsplit) {
-  const int bkv = blockIdx.x;
-  const int b = bkv / KV;
-  const int kv = bkv % KV;
-  const int G = H / KV;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float m_all = kNegInf;
-    for (int s = 0; s < nsplit; ++s)
-      m_all = fmaxf(m_all, m_in[((size_t)bkv * nsplit + s) * G + g]);
-    float l_tot = 0.f;
-    float acc = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t part = (size_t)bkv * nsplit + s;
-      const float w = expf(m_in[part * G + g] - m_all);
-      l_tot += l_in[part * G + g] * w;
-      acc += acc_in[(part * G + g) * D + d] * w;
-    }
-    // an empty row has only neutral partials: acc 0 over 1e-30 is 0
-    out[((size_t)b * H + (size_t)kv * G + g) * D + d] =
-        from_f32<T>(acc / fmaxf(l_tot, 1e-30f));
-  }
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* block_table, const int* cache_len, float* m,
@@ -218,7 +175,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
       num_pages, page_size, max_pages, span, nsplit, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T, D><<<B * KV, kThreads, 0, stream>>>(
+  decode_combine_kernel<T, D><<<B * KV, kCombineThreads, 0, stream>>>(
       m, l, acc, static_cast<T*>(out), H, KV, nsplit);
   return cudaGetLastError();
 }

@@ -31,25 +31,12 @@
 //     there are no bank conflicts;
 //   * the online softmax rescales once per 16 keys, in fp32.
 // wgmma/TMA and a tensor-core QK^T are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kKeyTile = 16;  // keys per online-softmax rescale
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // grid (ceil(T / bq), B*KV), kThreads threads; thread r owns query
 // t = qi*bq + r / G of head kv*G + r % G.

@@ -1,4 +1,4 @@
-"""Dispatch for the paged attention ops (mirror of the paged half of
+"""Dispatch for the attention ops (mirror of the attention half of
 ``repro.kernels.ops``).  The model code calls these with
 ``impl=cfg.decode_impl``:
 
@@ -20,6 +20,18 @@ def _check_impl(impl: str) -> None:
                          f"{'|'.join(DECODE_IMPLS)}")
 
 
+def decode_attention(q, k, v, cache_len, *, window: int = 0,
+                     impl: str = "auto"):
+    """q [B,H,D]; k, v [B,S,KV,D]; cache_len [] or [B] int32; static
+    ``window`` (0 = full attention) -> [B,H,D]."""
+    _check_impl(impl)
+    if impl == "auto":
+        return _dec.decode_attention(q, k, v, cache_len, window=window)
+    if impl == "cuda":
+        return _dec.decode_attention_kernel(q, k, v, cache_len, window=window)
+    return _dec.decode_attention_plain(q, k, v, cache_len, window=window)
+
+
 def decode_attention_paged(q, k_pages, v_pages, block_table, cache_len, *,
                            impl: str = "auto"):
     """q [B,H,D]; pools [num_pages,page_size,KV,D]; block_table [B,max_pages]
@@ -33,6 +45,20 @@ def decode_attention_paged(q, k_pages, v_pages, block_table, cache_len, *,
                                                   block_table, cache_len)
     return _dec.decode_attention_paged_plain(q, k_pages, v_pages, block_table,
                                              cache_len)
+
+
+def prefill_attention(q, k_new, v_new, k_cache, v_cache, base, chunk_lens,
+                      *, impl: str = "auto"):
+    """Ragged cache-writing prefill, contiguous layout.  q [B,T,H,D];
+    k_new, v_new [B,T,KV,D]; caches [B,S,KV,D] (written in place); base,
+    chunk_lens [] or [B] -> (out [B,T,H,D], k_cache, v_cache)."""
+    _check_impl(impl)
+    args = (q, k_new, v_new, k_cache, v_cache, base, chunk_lens)
+    if impl == "auto":
+        return _pf.prefill_attention(*args)
+    if impl == "cuda":
+        return _pf.prefill_attention_kernel(*args)
+    return _pf.prefill_attention_plain(*args)
 
 
 def prefill_attention_paged(q, k_new, v_new, k_pages, v_pages, block_table,

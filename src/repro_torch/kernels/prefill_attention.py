@@ -1,21 +1,28 @@
-"""Ragged cache-writing paged prefill attention: the CUDA kernel's wrapper,
-its plain PyTorch version, and the cache scatter (mirror of the paged half
-of ``repro.kernels.prefill_attention``).
+"""Ragged cache-writing prefill attention: the CUDA kernels' wrappers,
+their plain PyTorch versions, and the cache scatters (mirror of
+``repro.kernels.prefill_attention``).
 
 A ``[B, T]`` slab of fresh prompt tokens (row ``b`` carries
-``chunk_lens[b]`` valid tokens, the rest right-padding) is scattered into
-the shared page pool ``[num_pages, page_size, KV, D]`` at each row's own
-``base[b]`` offset through its block table, then attended causally over
-the row's whole prefix ``[0, base[b] + i]``.  Padding query rows come out
-as exact zeros; rows with ``chunk_lens == 0`` are inert.
+``chunk_lens[b]`` valid tokens, the rest right-padding) is written into
+each row's cache at its own ``base[b]`` offset, then attended causally
+over the row's whole prefix ``[0, base[b] + i]``.  Padding query rows
+come out as exact zeros; rows with ``chunk_lens == 0`` are inert.  Two
+layouts, as in JAX:
 
-The JAX function returns new pools; here the pools are updated **in
-place** (saving a copy of every pool per call) and returned, so the
-signature stays ``(out, k_pages, v_pages)``.
+* ``prefill_attention``: contiguous cache rows ``[B, S, KV, D]``
+  (``csrc/prefill_attention.cu``: a scatter kernel, then the attention
+  kernel, on one stream with no host sync);
+* ``prefill_attention_paged``: the shared page pool ``[num_pages,
+  page_size, KV, D]`` through per-row block tables
+  (``csrc/prefill_attention_paged.cu``; its cache write is the plain
+  scatter).
 
-``prefill_attention_paged`` takes the plain version for CPU tensors and
-launches ``csrc/prefill_attention_paged.cu`` for CUDA tensors; there is no
-fallback between the two.
+The JAX functions return new caches; here the caches are updated **in
+place** (saving a copy of every cache per call) and returned, so the
+signatures stay ``(out, k_cache, v_cache)``.
+
+The dispatchers take the plain version for CPU tensors and launch the
+kernel for CUDA tensors; there is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -27,9 +34,25 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-# the plain version of the kernel: masked scatter, gather through the
-# clamped table, fp32 softmax, zeros for padding rows
+# the plain versions of the kernels: masked scatter (through the clamped
+# table, when paged), fp32 softmax, zeros for padding rows
+prefill_attention_plain = _ref.prefill_attention_ref
 prefill_attention_paged_plain = _ref.prefill_attention_paged_ref
+
+
+def write_chunk(cache: torch.Tensor, new: torch.Tensor, base,
+                chunk_lens) -> torch.Tensor:
+    """Scatter ``new [B, T, ...]`` into ``cache [B, S, ...]`` at per-row
+    offsets ``base``, in place; positions at or past ``chunk_lens[b]``
+    drop, and so do positions outside ``[0, S)``."""
+    B, T, S = new.shape[0], new.shape[1], cache.shape[1]
+    dev = cache.device
+    j = torch.arange(T, device=dev)[None, :]
+    pos = _ref.as_rows(base, B, dev)[:, None] + j
+    keep = (j < _ref.as_rows(chunk_lens, B, dev)[:, None]) & (pos >= 0) & (pos < S)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
+    cache[rows[keep], pos[keep]] = new[keep].to(cache.dtype)
+    return cache
 
 
 def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
@@ -57,34 +80,84 @@ def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
     return pages
 
 
-def _check(q, k_new, v_new, k_pages, v_pages, block_table):
+def _check_chunk(q, k_new, v_new, k_cache, v_cache):
+    """Device, dtype, head-dim and contiguity checks the two kernels share
+    (caches: the contiguous rows or the page pools)."""
     B, T, H, D = q.shape
-    num_pages, page_size, KV, Dk = k_pages.shape
     if q.device.type != "cuda":
         raise ValueError(f"prefill kernel needs CUDA tensors, got {q.device}")
-    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
-                    ("v_pages", v_pages), ("block_table", block_table)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
     if q.dtype not in build.KERNEL_DTYPES:
         raise ValueError(f"prefill kernel takes fp32/bf16, got {q.dtype}")
-    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pages", k_pages),
-                    ("v_pages", v_pages)):
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("k_cache", k_cache),
+                    ("v_cache", v_cache)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-    if block_table.dtype != torch.int32:
-        raise ValueError("block_table must be int32")
-    if D not in build.HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape:
-        raise ValueError(f"head dim {D} (pools {tuple(k_pages.shape)}) not in "
+    KV, Dk = k_cache.shape[2], k_cache.shape[3]
+    if D not in build.HEAD_DIMS or Dk != D or v_cache.shape != k_cache.shape:
+        raise ValueError(f"head dim {D} (caches {tuple(k_cache.shape)}) not in "
                          f"{build.HEAD_DIMS}")
     if H % KV or H // KV > 128 or k_new.shape != (B, T, KV, D) \
-            or v_new.shape != k_new.shape or block_table.shape[0] != B:
+            or v_new.shape != k_new.shape:
         raise ValueError("shape mismatch: q [B,T,H,D], k/v_new [B,T,KV,D], "
-                         "block_table [B,max_pages], H % KV == 0, H/KV <= 128")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_table", block_table)):
+                         "H % KV == 0, H/KV <= 128")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
+                             chunk_lens):
+    """Launch the CUDA kernels (CUDA tensors only, raises otherwise): the
+    chunk scatter into the caches, in place, then the attention.  Returns
+    ``(out [B, T, H, D], k_cache, v_cache)``."""
+    _check_chunk(q, k_new, v_new, k_cache, v_cache)
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B:
+        raise ValueError("caches must be [B, S, KV, D] with q's B")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    base32 = _ref.as_rows(base, B, q.device).to(torch.int32).contiguous()
+    clens32 = _ref.as_rows(chunk_lens, B, q.device).to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = build.load("prefill_attention")
+    err = lib.prefill_attention(
+        build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        base32.data_ptr(), clens32.data_ptr(), out.data_ptr(), B, T, S, H, KV,
+        D, ctypes.c_float(1.0 / math.sqrt(D)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.raise_on_error("prefill_attention", err)
+    prefill_attention_kernel.launches += 1
+    return out, k_cache, v_cache
+
+
+prefill_attention_kernel.launches = 0
+
+
+def prefill_attention(q, k_new, v_new, k_cache, v_cache, base, chunk_lens):
+    """q [B,T,H,D]; k_new, v_new [B,T,KV,D]; caches [B,S,KV,D] (updated in
+    place); base, chunk_lens [] or [B].  CPU tensors take the plain
+    version, CUDA tensors the kernels.  Returns ``(out, k_cache,
+    v_cache)``."""
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                                       base, chunk_lens)
+    return prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
+                                    chunk_lens)
+
+
+def _check_paged(q, k_new, v_new, k_pages, v_pages, block_table):
+    _check_chunk(q, k_new, v_new, k_pages, v_pages)
+    if block_table.device != q.device:
+        raise ValueError(f"block_table on {block_table.device}, q on {q.device}")
+    if block_table.dtype != torch.int32:
+        raise ValueError("block_table must be int32")
+    if block_table.shape[0] != q.shape[0] or not block_table.is_contiguous():
+        raise ValueError("block_table must be a contiguous [B, max_pages]")
 
 
 def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
@@ -92,7 +165,7 @@ def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
     """Launch the CUDA kernel (CUDA tensors only, raises otherwise).  The
     cache write is the plain scatter, done in place before the launch.
     Returns ``(out [B, T, H, D], k_pages, v_pages)``."""
-    _check(q, k_new, v_new, k_pages, v_pages, block_table)
+    _check_paged(q, k_new, v_new, k_pages, v_pages, block_table)
     B, T, H, D = q.shape
     num_pages, page_size, KV, _ = k_pages.shape
     max_pages = block_table.shape[1]

@@ -1,10 +1,10 @@
-"""Plain PyTorch oracles for the paged attention kernels (mirror of the
-paged half of ``repro.kernels.ref``): the ground truth the CUDA kernels
-are held against on the card, and the path CPU tensors take.
+"""Plain PyTorch oracles for the attention kernels (mirror of the
+attention half of ``repro.kernels.ref``): the ground truth the CUDA
+kernels are held against on the card, and the path CPU tensors take.
 
-One deliberate difference from the JAX oracle: a decode row with
-``cache_len == 0`` returns zeros, as the kernels (the Pallas one and the
-CUDA one) do, where the JAX oracle returns the mean of V.
+One deliberate difference from the JAX oracle: a decode row with no live
+position (``cache_len == 0``) returns zeros, as the kernels (the Pallas
+ones and the CUDA ones) do, where the JAX oracle returns the mean of V.
 """
 from __future__ import annotations
 
@@ -30,9 +30,10 @@ def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tenso
     return pages[bt].reshape(B, max_pages * page_size, KV, D)
 
 
-def decode_attention_ref(q, k, v, cache_len) -> torch.Tensor:
+def decode_attention_ref(q, k, v, cache_len, *, window: int = 0) -> torch.Tensor:
     """q [B,H,D]; k,v [B,S,KV,D] (cache-native) -> [B,H,D]; ``cache_len``
-    [] or [B].  Rows with ``cache_len == 0`` are zeros."""
+    [] or [B].  ``window`` > 0 also masks positions before ``cache_len -
+    window``.  Rows with no live position are zeros."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -41,10 +42,13 @@ def decode_attention_ref(q, k, v, cache_len) -> torch.Tensor:
     s = torch.einsum("bhd,bshd->bhs", q.float(), kf) / math.sqrt(D)
     cl = as_rows(cache_len, B, q.device)[:, None, None]
     pos = torch.arange(S, device=q.device)[None, None, :]
-    s = torch.where(pos < cl, s, NEG_INF)
+    mask = pos < cl
+    if window:
+        mask &= pos >= cl - window
+    s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", p, vf)
-    out = torch.where(cl > 0, out, 0.0)
+    out = torch.where(mask.any(dim=-1, keepdim=True), out, 0.0)
     return out.to(q.dtype)
 
 
@@ -54,6 +58,21 @@ def decode_attention_paged_ref(q, k_pages, v_pages, block_table,
     a contiguous view, then run the masked reference."""
     return decode_attention_ref(q, _gather_pages(k_pages, block_table),
                                 _gather_pages(v_pages, block_table), cache_len)
+
+
+def prefill_attention_ref(q, k_new, v_new, k_cache, v_cache, base,
+                          chunk_lens):
+    """Ragged cache-writing prefill oracle, contiguous layout: write row
+    ``b``'s first ``chunk_lens[b]`` chunk tokens at offset ``base[b]`` (in
+    place; positions outside the row drop) and attend each valid query
+    ``i`` causally over ``[0, base[b] + i]``; padding query rows are exact
+    zeros.  Returns ``(out [B,T,H,D], k_cache, v_cache)``."""
+    from repro_torch.kernels.prefill_attention import write_chunk
+
+    write_chunk(k_cache, k_new, base, chunk_lens)
+    write_chunk(v_cache, v_new, base, chunk_lens)
+    out = prefill_attend_ref(q, k_cache, v_cache, base, chunk_lens)
+    return out, k_cache, v_cache
 
 
 def prefill_attend_ref(q, kc, vc, base, clens) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""Transformer building blocks on the paged serving path (mirror of the
-GQA subset of ``repro.models.blocks``): RMSNorm, RoPE, the paged branches
-of GQA attention, and the SwiGLU/GeGLU/GELU MLP.
+"""Transformer building blocks on the serving path (mirror of the GQA
+subset of ``repro.models.blocks``): RMSNorm, RoPE, the cache branches of
+GQA attention (paged and contiguous), and the SwiGLU/GeGLU/GELU MLP.
 
 Every block is a pair of functions: ``<kind>_specs(cfg)`` declares the
 parameters, ``<kind>_apply(cfg, params, x, ...)`` runs the forward.
 Activations are ``[batch, seq, ...]``; compute runs in
-``cfg.compute_dtype`` while norms and softmax accumulate in fp32.  Paged
-caches are updated in place (the JAX blocks return new pools).
+``cfg.compute_dtype`` while norms and softmax accumulate in fp32.  Caches
+are updated in place (the JAX blocks return new ones).
 """
 from __future__ import annotations
 
@@ -84,8 +84,26 @@ def _paged_append(pages: torch.Tensor, block_table: torch.Tensor,
     return pages
 
 
+def _slot_append(cache: torch.Tensor, idx: torch.Tensor,
+                 row_vals: torch.Tensor) -> torch.Tensor:
+    """Write one new position per row into the contiguous cache ``[B, S,
+    ...]``, in place, at ``idx`` [B]; a row whose ``idx`` lies outside
+    ``[0, S)`` writes nothing (JAX's ``mode="drop"``, except that JAX
+    first wraps a negative index by S; the engine marks the rows that
+    must not decode with -1).  One write per row, so clamping the index
+    and writing back the old value where the row drops cannot collide,
+    and there is no host sync."""
+    S = cache.shape[1]
+    idx = idx.to(torch.int64)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    pos = idx.clamp(0, S - 1)
+    keep = ((idx >= 0) & (idx < S)).reshape((-1,) + (1,) * (row_vals.ndim - 1))
+    cache[rows, pos] = torch.where(keep, row_vals.to(cache.dtype), cache[rows, pos])
+    return cache
+
+
 # ---------------------------------------------------------------------------
-# GQA attention block (paged cache only)
+# GQA attention block
 # ---------------------------------------------------------------------------
 
 
@@ -108,23 +126,31 @@ def attn_apply(
     positions: torch.Tensor,
     cache: Optional[Dict],
     *,
+    window: int = 0,
     chunk_lens: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Causal GQA self-attention over a paged cache ``{"k_pages",
-    "v_pages", "block_table", "len"}``.
+    """Causal GQA self-attention over a KV cache: paged ``{"k_pages",
+    "v_pages", "block_table", "len"}`` or contiguous ``{"k", "v", "len"}``
+    (``[B, S, KV, D]`` rows).
 
     With ``S > 1`` and ``chunk_lens`` ([B]) it runs the ragged
     cache-writing prefill: row ``b``'s first ``chunk_lens[b]`` tokens
     append at offset ``cache["len"][b]`` and attend the full cached
-    prefix.  With ``S == 1`` each row appends at its own length and
-    attends its prefix (continuous-batching decode).  The pools are
-    written in place; the returned cache holds the same tensors and the
-    new lengths."""
-    if cache is None or "k_pages" not in cache:
+    prefix.  With ``S == 1`` each row appends at its length and attends
+    its prefix: a [B] ``len`` is continuous-batching decode (a contiguous
+    row whose length is negative or past its cache drops its write), a
+    scalar ``len`` decodes every row at one position (the contiguous
+    write clamps to the last position, as ``dynamic_update_slice``
+    does).  Caches are written in place; the returned cache holds the
+    same tensors and the new lengths."""
+    if cache is None:
         raise NotImplementedError(
-            "the port serves the paged KV cache only; the contiguous cache "
-            "and the no-cache forward are later slices (ROADMAP.md queue 1, "
-            "item 6)")
+            "the no-cache forward (chunked_attention) is the training slice "
+            "(ROADMAP.md queue 1, item 8)")
+    if window:
+        raise NotImplementedError(
+            "windowed attention (ring caches) is a later slice of the port "
+            "(ROADMAP.md queue 1, item 6)")
     if cfg.mrope_sections:
         raise NotImplementedError(
             "M-RoPE is a later slice of the port (ROADMAP.md queue 1, item 9)")
@@ -135,30 +161,49 @@ def attn_apply(
     v = torch.einsum("bsd,dhk->bshk", h, params["wv"].to(cdt))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    bt = cache["block_table"]
     Bsz = x.shape[0]
+    length = torch.as_tensor(cache["len"], device=x.device)
+    paged = "k_pages" in cache
     if k.shape[1] > 1:
         if chunk_lens is None:
             raise NotImplementedError(
-                "paged prefill without chunk_lens is not supported: pass "
+                "prefill without chunk_lens (the empty-cache flash pass) is "
+                "the training slice (ROADMAP.md queue 1, item 8): pass "
                 "per-row chunk_lens to run the ragged cache-writing prefill")
-        base = torch.as_tensor(cache["len"], device=x.device).to(
-            torch.int32).reshape(-1).expand(Bsz)
+        base = length.to(torch.int32).reshape(-1).expand(Bsz)
         chunk_lens = chunk_lens.to(torch.int32)
-        o, k_pages, v_pages = ops.prefill_attention_paged(
-            q, k, v, cache["k_pages"], cache["v_pages"], bt, base,
-            chunk_lens, impl=cfg.decode_impl)
+        if paged:
+            o, k_c, v_c = ops.prefill_attention_paged(
+                q, k, v, cache["k_pages"], cache["v_pages"],
+                cache["block_table"], base, chunk_lens, impl=cfg.decode_impl)
+        else:
+            o, k_c, v_c = ops.prefill_attention(
+                q, k.contiguous(), v.contiguous(), cache["k"], cache["v"], base,
+                chunk_lens, impl=cfg.decode_impl)
         new_len = base + chunk_lens
+    elif paged:
+        k_c = _paged_append(cache["k_pages"], cache["block_table"], length, k[:, 0])
+        v_c = _paged_append(cache["v_pages"], cache["block_table"], length, v[:, 0])
+        new_len = length + 1
+        o = ops.decode_attention_paged(q[:, 0], k_c, v_c, cache["block_table"],
+                                       new_len, impl=cfg.decode_impl)[:, None]
     else:
-        idx = cache["len"]
-        k_pages = _paged_append(cache["k_pages"], bt, idx, k[:, 0])
-        v_pages = _paged_append(cache["v_pages"], bt, idx, v[:, 0])
-        new_len = idx + 1
-        o = ops.decode_attention_paged(
-            q[:, 0], k_pages, v_pages, bt, new_len,
-            impl=cfg.decode_impl)[:, None].to(q.dtype)
-    new_cache = {"k_pages": k_pages, "v_pages": v_pages, "block_table": bt,
-                 "len": new_len}
+        k_c, v_c = cache["k"], cache["v"]
+        if length.ndim == 1:
+            _slot_append(k_c, length, k[:, 0])
+            _slot_append(v_c, length, v[:, 0])
+        else:
+            pos = length.to(torch.int64).clamp(0, k_c.shape[1] - 1).reshape(1)
+            k_c.index_copy_(1, pos, k.to(k_c.dtype))
+            v_c.index_copy_(1, pos, v.to(v_c.dtype))
+        new_len = length + 1
+        o = ops.decode_attention(q[:, 0], k_c, v_c, new_len,
+                                 impl=cfg.decode_impl)[:, None]
+    if paged:
+        new_cache = {"k_pages": k_c, "v_pages": v_c,
+                     "block_table": cache["block_table"], "len": new_len}
+    else:
+        new_cache = {"k": k_c, "v": v_c, "len": new_len}
     y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 

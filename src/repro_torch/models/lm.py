@@ -1,12 +1,14 @@
-"""Decoder-only token LM on the paged serving path (mirror of the dense
-GQA subset of ``repro.models.lm``).
+"""Decoder-only token LM on the serving path (mirror of the dense GQA
+subset of ``repro.models.lm``).
 
 Layers follow ``configs.base.block_pattern``: head layers, then a unit
-repeated ``reps`` times whose parameters (and paged caches) are stacked on
-a leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail
-layers.  Where JAX scans the unit, ``lm_apply`` loops over that dim; the
-per-layer cache slices are views, so the in-place pool writes land in the
-stacked tensors.
+repeated ``reps`` times whose parameters (and caches) are stacked on a
+leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail layers.
+Where JAX scans the unit, ``lm_apply`` loops over that dim; the per-layer
+cache slices are views, so the in-place cache writes land in the stacked
+tensors.  Two cache layouts, as in JAX: the contiguous slot cache
+(``lm_cache_specs``, ``[batch, max_len, KV, D]`` per layer) and the
+shared page pool (``lm_paged_cache_specs``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,19 @@ def _check_kinds(cfg: ModelConfig) -> None:
             f"the port runs dense GQA blocks only, got {sorted(kinds, key=str)} "
             f"for {cfg.name}: MLA, MoE, windowed and recurrent blocks are "
             f"later slices (ROADMAP.md queue 1, items 6 and 9)")
+
+
+def _temporal_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """One contiguous ``[batch, max_len, KV, D]`` row pair per layer."""
+    _, KV = cfg.padded_gqa()
+    cdt = cfg.compute_dtype
+    axes = ("cache_batch", "cache_seq", "cache_heads", None)
+    return {
+        "k": Param((batch, max_len, KV, cfg.qk_head_dim), axes, dtype=cdt,
+                   init="zeros"),
+        "v": Param((batch, max_len, KV, cfg.head_dim), axes, dtype=cdt,
+                   init="zeros"),
+    }
 
 
 def _temporal_paged_cache_specs(cfg: ModelConfig, num_pages: int,
@@ -79,6 +94,12 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
+def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
+    _check_kinds(cfg)
+    return _layer_tree(
+        cfg, lambda tk, ck: _temporal_cache_specs(cfg, batch, max_len))
+
+
 def lm_paged_cache_specs(cfg: ModelConfig, num_pages: int,
                          page_size: int) -> Dict[str, Any]:
     _check_kinds(cfg)
@@ -87,14 +108,19 @@ def lm_paged_cache_specs(cfg: ModelConfig, num_pages: int,
 
 
 def _pack_cache(raw: Dict, length, block_table) -> Dict:
-    """Join a layer's pools with the runtime lengths and the shared block
-    table into the structure ``attn_apply`` expects."""
-    return {"k_pages": raw["k_pages"], "v_pages": raw["v_pages"],
-            "block_table": block_table, "len": length}
+    """Join a layer's cache tensors with the runtime lengths (and, for
+    the page pools, the shared block table) into the structure
+    ``attn_apply`` expects."""
+    if "k_pages" in raw:
+        return {"k_pages": raw["k_pages"], "v_pages": raw["v_pages"],
+                "block_table": block_table, "len": length}
+    return {"k": raw["k"], "v": raw["v"], "len": length}
 
 
 def _unpack_cache(cache: Dict) -> Dict:
-    return {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
+    if "k_pages" in cache:
+        return {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
+    return {"k": cache["k"], "v": cache["v"]}
 
 
 def lm_apply(
@@ -110,20 +136,21 @@ def lm_apply(
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Returns ``(logits [B,S,V], cache, aux_loss)``.
 
-    ``inputs`` are int tokens [B,S]; ``cache`` is a paged cache tree
-    (``lm_paged_cache_specs``) shared through ``block_table`` ([B,
-    max_pages] int32).  With ``chunk_lens`` ([B]) the call is a ragged
-    chunked prefill and ``cache_len`` each row's base offset; without it,
-    ``S == 1`` and ``cache_len`` [B] is each row's decode position.
-    Positions default to ``base + arange(S)`` per row (prefill) or
-    ``cache_len`` (decode).  The pools are updated in place and the
-    returned cache tree holds the same tensors."""
+    ``inputs`` are int tokens [B,S]; ``cache`` is a contiguous cache tree
+    (``lm_cache_specs``) or, with ``block_table`` ([B, max_pages] int32),
+    a paged one (``lm_paged_cache_specs``).  With ``chunk_lens`` ([B]) the
+    call is a ragged chunked prefill and ``cache_len`` each row's base
+    offset; without it, ``S == 1`` and ``cache_len`` is each row's decode
+    position ([B]) or one position for every row (scalar).  Positions
+    default to ``base + arange(S)`` per row (prefill) or ``cache_len``
+    (decode).  The caches are updated in place and the returned cache
+    tree holds the same tensors."""
     _check_kinds(cfg)
-    if cache is None or block_table is None or cache_len is None:
+    if cache is None or cache_len is None:
         raise NotImplementedError(
-            "the port's lm_apply runs the paged serving path only (cache, "
-            "cache_len and block_table); training and the contiguous cache "
-            "are later slices (ROADMAP.md queue 1)")
+            "the port's lm_apply runs the serving path only (cache and "
+            "cache_len); the no-cache forward is the training slice "
+            "(ROADMAP.md queue 1, item 8)")
     if inputs.ndim != 2:
         raise NotImplementedError("embedding inputs are a later slice")
     head, unit, reps, tail = block_pattern(cfg)
@@ -155,7 +182,7 @@ def lm_apply(
         for j, (_, ck) in enumerate(unit):
             p_r = map_tree(lambda t: t[r], params["unit"][f"b{j}"])
             c_r = map_tree(lambda t: t[r], cache["unit"][f"b{j}"])
-            x, _ = run_layer(ck, p_r, x, c_r)  # views: pools written in place
+            x, _ = run_layer(ck, p_r, x, c_r)  # views: caches written in place
     new_cache["unit"] = cache["unit"]
     for i, (_, ck) in enumerate(tail):
         x, new_cache["tail_layers"][f"t{i}"] = run_layer(

@@ -1,27 +1,32 @@
-"""ServeEngine: continuous-batching greedy inference over a paged KV cache
+"""ServeEngine: continuous-batching greedy inference over a KV cache
 (mirror of ``repro.serve.engine``, direct mode).
 
-The engine owns a shared **page pool** per layer (``[num_pages,
-page_size, KV, D]``) plus a per-slot **block table** (``[max_slots,
-max_pages] int32``, vLLM-style): a sequence's KV lives in whatever
-physical pages its table points at.  Admission reserves a prompt's pages
-from a free list; each ``step()`` spends at most ``prefill_chunk_tokens``
+With ``kv_layout="paged"`` (the default) the engine owns a shared **page
+pool** per layer (``[num_pages, page_size, KV, D]``) plus a per-slot
+**block table** (``[max_slots, max_pages] int32``, vLLM-style): a
+sequence's KV lives in whatever physical pages its table points at, and
+admission reserves a prompt's pages from a free list that
+``_finish_slot`` refills.  With ``kv_layout="contiguous"`` every slot owns
+one ``[max_len, KV, D]`` row per layer (the JAX engine's benchmark
+baseline).  Each ``step()`` spends at most ``prefill_chunk_tokens``
 prompt tokens across the prefilling slots in one ragged chunk forward
-(the paged prefill kernel writes every row's chunk at its own offset,
-straight into the pool), then runs one fused decode over the slots whose
-prefill already finished (the paged decode kernel gathers K/V through the
-block table); ``_finish_slot`` returns a sequence's pages to the free
-list.  Chunk widths and block-table widths are bucketed to powers of two
-exactly as in the JAX engine, so both engines run the same shapes.
+(the prefill kernel writes every row's chunk at its own offset, straight
+into the cache), then runs one fused decode over the slots whose prefill
+already finished.  Chunk widths and block-table widths are bucketed to
+powers of two exactly as in the JAX engine, so both engines run the same
+shapes.
 
 Differences from the JAX engine:
 
 * everything runs on ``device`` (default ``"cuda"``; without a GPU the
   default raises, only an explicit ``device="cpu"`` runs on the CPU);
-* the page pools are updated in place instead of being donated;
-* the contiguous layout, prefill-only engines and KV handoffs,
-  ``run_service`` and fault injection are later slices and raise
-  ``NotImplementedError`` (ROADMAP.md queue 1, items 6, 7 and 11);
+* the caches are updated in place instead of being donated; a
+  contiguous decode step gives the rows that must not decode length -1,
+  so their appends drop and they read nothing (JAX writes them and
+  restores the old rows with a ``where`` over the whole cache);
+* prefill-only engines and KV handoffs, ``run_service`` and fault
+  injection are later slices and raise ``NotImplementedError``
+  (ROADMAP.md queue 1, items 7 and 11);
 * only greedy decoding is served: ``temperature > 0`` raises at
   ``submit`` (seeded streams need threefry, ROADMAP.md queue 3).
 """
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch.common.params import init_params, map_tree, tree_bytes
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.lm import lm_paged_cache_specs
+from repro_torch.models.lm import lm_cache_specs, lm_paged_cache_specs
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import make_slot_key
 from repro_torch.train.state import model_specs
@@ -68,8 +73,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 class ServeEngine:
-    """Paged continuous-batching engine for dense GQA token LMs, driven
-    directly (``submit`` + ``step`` / ``run_until_drained``)."""
+    """Continuous-batching engine for dense GQA token LMs over a paged or
+    contiguous KV cache, driven directly (``submit`` + ``step`` /
+    ``run_until_drained``)."""
 
     def __init__(self, cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
                  *, max_slots: int = 4, max_len: int = 128,
@@ -87,10 +93,11 @@ class ServeEngine:
                 "M-RoPE position streams are not supported by the slot cache")
         if max_slots < 1 or max_len < 2:
             raise ValueError("need max_slots >= 1 and max_len >= 2")
-        if kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r}: the port serves the paged cache "
-                f"only; the contiguous layout is ROADMAP.md queue 1, item 6")
+        if kv_layout not in ("paged", "contiguous"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if prefill_only and kv_layout != "paged":
+            raise ValueError("prefill_only engines require kv_layout="
+                             "'paged' (handoff ships page blocks)")
         if prefill_only:
             raise NotImplementedError(
                 "prefill-only engines and KV handoffs are the fleet slice "
@@ -107,6 +114,7 @@ class ServeEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.continuous = continuous
+        self.paged = kv_layout == "paged"
         self.page_size = page_size
         self.max_pages = -(-max_len // page_size)
         # per-step prompt-token budget for chunked prefill; None = each
@@ -136,17 +144,21 @@ class ServeEngine:
         self._stats: Dict[str, int] = collections.defaultdict(int)  # guarded-by: _lock
         self._seen_shapes: Dict[str, set] = collections.defaultdict(set)  # guarded-by: _lock
         self._init_state()
-        self._page_bytes = tree_bytes(self.cache) // self.num_pages
+        self._cache_bytes = tree_bytes(self.cache)
+        self._page_bytes = self._cache_bytes // self.num_pages if self.paged else 0
 
     # -- state lifecycle -----------------------------------------------------
 
     def _init_state(self) -> None:
-        specs = lm_paged_cache_specs(self.cfg, self.num_pages, self.page_size)
-        # per-slot block tables; sentinel num_pages = unallocated
-        self.block_table = np.full((self.max_slots, self.max_pages),
-                                   self.num_pages, np.int32)
-        self.free_pages: List[int] = list(range(self.num_pages))
-        self.slot_pages: List[List[int]] = [[] for _ in range(self.max_slots)]
+        if self.paged:
+            specs = lm_paged_cache_specs(self.cfg, self.num_pages, self.page_size)
+            # per-slot block tables; sentinel num_pages = unallocated
+            self.block_table = np.full((self.max_slots, self.max_pages),
+                                       self.num_pages, np.int32)
+            self.free_pages: List[int] = list(range(self.num_pages))
+            self.slot_pages: List[List[int]] = [[] for _ in range(self.max_slots)]
+        else:
+            specs = lm_cache_specs(self.cfg, self.max_slots, self.max_len)
         self.cache = map_tree(
             lambda p: torch.zeros(p.shape, dtype=p.dtype, device=self.device),
             specs)
@@ -162,11 +174,12 @@ class ServeEngine:
         self.slot_prompt: List[Optional[np.ndarray]] = [None] * self.max_slots
 
     def checkpoint(self) -> Dict[str, Any]:
-        """Snapshot the full serving state (page pool, block tables, free
-        list, per-slot lengths and keys, bound and queued requests).  The
-        pools are cloned: later steps write the live ones in place."""
+        """Snapshot the full serving state (page pool, block tables and
+        free list when paged, the slot cache otherwise; per-slot lengths
+        and keys; bound and queued requests).  The caches are cloned:
+        later steps write the live ones in place."""
         with self._lock:
-            return {
+            state = {
                 "cache": map_tree(torch.clone, self.cache),
                 "lengths": self.lengths.copy(),
                 "last_tok": self.last_tok.copy(),
@@ -178,10 +191,14 @@ class ServeEngine:
                 "slot_topk": self.slot_topk.copy(),
                 "prefill_pos": self.prefill_pos.copy(),
                 "slot_prompt": list(self.slot_prompt),
-                "block_table": self.block_table.copy(),
-                "free_pages": list(self.free_pages),
-                "slot_pages": [list(p) for p in self.slot_pages],
             }
+            if self.paged:
+                state.update({
+                    "block_table": self.block_table.copy(),
+                    "free_pages": list(self.free_pages),
+                    "slot_pages": [list(p) for p in self.slot_pages],
+                })
+            return state
 
     def restore(self, state: Dict[str, Any]) -> None:
         with self._lock:
@@ -198,9 +215,10 @@ class ServeEngine:
             self.slot_topk = state["slot_topk"].copy()
             self.prefill_pos = state["prefill_pos"].copy()
             self.slot_prompt = list(state["slot_prompt"])
-            self.block_table = state["block_table"].copy()
-            self.free_pages = list(state["free_pages"])
-            self.slot_pages = [list(p) for p in state["slot_pages"]]
+            if self.paged:
+                self.block_table = state["block_table"].copy()
+                self.free_pages = list(state["free_pages"])
+                self.slot_pages = [list(p) for p in state["slot_pages"]]
 
     def _release_state(self) -> None:
         """Drop the live slot state (after checkpointing)."""
@@ -215,10 +233,11 @@ class ServeEngine:
             self.slot_topk = np.zeros(self.max_slots, np.int32)
             self.prefill_pos = np.full(self.max_slots, -1, np.int32)
             self.slot_prompt = [None] * self.max_slots
-            self.block_table = np.full((self.max_slots, self.max_pages),
-                                       self.num_pages, np.int32)
-            self.free_pages = list(range(self.num_pages))
-            self.slot_pages = [[] for _ in range(self.max_slots)]
+            if self.paged:
+                self.block_table = np.full((self.max_slots, self.max_pages),
+                                           self.num_pages, np.int32)
+                self.free_pages = list(range(self.num_pages))
+                self.slot_pages = [[] for _ in range(self.max_slots)]
 
     # -- client side ---------------------------------------------------------
 
@@ -238,9 +257,35 @@ class ServeEngine:
         with self._lock:
             return bool(self.queue) or any(r is not None for r in self.slots)
 
+    def occupancy(self) -> int:
+        with self._lock:  # cross-thread monitoring read
+            return sum(r is not None for r in self.slots)
+
     def pages_in_use(self) -> int:
+        with self._lock:  # cross-thread monitoring read
+            return self.num_pages - len(self.free_pages) if self.paged else 0
+
+    def admission_signals(self) -> Dict[str, Any]:
+        """One-lock snapshot of the signals a fleet router admits on: slot
+        occupancy, page-pool pressure, and queue depth and age.  For a
+        contiguous engine the page figures are free slots (each slot owns
+        its full row, so slots are the only capacity axis)."""
         with self._lock:
-            return self.num_pages - len(self.free_pages)
+            now = time.time()
+            occupied = sum(r is not None for r in self.slots)
+            return {
+                "engine": self.uid,
+                "prefill_only": False,
+                "occupied": occupied,
+                "max_slots": self.max_slots,
+                "queue_depth": len(self.queue),
+                "oldest_queued_age_s": (
+                    now - min(r.submitted_at for r in self.queue)
+                    if self.queue else 0.0),
+                "free_pages": (len(self.free_pages) if self.paged
+                               else self.max_slots - occupied),
+                "num_pages": self.num_pages if self.paged else self.max_slots,
+            }
 
     def _bump(self, key: str, n: int = 1) -> None:
         with self._lock:
@@ -310,7 +355,8 @@ class ServeEngine:
         self.slot_keys[i] = 0
         self.prefill_pos[i] = -1
         self.slot_prompt[i] = None
-        self._free_slot_pages(i)
+        if self.paged:
+            self._free_slot_pages(i)
         req._finish(state, error)
         self._bump("completed" if state is RequestState.DONE else "failed")
 
@@ -321,7 +367,7 @@ class ServeEngine:
 
     def _admit(self) -> int:
         """Bind queued requests to free slots, reserving their prompt
-        pages; the prompt itself is processed chunk by chunk in
+        pages when paged; the prompt itself is processed chunk by chunk in
         ``_prefill_step``.  Returns the number admitted."""
         free = [i for i, r in enumerate(self.slots) if r is None]
         with self._lock:
@@ -340,30 +386,32 @@ class ServeEngine:
                                 f"fit max_len={self.max_len}")
                     self._stats["failed"] += 1
                     continue
-                # reserve the prompt's pages plus one decode-growth page
-                # (capped at what the sequence can ever address)
-                need = min(-(-req.prompt_len // self.page_size) + 1,
-                           self.max_pages)
-                if need > self.num_pages:
-                    # no recycling can ever serve it: fail now rather than
-                    # livelock the FIFO queue behind it
-                    self.queue.popleft()
-                    req._finish(
-                        RequestState.FAILED,
-                        f"prompt needs {need} pages of {self.page_size} but "
-                        f"the pool only has {self.num_pages}")
-                    self._stats["failed"] += 1
-                    continue
-                if reserved + need > len(self.free_pages):
-                    break  # transient shortage: FIFO backpressure
-                reserved += need
+                if self.paged:
+                    # reserve the prompt's pages plus one decode-growth
+                    # page (capped at what the sequence can ever address)
+                    need = min(-(-req.prompt_len // self.page_size) + 1,
+                               self.max_pages)
+                    if need > self.num_pages:
+                        # no recycling can ever serve it: fail now rather
+                        # than livelock the FIFO queue behind it
+                        self.queue.popleft()
+                        req._finish(
+                            RequestState.FAILED,
+                            f"prompt needs {need} pages of {self.page_size} "
+                            f"but the pool only has {self.num_pages}")
+                        self._stats["failed"] += 1
+                        continue
+                    if reserved + need > len(self.free_pages):
+                        break  # transient shortage: FIFO backpressure
+                    reserved += need
                 batch.append(self.queue.popleft())
         if not batch:
             return 0
         now = time.time()
         for j, req in enumerate(batch):
             i = free[j]
-            if not self._alloc_pages(i, -(-req.prompt_len // self.page_size)):
+            if self.paged and not self._alloc_pages(
+                    i, -(-req.prompt_len // self.page_size)):
                 raise RuntimeError("page reservation failed after admission check")
             self.slots[i] = req
             self.lengths[i] = 0  # becomes prompt_len when prefill finishes
@@ -409,14 +457,19 @@ class ServeEngine:
             tokens[i, :take] = self.slot_prompt[i][pos:pos + take]
             base[i] = pos
             clens[i] = take
-        # bucket the table to the prefilling rows' own page frontier
-        need = max(-(-(int(base[i]) + take) // self.page_size)
-                   for i, take in taking.items())
-        mb = min(_bucket(need, lo=1), self.max_pages)
-        self._count_retrace("prefill", (T, mb))
+        if self.paged:
+            # bucket the table to the prefilling rows' own page frontier
+            need = max(-(-(int(base[i]) + take) // self.page_size)
+                       for i, take in taking.items())
+            mb = min(_bucket(need, lo=1), self.max_pages)
+            self._count_retrace("prefill", (T, mb))
+            bt = self._tensor(self.block_table[:, :mb])
+        else:
+            self._count_retrace("prefill", (T,))
+            bt = None
         next_tok, _, self.cache = self._prefill_chunk(
             self._run_params, self._tensor(tokens), self._tensor(base),
-            self._tensor(clens), self.cache, self._tensor(self.block_table[:, :mb]))
+            self._tensor(clens), self.cache, bt)
         done = [i for i, take in taking.items()
                 if int(self.prefill_pos[i]) + take >= self.slots[i].prompt_len]
         for i, take in taking.items():
@@ -447,26 +500,39 @@ class ServeEngine:
         Returns False when there was nothing to do."""
         progressed = self._admit() > 0
         progressed = self._prefill_step() or progressed
-        self._ensure_decode_pages()
+        if self.paged:
+            self._ensure_decode_pages()
         active = np.array([r is not None and self.prefill_pos[i] < 0
                            for i, r in enumerate(self.slots)])
         if not active.any():
             return progressed
-        # bucket the block table (and with it the kernel grid) to the pages
-        # actually in use
-        mb = min(_bucket(max(len(p) for p in self.slot_pages), lo=1),
-                 self.max_pages)
-        self._count_retrace("decode", (mb, False))
-        # rows that must not decode (free or mid-prefill) see an
-        # all-sentinel table, so their junk appends drop
-        bt_step = self.block_table[:, :mb].copy()
-        bt_step[~active] = self.num_pages
+        if self.paged:
+            # bucket the block table (and with it the kernel grid) to the
+            # pages actually in use
+            mb = min(_bucket(max(len(p) for p in self.slot_pages), lo=1),
+                     self.max_pages)
+            self._count_retrace("decode", (mb, False))
+            # rows that must not decode (free or mid-prefill) see an
+            # all-sentinel table, so their junk appends drop
+            bt_step = self.block_table[:, :mb].copy()
+            bt_step[~active] = self.num_pages
+            lengths, bt = self.lengths, self._tensor(bt_step)
+        else:
+            self._count_retrace("decode", (self.max_len, False))
+            # rows that must not decode (free, or mid-prefill with the
+            # prompt already at position 0 on) get length -1: their append
+            # drops, so their rows stay bitwise intact, and they attend
+            # nothing, so the kernel reads none of their cache
+            lengths, bt = np.where(active, self.lengths, -1), None
         greedy, _, self.cache = self._decode(
             self._run_params, self._tensor(self.last_tok)[:, None], self.cache,
-            self._tensor(self.lengths), self._tensor(bt_step))
+            self._tensor(lengths.astype(np.int32)), bt)
         toks = np.where(active, greedy.cpu().numpy(), 0)
         self.lengths = self.lengths + active.astype(np.int32)
-        bytes_now = self.pages_in_use() * self._page_bytes
+        # paged holds only its allocated pages, contiguous always holds
+        # the full [max_slots, max_len] rows
+        bytes_now = (self.pages_in_use() * self._page_bytes if self.paged
+                     else self._cache_bytes)
         with self._lock:
             self._stats["decode_steps"] += 1
             self._stats["decode_slot_steps"] += int(active.sum())
@@ -511,9 +577,9 @@ class ServeEngine:
             queued = len(self.queue)
             oldest = (now - min(r.submitted_at for r in self.queue)
                       if self.queue else 0.0)
-            free_pages = len(self.free_pages)
+            free_pages = len(self.free_pages) if self.paged else 0
             occupied = sum(r is not None for r in self.slots)
-            prefill_widths = {T for T, _ in self._seen_shapes["prefill"]}
+            prefill_widths = {key[0] for key in self._seen_shapes["prefill"]}
         in_use = self.num_pages - free_pages
         out.update({
             "engine": self.uid,
@@ -521,7 +587,7 @@ class ServeEngine:
             "max_len": self.max_len,
             "continuous": self.continuous,
             "prefill_only": False,
-            "kv_layout": "paged",
+            "kv_layout": "paged" if self.paged else "contiguous",
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
             # chunk-width buckets seen (the JAX engine keeps one jitted
             # step per bucket; the port runs eagerly)
@@ -530,17 +596,21 @@ class ServeEngine:
             "queue_depth": queued,
             "oldest_queued_age_s": oldest,
             "occupied": occupied,
-            "kv_cache_bytes": in_use * self._page_bytes,
-            "kv_cache_capacity_bytes": self.num_pages * self._page_bytes,
+            "kv_cache_bytes": (in_use * self._page_bytes if self.paged
+                               else self._cache_bytes),
+            "kv_cache_capacity_bytes": (self.num_pages * self._page_bytes
+                                        if self.paged else self._cache_bytes),
         })
-        out.setdefault("peak_pages", 0)
-        out.update({
-            "page_size": self.page_size,
-            "num_pages": self.num_pages,
-            "pages_in_use": in_use,
-            "free_pages": free_pages,
-            "kv_cache_peak_bytes": out.get("peak_pages", 0) * self._page_bytes,
-        })
+        if self.paged:
+            out.setdefault("peak_pages", 0)
+            out.update({
+                "page_size": self.page_size,
+                "num_pages": self.num_pages,
+                "pages_in_use": in_use,
+                "free_pages": free_pages,
+                "kv_cache_peak_bytes": (out.get("peak_pages", 0)
+                                        * self._page_bytes),
+            })
         out.setdefault("retraces", 0)
         d = out.get("decode_steps", 0)
         out["slot_occupancy"] = (

@@ -1,6 +1,6 @@
-"""The CUDA kernels of ``repro_torch`` against their plain PyTorch versions,
-on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
-elsewhere; on the card:
+"""The CUDA kernels of ``repro_torch`` (paged and contiguous) against
+their plain PyTorch versions, on the card.  Every test here needs an
+NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -68,6 +68,55 @@ def test_prefill_kernel_matches_plain(dtype, tol):
             (bt, np.array([0, 37, 100], np.int32), np.array([64, 20, 0], np.int32))]
     go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(), *rest)
     wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(), *rest)
+    torch.cuda.synchronize()
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert (go[1, 20:] == 0).all() and (go[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_decode_kernel_matches_plain(dtype, tol):
+    """Full tinyllama widths at the serving max_len: an empty row, one
+    token, S-1, S and a length past S; a scalar length; a window; an S
+    that is not a power of two."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(9)
+    H, KV, D = 32, 4, 64
+    for S, lens, window in ((512, [0, 1, 37, 511, 512, 600], 0),
+                            (512, 300, 0),
+                            (512, [5, 64, 300, 512], 40),
+                            (200, [0, 1, 199, 200], 0)):
+        B = len(lens) if isinstance(lens, list) else 3
+        args = (_randn(rng, (B, H, D), dt), _randn(rng, (B, S, KV, D), dt),
+                _randn(rng, (B, S, KV, D), dt),
+                torch.tensor(lens, dtype=torch.int32).cuda())
+        got = tda.decode_attention_kernel(*args, window=window)
+        want = tda.decode_attention_plain(*args, window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        if isinstance(lens, list) and lens[0] == 0:
+            assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_prefill_kernel_matches_plain(dtype, tol):
+    """Full tinyllama widths: a full chunk, a partial chunk, an inert row
+    and a chunk that reaches the end of the row with T past it (those
+    tokens drop); the caches are written identically, padding rows are
+    zero."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(10)
+    B, T, H, KV, D, S = 4, 64, 32, 4, 64, 256
+    q, kn, vn = (_randn(rng, s, dt) for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kc, vc = (_randn(rng, (B, S, KV, D), dt) for _ in range(2))
+    base = torch.tensor([0, 37, 100, 216], dtype=torch.int32).cuda()
+    clens = torch.tensor([64, 20, 0, 64], dtype=torch.int32).cuda()
+    go, gk, gv = tpa.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(), base, clens)
+    wo, wk, wv = tpa.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(), base, clens)
     torch.cuda.synchronize()
     assert (go.float() - wo.float()).abs().max().item() <= tol
     assert torch.equal(gk, wk) and torch.equal(gv, wv)

@@ -1,7 +1,7 @@
 """Port parity: the ``repro_torch`` ServeEngine against ``repro.serve``:
 token-identical greedy streams on the mixed workload with shared weights
 (fp32 compute), page reuse and pool-exhaustion recovery, checkpoint /
-restore, and the refusals of what this slice does not serve."""
+restore, and the refusals of what the port does not serve yet."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -157,8 +157,7 @@ def test_sampling_is_refused(params):
     assert not eng.has_work()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="contiguous"),
-                                dict(prefill_only=True)])
+@pytest.mark.parametrize("kw", [dict(prefill_only=True)])
 def test_later_slices_raise(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(params[1], cfg=CFG, **kw)
