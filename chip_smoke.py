@@ -3,33 +3,49 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line per layout; any failure exits
+Phases, each printing one JSON line per layout or run; any failure exits
 non-zero:
 
 1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
             sm_90a (one nvcc per source, all at once) into build/kernels/.
-2. kernels  each of the four kernels against its plain PyTorch version on
+2. kernels  each of the five kernels against its plain PyTorch version on
             the card, at full tinyllama-1.1b shapes and at the smoke
             shapes, fp32 and bf16: ragged, empty, full and past-the-end
             lengths, a scalar length, a window, an S that is not a power of
             two, sentinel table entries, page-straddling chunks, inert rows
-            and chunks whose tokens run past the end of the cache.
+            and chunks whose tokens run past the end of the cache; flash
+            attention causal and full at the training shape, an S that is
+            not a multiple of the tile, S = 1, D 16 and 128, and G = 1.
 3. serve    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, bf16 compute) serves 16 greedy requests shaped
             like the repo's mixed workload through ``submit`` +
             ``run_until_drained``, once on the paged KV cache and once on
             the contiguous slot cache.  Every launch counter is zeroed just
             before each run and read just after: the layout's two kernels
-            must have launched, the other layout's two must not.
-4. timing   each kernel's wrapper at the serving shapes against its plain
-            version and a PyTorch SDPA yardstick (CUDA events), with its
-            roofline bound.
+            must have launched, no other kernel may have.
+4. timing   each kernel's wrapper at the shapes of its path against its
+            plain version and a PyTorch SDPA yardstick (CUDA events), with
+            its roofline bound.
 5. profile  torch.profiler over a separate serving run per layout: device
             busy and idle share, kernels and host ops per engine step, the
             port's kernels' device time per launch, top kernels.
 6. stream   the same engines in fp32: on each layout the kernel path and
             the plain path, and the two layouts' kernel paths, must emit
             token-identical greedy streams.
+7. train    full-width tinyllama-1.1b (random weights from a seeded
+            torch.Generator, fp32 parameters, bf16 compute, the default
+            RunConfig: AdamW, remat per layer, clip 1.0, lr 3e-4) takes 20
+            steps on B 8 x S 512 batches of the synthetic corpus (labels:
+            the tokens rolled by -1).  Counters zeroed just before, read
+            just after: flash attention launches 44 times per step (22
+            layers, and again in each layer's recompute under remat), the
+            serving kernels never.  The mean loss of the last 5 steps must
+            be below that of the first 5.  Then one profiled step, and the
+            state saved with AsyncCheckpointer and restored into a fresh
+            state, bitwise.
+8. parity   fp32 training (TF32 off) from one initial state: 3 steps on
+            the kernel path and 3 on the plain path (``decode_impl="ref"``);
+            loss and grad-norm must agree at every step within TRAIN_TOL.
 
 The last lines are the card (nvidia-smi name and power limit), the kernel
 table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -38,6 +54,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -47,17 +64,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.common.params import init_params, map_tree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.common.params import init_params, map_tree, tree_leaves  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import prefill_attention as pf  # noqa: E402
+from repro_torch.launch.train import make_corpus  # noqa: E402
 from repro_torch.models.lm import lm_paged_cache_specs  # noqa: E402
 from repro_torch.serve import RequestState, ServeEngine  # noqa: E402
-from repro_torch.train.state import model_specs  # noqa: E402
-from repro_torch.train.step import make_prefill_chunk_step  # noqa: E402
+from repro_torch.train.state import init_train_state, model_specs  # noqa: E402
+from repro_torch.train.step import make_prefill_chunk_step, make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
@@ -69,18 +90,28 @@ PAGE = 16
 MAX_LEN = 512
 SEED = 0
 LAYOUTS = ("paged", "contiguous")
-# each wrapper's launch counter, and the kernels each layout's path runs
+# each wrapper's launch counter, and the kernels each path runs
 COUNTED = {"decode_attention_paged": dec.decode_attention_paged_kernel,
            "prefill_attention_paged": pf.prefill_attention_paged_kernel,
            "decode_attention": dec.decode_attention_kernel,
-           "prefill_attention": pf.prefill_attention_kernel}
+           "prefill_attention": pf.prefill_attention_kernel,
+           "flash_attention": fa.flash_attention_kernel}
 PATH_KERNELS = {"paged": ("decode_attention_paged", "prefill_attention_paged"),
-                "contiguous": ("decode_attention", "prefill_attention")}
+                "contiguous": ("decode_attention", "prefill_attention"),
+                "train": ("flash_attention",)}
 # each kernel's device symbols (torch.profiler event names)
 SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_kernel"),
            "prefill_attention_paged": ("prefill_kernel",),
            "decode_attention": ("contig_decode_split_kernel", "decode_combine_kernel"),
-           "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_kernel")}
+           "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_kernel"),
+           "flash_attention": ("flash_fwd_kernel",)}
+# the train phase: B x S tokens per step, as many steps; the kernel path
+# and the plain path in fp32 must agree in loss and grad-norm within
+# TRAIN_TOL (relative) at each of PARITY_STEPS steps: both are fp32 with
+# TF32 off, but they sum in other orders (and the embedding gather's
+# backward adds with atomics), which AdamW's normalised steps carry on
+TRAIN_B, TRAIN_S, TRAIN_STEPS, PARITY_STEPS = 8, 512, 20, 3
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 
 
 def emit(obj) -> None:
@@ -214,6 +245,21 @@ def check_prefill(args):
     return (got.float() - want.float()).abs().max().item(), ok
 
 
+def flash_case(gen, B, H, KV, S, D, dtype):
+    """q, k, v as the model hands them over: [B, S, heads, D] activations
+    viewed as [B, heads, S, D]."""
+    return tuple(randn(gen, (B, S, n, D), dtype).transpose(1, 2)
+                 for n in (H, KV, KV))
+
+
+def check_flash(args, causal=True):
+    """(max abs error vs plain, output shaped and typed like q)."""
+    got = fa.flash_attention_kernel(*args, causal=causal)
+    want = fa.flash_attention_plain(*args, causal=causal)
+    ok = got.shape == args[0].shape and got.dtype == args[0].dtype
+    return (got.float() - want.float()).abs().max().item(), ok
+
+
 # -- phases ------------------------------------------------------------------
 
 
@@ -222,7 +268,7 @@ def phase_build():
     logs = build.build_all()
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers", "spill"))]
              for name, log in logs.items()}
     emit({"phase": "build", "ok": True, "seconds": secs, "gpu": gpu_line(),
           "nvcc": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
@@ -286,6 +332,19 @@ def phase_kernels():
             if not (err <= TOL[dtype] and ok):
                 raise AssertionError(f"contiguous prefill kernel disagrees: "
                                      f"{cases[-1]}")
+        # flash attention: the training shape, an S that is not a multiple
+        # of the tile, S = 1, D 16 and 128, G = 1; causal and full
+        for causal in (True, False):
+            for B, H, KV, S, D in ((TRAIN_B, 32, 4, TRAIN_S, 64), (2, 32, 4, 200, 64),
+                                   (3, 8, 2, 1, 64), (2, 8, 2, 77, 16),
+                                   (1, 8, 8, 130, 128)):
+                err, ok = check_flash(flash_case(gen, B, H, KV, S, D, dtype), causal)
+                cases.append({"kernel": "flash_attention", "causal": causal,
+                              "shape": [B, H, KV, S, D], "dtype": str(dtype),
+                              "max_abs_err": err, "tol": TOL[dtype],
+                              "shape_dtype_ok": ok})
+                if not (err <= TOL[dtype] and ok):
+                    raise AssertionError(f"flash kernel disagrees: {cases[-1]}")
     emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
 
@@ -549,6 +608,18 @@ def phase_timing(cfg, launches, shapes):
     return rows
 
 
+def device_kernels(prof):
+    """The profiler's device kernels and ``{name: [device ms, launches]}``."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    return kernels, by_name
+
+
 def phase_profile(cfg, params, layout, n: int = 8):
     """Where a serving run's time goes on one layout: torch.profiler over
     the first ``n`` requests of the workload (a separate, unmeasured run;
@@ -566,14 +637,8 @@ def phase_profile(cfg, params, layout, n: int = 8):
         eng.run_until_drained()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}  # name -> [device ms, launches]
-    for e in kernels:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.elapsed_us() / 1e3
-        acc[1] += 1
+    kernels, by_name = device_kernels(prof)
+    busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     # the port's own kernels: device time per launch, free of the host
     # cost that the CUDA-event timing of back-to-back wrapper calls carries
@@ -653,6 +718,199 @@ def phase_stream(cfg, params, n: int = 4):
                         "contiguous kernel == paged kernel"]})
 
 
+def corpus_batches(cfg, steps: int):
+    """``steps`` batches of B x S tokens of the synthetic corpus, labels
+    the tokens rolled by -1, as the JAX package's launch/train.py builds them."""
+    corpus = make_corpus(cfg.vocab_size, TRAIN_B * TRAIN_S * (steps + 8), SEED)
+    rows = corpus[: len(corpus) // TRAIN_S * TRAIN_S].reshape(-1, TRAIN_S)
+    out = []
+    for i in range(steps):
+        lo = (i * TRAIN_B) % max(rows.shape[0] - TRAIN_B, 1)
+        tokens = torch.from_numpy(rows[lo:lo + TRAIN_B]).cuda()
+        out.append({"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)})
+    return out
+
+
+def profile_train_step(step_fn, state, batch):
+    """One train step under torch.profiler: device busy and idle share,
+    time by kernel class, the flash kernel's device time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, by_name = device_kernels(prof)
+    busy_ms = sum(v[0] for v in by_name.values())
+    hits = [v for k, v in by_name.items() if "flash_fwd_kernel" in k]
+    flash_ms, flash_n = sum(v[0] for v in hits), sum(v[1] for v in hits)
+    if not flash_n:
+        raise AssertionError("the profiler saw no flash_fwd_kernel launch")
+    classes = {"matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
+               "flash_attention": ("flash_fwd_kernel",)}
+    by_class = {c: sum(v[0] for k, v in by_name.items()
+                       if any(t in k for t in subs)) for c, subs in classes.items()}
+    by_class["other"] = busy_ms - sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "gpu_kernels": len(kernels),
+           "device_ms_by_class": by_class,
+           "flash_launches": flash_n, "flash_us_per_launch": 1e3 * flash_ms / flash_n,
+           "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
+                           for k, v in top]}
+    return state, out
+
+
+def phase_train(cfg):
+    """The training path at full width: 20 steps with every counter zeroed
+    just before and read just after, one profiled step, then a checkpoint
+    round trip.  Returns the flash launches and device us per launch."""
+    t_phase = time.perf_counter()
+    run_cfg = RunConfig()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                             run_cfg)
+    step_fn = make_train_step(cfg, run_cfg)
+    batches = corpus_batches(cfg, TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, norms, step_ms = [], [], []
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(metrics["grad_norm"].item())
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != 2 * cfg.num_layers * TRAIN_STEPS:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, "
+                             f"expected {2 * cfg.num_layers} per step")
+    others = {n: c for n, c in launches.items() if n not in PATH_KERNELS["train"]}
+    if any(others.values()):
+        raise AssertionError(f"the train path launched serving kernels: {others}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite loss or grad-norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 5 {first}, last 5 {last}")
+    steady = step_ms[1:]  # the first step also loads cuBLAS and the kernel
+    out = {"phase": "train", "ok": True, "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "param_dtype": str(cfg.param_dtype),
+           "compute_dtype": str(cfg.compute_dtype), "optimizer": run_cfg.optimizer,
+           "remat": run_cfg.remat, "batch": TRAIN_B, "seq": TRAIN_S,
+           "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+           "first5_mean_loss": first, "last5_mean_loss": last,
+           "first_step_ms": step_ms[0],
+           "step_ms_p50": float(np.percentile(steady, 50)),
+           "step_ms_p95": float(np.percentile(steady, 95)),
+           "tokens_per_s": TRAIN_B * TRAIN_S * len(steady) / (sum(steady) / 1e3),
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "flash_launches_per_step": launches["flash_attention"] / TRAIN_STEPS}
+
+    state, prof = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
+    out["profile"] = prof
+
+    # checkpoint round trip: snapshot + background write, then restore into
+    # a fresh state, every leaf bitwise
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt = store.AsyncCheckpointer(str(ckdir), keep=1)
+    ckpt.save(int(state["step"]), state)
+    snapshot_s = time.perf_counter() - t0
+    ckpt.close()
+    save_s = time.perf_counter() - t0
+    fresh = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 1),
+                             cfg, run_cfg)
+    t0 = time.perf_counter()
+    restored = store.restore(str(ckdir), fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    disk_bytes = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file())
+    shutil.rmtree(ckdir)
+    leaves = list(zip(tree_leaves(state), tree_leaves(restored)))
+    bad = [i for i, (a, b) in enumerate(leaves)
+           if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"restored leaves differ: {bad}")
+    out["checkpoint"] = {"leaves": len(leaves), "bitwise_equal": True,
+                         "state_bytes": sum(a.numel() * a.element_size()
+                                            for a, _ in leaves),
+                         "disk_bytes": disk_bytes, "snapshot_s": snapshot_s,
+                         "save_s": save_s, "restore_s": restore_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches["flash_attention"], prof["flash_us_per_launch"]
+
+
+def phase_train_parity(cfg):
+    """fp32 (TF32 off, set in main): PARITY_STEPS steps on the kernel path
+    and on the plain path from one initial state and the same batches."""
+    t_phase = time.perf_counter()
+    run_cfg = RunConfig()
+    batches = corpus_batches(cfg, PARITY_STEPS)
+    runs = {}
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(compute_dtype=torch.float32, decode_impl=impl)
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), c,
+                                 run_cfg)
+        step_fn = make_train_step(c, run_cfg)
+        zero_counts()
+        metrics = []
+        for batch in batches:
+            state, m = step_fn(state, batch)
+            metrics.append({k: v.item() for k, v in m.items()})
+        runs[impl] = {"metrics": metrics, "flash_launches": read_counts()["flash_attention"]}
+        del state
+        torch.cuda.empty_cache()
+    if runs["auto"]["flash_launches"] != 2 * cfg.num_layers * PARITY_STEPS \
+            or runs["ref"]["flash_launches"] != 0:
+        raise AssertionError(f"flash launches: kernel path "
+                             f"{runs['auto']['flash_launches']}, plain path "
+                             f"{runs['ref']['flash_launches']}")
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                  zip(runs["auto"]["metrics"], runs["ref"]["metrics"]))
+           for k in TRAIN_TOL}
+    out = {"phase": "train_parity", "ok": all(rel[k] <= TRAIN_TOL[k] for k in TRAIN_TOL),
+           "compute_dtype": "torch.float32", "tf32": False, "steps": PARITY_STEPS,
+           "kernel_path": runs["auto"], "plain_path": runs["ref"],
+           "max_rel_diff": rel, "tol_rel": TRAIN_TOL,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("fp32 kernel and plain training paths disagree")
+
+
+def flash_row(cfg, launches, device_us):
+    """The flash kernel's timing row at the training shape, rotating over
+    one input set per layer."""
+    dt = cfg.compute_dtype
+    B, S, H, KV, D = TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    esz = torch.finfo(dt).bits // 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [flash_case(gen, B, H, KV, S, D, dt) for _ in range(cfg.num_layers)]
+    err = max(check_flash(a)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: fa.flash_attention_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*nxt()))
+    lib = rotate([(q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1))
+                  for q, k, v in cases])
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*lib(), is_causal=True))
+    bytes_ = esz * (2 * B * H * S * D + 2 * B * KV * S * D)  # q, out; k, v once
+    flops = 4 * B * H * D * S * (S + 1) // 2                 # the causal triangle
+    row = kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:85",
+                     launches, err, ms, plain_ms, bytes_, flops, lib_ms,
+                     "SDPA (is_causal) with K/V pre-expanded to [B,H,S,D]",
+                     {"B": B, "H": H, "KV": KV, "S": S, "D": D, "causal": True,
+                      "layout": "[B,S,H,D] viewed as [B,H,S,D]", "dtype": str(dt)})
+    row["device_us_per_launch"] = device_us
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -677,6 +935,13 @@ def main() -> int:
     for row in rows:
         row["device_us_per_launch"] = device_us[row["name"]]
     phase_stream(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    flash_launches, flash_us = phase_train(cfg)
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg)
+    rows.append(flash_row(cfg, {"flash_attention": flash_launches}, flash_us))
+    emit({"phase": "timing", "ok": True, "rows": rows[-1:]})
     print(gpu_line(), flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -85,10 +85,12 @@ def init_params(generator: torch.Generator, specs: PyTree,
 
 
 def from_jax_params(tree: PyTree, device, dtype=None) -> PyTree:
-    """Carry a JAX parameter tree across: a nested dict of numpy arrays
-    (e.g. ``jax.tree.map(np.asarray, params)``) becomes the same nested
-    dict of tensors on ``device``, key for key and shape for shape, cast to
-    ``dtype`` when given.  bf16 arrays pass through fp32, which is exact."""
+    """Carry a JAX tree across: a nested dict of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``, or a whole train state with its
+    optimizer state and 0-d int32 step) becomes the same nested dict of
+    tensors on ``device``, key for key, shape for shape and dtype for
+    dtype, cast to ``dtype`` when given.  bf16 arrays pass through fp32,
+    which is exact."""
     def one(a):
         a = np.array(a)  # a writable copy: JAX hands out read-only buffers
         if a.dtype.name == "bfloat16":
@@ -96,6 +98,17 @@ def from_jax_params(tree: PyTree, device, dtype=None) -> PyTree:
         else:
             t = torch.from_numpy(a)
         return t.to(device=device, dtype=dtype or t.dtype)
+
+    return map_tree(one, tree)
+
+
+def to_numpy(tree: PyTree) -> PyTree:
+    """The reverse of :func:`from_jax_params`: every tensor of a nested
+    dict as a host numpy array, key for key; bf16 (which numpy lacks)
+    becomes fp32, which is exact."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return map_tree(one, tree)
 

@@ -3,10 +3,15 @@ from __future__ import annotations
 
 import importlib
 
+import torch
+
 from repro_torch.configs.base import (  # noqa: F401
     DECODE_IMPLS,
+    SHAPES,
+    SMOKE_SHAPES,
     ModelConfig,
     RunConfig,
+    ShapeConfig,
     block_pattern,
 )
 
@@ -29,3 +34,27 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.smoke_config() if smoke else mod.config()
+
+
+def default_run_config(arch: str, shape: str) -> RunConfig:
+    """Per-cell runtime knobs, those of the JAX package (sized there so its
+    dry-run fits 16 GB of device memory per chip)."""
+    micro = 1
+    optimizer, opt_dtype = "adamw", torch.float32
+    if shape == "train_4k":
+        micro = {
+            "qwen2-vl-72b": 8, "arctic-480b": 16, "phi3-medium-14b": 8,
+            "recurrentgemma-9b": 8, "minicpm3-4b": 8, "phi3-mini-3.8b": 4,
+            "moonshot-v1-16b-a3b": 8, "whisper-medium": 2,
+            "tinyllama-1.1b": 2, "xlstm-125m": 4,
+        }.get(arch, 1)
+    grad_clip = 1.0
+    if arch == "arctic-480b":
+        # factored Adafactor states; its RMS update clipping replaces the
+        # global-norm clip
+        optimizer = "adafactor"
+        grad_clip = 0.0
+    if arch == "qwen2-vl-72b":
+        opt_dtype = torch.bfloat16
+    return RunConfig(num_microbatches=micro, optimizer=optimizer,
+                     opt_state_dtype=opt_dtype, grad_clip=grad_clip)

@@ -126,6 +126,30 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# smoke-scale variants of the same shape kinds (CPU-runnable)
+SMOKE_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 64, 4, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 128, 2, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 128, 4, "decode"),
+    "long_500k": ShapeConfig("long_500k", 256, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Per-(arch x shape) runtime knobs (microbatching, optimizer, remat)."""
 

@@ -48,6 +48,10 @@ SIGNATURES = {
     # dtype, q, k_pages, v_pages, block_table, base, chunk_lens, out,
     # B, T, H, KV, D, num_pages, page_size, max_pages, scale, stream
     "prefill_attention_paged": [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+    # dtype, q, k, v, out, strides (12 int64: b, head, seq of q, k, v, out),
+    # B, S, H, KV, D, causal, scale, stream
+    "flash_attention": [_I] + [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [_I] * 6 + [ctypes.c_float, _P],
 }
 
 

@@ -1,6 +1,6 @@
 """Dispatch for the attention ops (mirror of the attention half of
-``repro.kernels.ops``).  The model code calls these with
-``impl=cfg.decode_impl``:
+``repro.kernels.ops``: flash, decode and prefill attention).  The model
+code calls these with ``impl=cfg.decode_impl``:
 
 * ``"auto"``: the hand-written CUDA kernel for CUDA tensors, the plain
   PyTorch version for CPU tensors (decided by the tensor's device only);
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import DECODE_IMPLS
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import prefill_attention as _pf
 
 
@@ -18,6 +19,22 @@ def _check_impl(impl: str) -> None:
     if impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode impl {impl!r}: expected one of "
                          f"{'|'.join(DECODE_IMPLS)}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, impl: str = "auto",
+                    q_chunk: int = 1024, kv_chunk: int = 1024):
+    """q [B,H,S,D]; k, v [B,KV,S,D] -> [B,H,S,D], differentiable.  On the
+    kernel the backward recomputes ``blocks.chunked_attention`` at
+    ``q_chunk`` x ``kv_chunk``; the plain version is differentiated
+    directly."""
+    _check_impl(impl)
+    if impl == "auto":
+        return _fa.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk)
+    if impl == "cuda":
+        return _fa.flash_attention_autograd(q, k, v, causal=causal,
+                                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return _fa.flash_attention_plain(q, k, v, causal=causal)
 
 
 def decode_attention(q, k, v, cache_len, *, window: int = 0,

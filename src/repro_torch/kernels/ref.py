@@ -30,6 +30,21 @@ def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tenso
     return pages[bt].reshape(B, max_pages * page_size, KV, D)
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q [B,H,S,D]; k,v [B,KV,S,D] -> [B,H,S,D]; naive full softmax in
+    fp32 over the GQA-repeated K/V, output in q's dtype."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kf = k.repeat_interleave(G, dim=1).float()
+    vf = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(D)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
 def decode_attention_ref(q, k, v, cache_len, *, window: int = 0) -> torch.Tensor:
     """q [B,H,D]; k,v [B,S,KV,D] (cache-native) -> [B,H,D]; ``cache_len``
     [] or [B].  ``window`` > 0 also masks positions before ``cache_len -

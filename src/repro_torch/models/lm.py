@@ -1,20 +1,23 @@
-"""Decoder-only token LM on the serving path (mirror of the dense GQA
-subset of ``repro.models.lm``).
+"""Decoder-only token LM (mirror of the dense GQA subset of
+``repro.models.lm``): the no-cache forward that training differentiates,
+and the serving forward over a KV cache.
 
 Layers follow ``configs.base.block_pattern``: head layers, then a unit
 repeated ``reps`` times whose parameters (and caches) are stacked on a
 leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail layers.
-Where JAX scans the unit, ``lm_apply`` loops over that dim; the per-layer
-cache slices are views, so the in-place cache writes land in the stacked
-tensors.  Two cache layouts, as in JAX: the contiguous slot cache
-(``lm_cache_specs``, ``[batch, max_len, KV, D]`` per layer) and the
-shared page pool (``lm_paged_cache_specs``).
+Where JAX scans the unit, ``lm_apply`` loops over that dim (under
+``remat``, each repetition is checkpointed, as JAX checkpoints the scan
+body); the per-layer cache slices are views, so the in-place cache
+writes land in the stacked tensors.  Two cache layouts, as in JAX: the
+contiguous slot cache (``lm_cache_specs``, ``[batch, max_len, KV, D]``
+per layer) and the shared page pool (``lm_paged_cache_specs``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.params import Param, map_tree
 from repro_torch.configs.base import ModelConfig, block_pattern
@@ -133,63 +136,91 @@ def lm_apply(
     *,
     block_table: Optional[torch.Tensor] = None,
     chunk_lens: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    remat: bool = True,
+    last_only: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns ``(logits [B,S,V], cache, aux_loss)``.
 
-    ``inputs`` are int tokens [B,S]; ``cache`` is a contiguous cache tree
-    (``lm_cache_specs``) or, with ``block_table`` ([B, max_pages] int32),
-    a paged one (``lm_paged_cache_specs``).  With ``chunk_lens`` ([B]) the
+    ``inputs`` are int tokens [B,S].  Without a cache this is the
+    training forward: positions default to ``arange(S)``, the attention is
+    the causal flash op, and ``remat`` checkpoints each repetition of the
+    unit (its activations are recomputed in the backward pass).  With
+    ``cache`` and ``cache_len``: a contiguous cache tree
+    (``lm_cache_specs``) or, with ``block_table`` ([B, max_pages] int32), a
+    paged one (``lm_paged_cache_specs``).  With ``chunk_lens`` ([B]) the
     call is a ragged chunked prefill and ``cache_len`` each row's base
-    offset; without it, ``S == 1`` and ``cache_len`` is each row's decode
-    position ([B]) or one position for every row (scalar).  Positions
-    default to ``base + arange(S)`` per row (prefill) or ``cache_len``
-    (decode).  The caches are updated in place and the returned cache
-    tree holds the same tensors."""
+    offset; without it, ``S == 1`` decodes at ``cache_len`` ([B]: each
+    row at its own position; scalar: every row at one) and ``S > 1`` is
+    the prefill into an empty contiguous cache (``cache_len`` 0).
+    Positions default to ``base + arange(S)`` per row (prefill) or
+    ``cache_len`` (decode).  The caches are updated in place and the
+    returned cache tree holds the same tensors.  ``last_only`` keeps only
+    the last position's logits."""
     _check_kinds(cfg)
-    if cache is None or cache_len is None:
-        raise NotImplementedError(
-            "the port's lm_apply runs the serving path only (cache and "
-            "cache_len); the no-cache forward is the training slice "
-            "(ROADMAP.md queue 1, item 8)")
+    if (cache is None) != (cache_len is None):
+        raise ValueError("cache and cache_len go together")
     if inputs.ndim != 2:
         raise NotImplementedError("embedding inputs are a later slice")
+    if remat and cache is None and cfg.remat_policy == "save_block_outputs":
+        raise NotImplementedError(
+            "remat_policy='save_block_outputs' only matters under sharding: "
+            "the distributed slice (ROADMAP.md queue 1, item 11)")
     head, unit, reps, tail = block_pattern(cfg)
     x = params["embed"][inputs].to(cfg.compute_dtype)
     Bsz, S = inputs.shape
     dev = inputs.device
-    cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32)
+    if cache is not None:
+        cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32)
     if positions is None:
-        if chunk_lens is not None:
-            base = cache_len.reshape(-1).expand(Bsz)
-            positions = base[:, None] + torch.arange(S, dtype=torch.int32,
-                                                      device=dev)[None, :]
+        steps = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        if cache is None:
+            positions = steps.expand(Bsz, S)
+        elif chunk_lens is not None or S > 1:
+            positions = cache_len.reshape(-1).expand(Bsz)[:, None] + steps
         else:
             positions = cache_len.reshape(-1).expand(Bsz)[:, None]
 
     def run_layer(ck, p, x, c):
-        cc = _pack_cache(c, cache_len, block_table)
+        cc = _pack_cache(c, cache_len, block_table) if c is not None else None
         x, nc = B.attn_apply(cfg, p["t"], x, positions, cc,
                              chunk_lens=chunk_lens)
         if ck == "mlp":
             x = B.mlp_apply(cfg, p["c"], x)
-        return x, _unpack_cache(nc)
+        return x, (_unpack_cache(nc) if nc is not None else None)
+
+    def run_unit(x, p_r, c_r):
+        for j, (_, ck) in enumerate(unit):
+            x, _ = run_layer(ck, p_r[f"b{j}"], x,
+                             c_r[f"b{j}"] if c_r is not None else None)
+        return x
+
+    def layer_cache(group, key):
+        return cache[group][key] if cache is not None else None
 
     new_cache: Dict[str, Any] = {"head_layers": {}, "tail_layers": {}}
     for i, (_, ck) in enumerate(head):
         x, new_cache["head_layers"][f"h{i}"] = run_layer(
-            ck, params["head_layers"][f"h{i}"], x, cache["head_layers"][f"h{i}"])
+            ck, params["head_layers"][f"h{i}"], x, layer_cache("head_layers", f"h{i}"))
     for r in range(reps):
-        for j, (_, ck) in enumerate(unit):
-            p_r = map_tree(lambda t: t[r], params["unit"][f"b{j}"])
-            c_r = map_tree(lambda t: t[r], cache["unit"][f"b{j}"])
-            x, _ = run_layer(ck, p_r, x, c_r)  # views: caches written in place
-    new_cache["unit"] = cache["unit"]
+        p_r = map_tree(lambda t: t[r], params["unit"])
+        if cache is not None:  # views: caches written in place
+            x = run_unit(x, p_r, map_tree(lambda t: t[r], cache["unit"]))
+        elif remat:
+            x = checkpoint(run_unit, x, p_r, None, use_reentrant=False)
+        else:
+            x = run_unit(x, p_r, None)
     for i, (_, ck) in enumerate(tail):
         x, new_cache["tail_layers"][f"t{i}"] = run_layer(
-            ck, params["tail_layers"][f"t{i}"], x, cache["tail_layers"][f"t{i}"])
+            ck, params["tail_layers"][f"t{i}"], x, layer_cache("tail_layers", f"t{i}"))
 
+    if last_only:
+        x = x[:, -1:]
     x = B.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     head_w = (params["embed"].T if cfg.tie_embeddings
               else params["lm_head"]).to(cfg.compute_dtype)
     logits = x.to(cfg.compute_dtype) @ head_w
-    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cache is None:
+        return logits, None, aux
+    new_cache["unit"] = cache["unit"]
+    return logits, new_cache, aux

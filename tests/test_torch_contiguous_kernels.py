@@ -288,7 +288,8 @@ def test_ops_cuda_mode_on_cpu_raises(op):
 def test_build_knows_all_four_kernels():
     assert set(build.SIGNATURES) == {"decode_attention", "prefill_attention",
                                      "decode_attention_paged",
-                                     "prefill_attention_paged"}
+                                     "prefill_attention_paged",
+                                     "flash_attention"}
     for name in build.SIGNATURES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

@@ -1,5 +1,5 @@
-"""The CUDA kernels of ``repro_torch`` (paged and contiguous) against
-their plain PyTorch versions, on the card.  Every test here needs an
+"""The CUDA kernels of ``repro_torch`` (paged and contiguous serving,
+flash attention) against their plain PyTorch versions, on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import prefill_attention as tpa  # noqa: E402
 
 # fp32 sums in another order; bf16 outputs may round one bf16 ulp apart
@@ -121,3 +122,46 @@ def test_contiguous_prefill_kernel_matches_plain(dtype, tol):
     assert (go.float() - wo.float()).abs().max().item() <= tol
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
     assert (go[1, 20:] == 0).all() and (go[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_flash_kernel_matches_plain(dtype, tol, causal):
+    """The training shape (B 8, H 32, KV 4, S 512, D 64), an S that is not
+    a multiple of the tile, S = 1, D 16 and D 128, MHA (G = 1); and the
+    model's [B, S, H, D] activations viewed as [B, H, S, D]."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    for B, H, KV, S, D in ((8, 32, 4, 512, 64), (2, 8, 2, 200, 64),
+                           (3, 4, 1, 1, 32), (1, 4, 2, 77, 16),
+                           (1, 8, 8, 130, 128)):
+        q, k, v = (_randn(rng, s, dt) for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+        got = tfa.flash_attention_kernel(q, k, v, causal=causal)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == dt
+        assert (got.float() - want.float()).abs().max().item() <= tol, (B, H, KV, S, D)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+        got_v = tfa.flash_attention_kernel(*views, causal=causal)
+        assert got_v.stride() == views[0].stride()
+        assert torch.equal(got_v, got)
+
+
+@pytest.mark.cuda
+def test_flash_function_gradients_match_plain():
+    """fp32: the kernel's Function (backward through chunked_attention)
+    against autograd of the plain version; gradients sum in another
+    order, so 1e-4."""
+    _card()
+    rng = np.random.default_rng(12)
+    B, H, KV, S, D = 2, 8, 2, 96, 64
+    leaves = [_randn(rng, s, torch.float32).requires_grad_()
+              for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+    ct = _randn(rng, (B, H, S, D), torch.float32)
+    out = tfa.flash_attention_autograd(*leaves, q_chunk=32, kv_chunk=32)
+    got = torch.autograd.grad(out, leaves, ct)
+    want = torch.autograd.grad(tfa.flash_attention_plain(*leaves), leaves, ct)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4

@@ -147,9 +147,15 @@ def test_prefill_step_with_cache_matches_jax(params):
     _assert_caches(tc, jc)
 
 
-def test_prefill_step_without_cache_is_the_training_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_prefill_step(CFG32)
+def test_prefill_step_without_cache_is_the_training_slice(params):
+    """Landed with the training slice: the last position's logits of the
+    no-cache forward."""
+    tp = params[1]
+    tok = torch.from_numpy(np.random.default_rng(9).integers(
+        1, CFG32.vocab_size, (2, 6)).astype(np.int32))
+    got = tstep.make_prefill_step(CFG32)(tp, {"tokens": tok})
+    want, _, _ = tlm.lm_apply(CFG32, tp, tok, remat=False)
+    torch.testing.assert_close(got, want[:, -1], rtol=0, atol=0)
 
 
 def test_replay_generate_matches_jax(params):
@@ -323,9 +329,18 @@ def test_layout_arguments_are_checked(params):
 
 
 def test_prefill_without_chunk_lens_is_the_training_slice(params):
+    """The training slice landed the prefill without chunk_lens: into an
+    empty cache it writes the prompt at offset 0 and gives the no-cache
+    forward's logits; over a warm cache it refuses (pass chunk_lens)."""
     tp = params[1]
     cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype),
                      tlm.lm_cache_specs(CFG32, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.lm_apply(CFG32, tp, torch.ones((1, 4), dtype=torch.int32), None, cache,
-                     torch.tensor(0, dtype=torch.int32))
+    tok = torch.ones((1, 4), dtype=torch.int32)
+    got, cache, _ = tlm.lm_apply(CFG32, tp, tok, None, cache,
+                                 torch.tensor(0, dtype=torch.int32))
+    want, _, _ = tlm.lm_apply(CFG32, tp, tok, remat=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert cache["unit"]["b0"]["k"][:, :4].abs().sum() > 0
+    assert not cache["unit"]["b0"]["k"][:, 4:].any()
+    with pytest.raises(NotImplementedError, match="chunk_lens"):
+        tlm.lm_apply(CFG32, tp, tok, None, cache, torch.tensor(4, dtype=torch.int32))
