@@ -8,14 +8,22 @@ non-zero:
 
 1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
             sm_90a (one nvcc per source, all at once) into build/kernels/.
-2. kernels  each of the five kernels against its plain PyTorch version on
-            the card, at full tinyllama-1.1b shapes and at the smoke
-            shapes, fp32 and bf16: ragged, empty, full and past-the-end
-            lengths, a scalar length, a window, an S that is not a power of
-            two, sentinel table entries, page-straddling chunks, inert rows
-            and chunks whose tokens run past the end of the cache; flash
-            attention causal and full at the training shape, an S that is
-            not a multiple of the tile, S = 1, D 16 and 128, and G = 1.
+2. kernels  each of the seven kernels against its plain PyTorch version on
+            the card.  The five attention kernels at full tinyllama-1.1b
+            shapes and at the smoke shapes, fp32 and bf16: ragged, empty,
+            full and past-the-end lengths, a scalar length, a window, an S
+            that is not a power of two, sentinel table entries,
+            page-straddling chunks, inert rows and chunks whose tokens run
+            past the end of the cache; flash attention causal and full at
+            the training shape, an S that is not a multiple of the tile,
+            S = 1, D 16 and 128, and G = 1.  rmsnorm at [4096, 2048],
+            [4, 17, 256] and [1, 5120] in fp32 and bf16 (RMS_TOL); the
+            hash-partition histogram bitwise at n 1, 2047, 2048, 2049 and
+            2^23 keys (negatives and the int32 extremes among them) for 4,
+            8, 16, 64 and 4096 buckets.  Then torch.profiler's device time
+            per launch of those two at their paths' shapes (taken here:
+            windows opened late in the run came back without device
+            events).
 3. serve    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, bf16 compute) serves 16 greedy requests shaped
             like the repo's mixed workload through ``submit`` +
@@ -46,6 +54,24 @@ non-zero:
 8. parity   fp32 training (TF32 off) from one initial state: 3 steps on
             the kernel path and 3 on the plain path (``decode_impl="ref"``);
             loss and grad-norm must agree at every step within TRAIN_TOL.
+9. dataframe  a 2^26-row table (int32 keys uniform in [0, 2^20), float32
+            v, x1, x2 and y = 3 x1 - 2 x2 + noise, from numpy at SEED) on 8
+            logical shards of the card: shuffle, sort, join with a 2^20-row
+            table (w = 10 k), groupby_sum (2^18 groups per shard) and
+            reduce_sum.  Counters zeroed just before, read just after: the
+            hash kernel launches exactly 4 times (shuffle 1, join 2,
+            groupby 1).  Nothing dropped; the results pass numpy checks on
+            the host; the same operators with impl="ref" give the same
+            columns, masks and drops bitwise (groupby sums within
+            DF_PAIR_ATOL: index_add_ adds with atomics on the card).
+10. pipeline  the paper's preprocess -> bridge -> train -> postprocess
+            without the pilot: filter |x1| < 3 on that table, a shuffled
+            ZeroCopyLoader at global batch 65536, PIPE_STEPS SGD steps of a
+            linear model (w_err < 0.2, loss falling), then HostPrefetcher
+            over host batches (arrive equal; GB/s).
+11. rmsnorm   the fused norm's entry point ``ops.rmsnorm`` on [4096, 2048]
+            bf16 activations once per tinyllama layer (22 launches, counted
+            as above); then the timing rows of kernels 6 and 7.
 
 The last lines are the card (nvidia-smi name and power limit), the kernel
 table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -67,13 +93,20 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.bridge.loader import HostPrefetcher, ZeroCopyLoader  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.common.params import init_params, map_tree, tree_leaves  # noqa: E402
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.dataframe import ops_dist as dfo  # noqa: E402
+from repro_torch.dataframe.ops_local import filter_rows  # noqa: E402
+from repro_torch.dataframe.table import Table  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import hash_partition as hp  # noqa: E402
 from repro_torch.kernels import prefill_attention as pf  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import make_corpus  # noqa: E402
 from repro_torch.models.lm import lm_paged_cache_specs  # noqa: E402
 from repro_torch.serve import RequestState, ServeEngine  # noqa: E402
@@ -82,6 +115,7 @@ from repro_torch.train.step import make_prefill_chunk_step, make_train_step  # n
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # max abs error, kernel vs plain: fp32 sums in another order (~1e-6 seen);
 # bf16 outputs may round one bf16 ulp apart (2^-6 at |x| in [2, 4))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -95,16 +129,22 @@ COUNTED = {"decode_attention_paged": dec.decode_attention_paged_kernel,
            "prefill_attention_paged": pf.prefill_attention_paged_kernel,
            "decode_attention": dec.decode_attention_kernel,
            "prefill_attention": pf.prefill_attention_kernel,
-           "flash_attention": fa.flash_attention_kernel}
+           "flash_attention": fa.flash_attention_kernel,
+           "rmsnorm": rms.rmsnorm_kernel,
+           "hash_partition_histogram": hp.hash_partition_histogram_kernel}
 PATH_KERNELS = {"paged": ("decode_attention_paged", "prefill_attention_paged"),
                 "contiguous": ("decode_attention", "prefill_attention"),
-                "train": ("flash_attention",)}
+                "train": ("flash_attention",),
+                "dataframe": ("hash_partition_histogram",),
+                "rmsnorm": ("rmsnorm",)}
 # each kernel's device symbols (torch.profiler event names)
 SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_kernel"),
            "prefill_attention_paged": ("prefill_kernel",),
            "decode_attention": ("contig_decode_split_kernel", "decode_combine_kernel"),
            "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_kernel"),
-           "flash_attention": ("flash_fwd_kernel",)}
+           "flash_attention": ("flash_fwd_kernel",),
+           "rmsnorm": ("rmsnorm_kernel",),
+           "hash_partition_histogram": ("hash_hist_kernel",)}
 # the train phase: B x S tokens per step, as many steps; the kernel path
 # and the plain path in fp32 must agree in loss and grad-norm within
 # TRAIN_TOL (relative) at each of PARITY_STEPS steps: both are fp32 with
@@ -112,6 +152,23 @@ SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_ker
 # backward adds with atomics), which AdamW's normalised steps carry on
 TRAIN_B, TRAIN_S, TRAIN_STEPS, PARITY_STEPS = 8, 512, 20, 3
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+# rmsnorm, kernel vs plain, as atol = rtol (tests/test_kernels.py's
+# tolerances): fp32 sums in another order; bf16 one ulp of the cast,
+# which is 2^-7 of the value's power of two, so it grows with the value
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RMS_SHAPE = (4096, 2048)  # tinyllama's training activations, B 8 x S 512
+# the dataframe phase: rows of the left table on DF_SHARDS logical shards,
+# keys uniform in [0, DF_KEYS), a right table of DF_KEYS rows, groupby
+# slots per shard; the hash kernel launches once per hash exchange
+DF_ROWS, DF_SHARDS, DF_KEYS, DF_GROUPS = 1 << 26, 8, 1 << 20, 1 << 18
+DF_LAUNCHES = {"shuffle": 1, "sort": 0, "join": 2, "groupby": 1, "reduce": 0}
+# float sums, host float64 vs the card's float32 (groupby: absolute, a
+# group holds ~64 values; reduce: relative)
+DF_SUM_TOL = 1e-3
+# groupby sums, kernel run vs impl="ref" run (absolute): the same float32
+# sums of ~64 values in another order (index_add_ adds with atomics)
+DF_PAIR_ATOL = 1e-4
+PIPE_BATCH, PIPE_STEPS = 65536, 1024
 
 
 def emit(obj) -> None:
@@ -345,8 +402,42 @@ def phase_kernels():
                               "shape_dtype_ok": ok})
                 if not (err <= TOL[dtype] and ok):
                     raise AssertionError(f"flash kernel disagrees: {cases[-1]}")
+        # rmsnorm: the training activations, the shapes of
+        # tests/test_kernels.py, a block per row (d 5120)
+        for shape in (RMS_SHAPE, (4, 17, 256), (1, 5120)):
+            x, w = randn(gen, shape, dtype), randn(gen, shape[-1:], dtype)
+            out = rms.rmsnorm_kernel(x, w)
+            got, want = out.float(), rms.rmsnorm_plain(x, w).float()
+            tol = RMS_TOL[dtype]
+            diff = (got - want).abs()
+            cases.append({"kernel": "rmsnorm", "shape": list(shape), "dtype": str(dtype),
+                          "max_abs_err": diff.max().item(),
+                          "max_err_over_tol": (diff / (tol + tol * want.abs())).max().item(),
+                          "atol_rtol": tol})
+            if not (cases[-1]["max_err_over_tol"] <= 1 and out.dtype == dtype
+                    and out.shape == x.shape):
+                raise AssertionError(f"rmsnorm kernel disagrees: {cases[-1]}")
+    # the hash histogram: counts are integers, so bitwise
+    for n in (1, 2047, 2048, 2049, 1 << 23):
+        keys = hash_keys(gen, n)
+        for P in (4, 8, 16, 64, 4096):
+            got = hp.hash_partition_histogram_kernel(keys, num_buckets=P)
+            ok = torch.equal(got, hp.hash_partition_histogram_plain(keys, num_buckets=P))
+            cases.append({"kernel": "hash_partition_histogram", "n": n, "buckets": P,
+                          "blocks": got.shape[0], "bitwise_equal": ok})
+            if not ok:
+                raise AssertionError(f"hash kernel disagrees: {cases[-1]}")
     emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
+
+
+def hash_keys(gen, n):
+    """n int32 keys over the whole int32 range, the extremes first."""
+    keys = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    ext = torch.tensor([-1, 0, 1, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32)[:n]
+    keys[:len(ext)] = ext.cuda()
+    return keys
 
 
 def mixed_requests(n: int, vocab: int, seed: int):
@@ -444,11 +535,11 @@ def phase_serve(cfg, params, layout):
 
 
 def kernel_row(name, replaces, launches, err, ms, plain_ms, bytes_, flops,
-               lib_ms, lib_note, at):
+               lib_ms, lib_note, at, source=None, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -750,7 +841,9 @@ def profile_train_step(step_fn, state, batch):
     if not flash_n:
         raise AssertionError("the profiler saw no flash_fwd_kernel launch")
     classes = {"matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
-               "flash_attention": ("flash_fwd_kernel",)}
+               "flash_attention": ("flash_fwd_kernel",),
+           "rmsnorm": ("rmsnorm_kernel",),
+           "hash_partition_histogram": ("hash_hist_kernel",)}
     by_class = {c: sum(v[0] for k, v in by_name.items()
                        if any(t in k for t in subs)) for c, subs in classes.items()}
     by_class["other"] = busy_ms - sum(by_class.values())
@@ -911,6 +1004,363 @@ def flash_row(cfg, launches, device_us):
     return row
 
 
+def df_tables(mesh):
+    """The dataframe phase's tables on the card, from numpy at SEED."""
+    rng = np.random.default_rng(SEED)
+    x1 = rng.standard_normal(DF_ROWS, dtype=np.float32)
+    x2 = rng.standard_normal(DF_ROWS, dtype=np.float32)
+    cols = {"k": rng.integers(0, DF_KEYS, DF_ROWS, dtype=np.int32),
+            "v": rng.standard_normal(DF_ROWS, dtype=np.float32), "x1": x1, "x2": x2,
+            "y": 3 * x1 - 2 * x2 + np.float32(0.1) * rng.standard_normal(
+                DF_ROWS, dtype=np.float32)}
+    rk = np.arange(DF_KEYS, dtype=np.int32)
+    right = {"k": rk, "w": (10 * rk).astype(np.float32)}
+    return (cols, Table.from_columns(cols, mesh),
+            Table.from_columns(right, mesh))
+
+
+def df_calls(t, r, impl):
+    """The five operators, each returning (result, dropped)."""
+    return {"shuffle": lambda: dfo.shuffle(t, "k", impl=impl),
+            "sort": lambda: dfo.sort(t, "k"),
+            "join": lambda: dfo.join(t, r, "k", impl=impl),
+            "groupby": lambda: dfo.groupby_sum(t, "k", ["v"],
+                                               groups_cap_per_shard=DF_GROUPS, impl=impl),
+            "reduce": lambda: (dfo.reduce_sum(t, ["v"]), 0)}
+
+
+def timed(call):
+    """(result, dropped, ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, dropped = call()
+    end.record()
+    end.synchronize()
+    return res, dropped, start.elapsed_time(end)
+
+
+def hash_u32_np(k):
+    h = k.astype(np.uint32) * np.uint32(2654435761)  # wraps mod 2^32
+    return h ^ (h >> np.uint32(16))
+
+
+def check_df_on_host(cols, runs):
+    """tests/spawn/dataframe_ops.py's checks at full size, in numpy."""
+    keys, vals = cols["k"], cols["v"]
+    counts = np.bincount(keys, minlength=DF_KEYS)
+    checks = {}
+    # shuffle: every row arrived, each key on the shard its hash names
+    sh = runs["shuffle"][0]
+    k, valid = sh.col("k").cpu().numpy(), sh.valid.cpu().numpy()
+    shard = np.arange(len(k)) // (len(k) // DF_SHARDS)
+    checks["shuffle"] = bool(
+        np.array_equal(np.bincount(k[valid], minlength=DF_KEYS), counts)
+        and np.array_equal(hash_u32_np(k[valid]) % DF_SHARDS, shard[valid]))
+    # sort: every shard sorted, the shards in splitter order, every row there
+    st = runs["sort"][0]
+    k, valid = st.col("k").cpu().numpy(), st.valid.cpu().numpy()
+    per = len(k) // DF_SHARDS
+    segs = [k[i * per:(i + 1) * per][valid[i * per:(i + 1) * per]] for i in range(DF_SHARDS)]
+    checks["sort"] = bool(
+        all(np.all(np.diff(g) >= 0) for g in segs)
+        and all(a.max() <= b.min() for a, b in zip(segs, segs[1:]) if len(a) and len(b))
+        and np.array_equal(np.bincount(np.concatenate(segs), minlength=DF_KEYS), counts))
+    # join: every left row matched, w == 10 k on each
+    jn = runs["join"][0].to_numpy()
+    checks["join"] = bool(len(jn["k"]) == DF_ROWS and np.array_equal(jn["w"], 10 * jn["k"]))
+    # groupby: one slot per key, float64 sums and counts
+    gb = runs["groupby"][0].to_numpy()
+    want = np.bincount(keys, weights=vals.astype(np.float64), minlength=DF_KEYS)
+    gb_err = float(np.abs(gb["v"] - want[gb["k"]]).max())
+    checks["groupby"] = bool(
+        len(np.unique(gb["k"])) == len(gb["k"]) == np.count_nonzero(counts)
+        and np.array_equal(gb["_count"], counts[gb["k"]]) and gb_err <= DF_SUM_TOL)
+    want_sum = float(vals.astype(np.float64).sum())
+    reduce_rel = abs(runs["reduce"][0]["v"] - want_sum) / abs(want_sum)
+    checks["reduce"] = bool(reduce_rel <= DF_SUM_TOL)
+    return checks, {"groupby_max_abs_err": gb_err, "reduce_rel_err": reduce_rel}
+
+
+def same_result(a, b, name):
+    """Kernel run vs impl="ref" run of one operator: (equal, max abs
+    difference of the groupby sums)."""
+    (ra, da, _), (rb, db, _) = a, b
+    if name == "reduce":
+        return ra == rb and da == db, 0.0
+    sums = ("v",) if name == "groupby" else ()
+    ok = da == db and torch.equal(ra.valid, rb.valid) and ra.column_names == rb.column_names
+    diff = 0.0
+    for col in ra.column_names:
+        if col in sums:
+            diff = (ra.col(col) - rb.col(col)).abs().max().item()
+            ok = ok and diff <= DF_PAIR_ATOL
+        else:
+            ok = ok and torch.equal(ra.col(col), rb.col(col))
+    return ok, diff
+
+
+def profiled_us(fn, symbol, reps: int = 10):
+    """Device us per launch of ``symbol`` over ``reps`` runs of ``fn``
+    under torch.profiler (the device's own time, free of host dispatch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, by_name = device_kernels(prof)
+    hits = [v for k, v in by_name.items() if symbol in k]
+    ms, n = sum(v[0] for v in hits), sum(v[1] for v in hits)
+    if not n:
+        raise AssertionError(f"the profiler saw no {symbol} launch; it saw "
+                             f"{[k[:100] for k in by_name][:20]}")
+    return 1e3 * ms / n
+
+
+def top_kernels(fn, n: int = 6):
+    """Where one run of ``fn`` spends its device time: the ``n`` kernels of
+    most device ms under torch.profiler, or None when the window came back
+    without device events (it informs section 5 of PERF.md; nothing is
+    checked on it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _, by_name = device_kernels(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:90], "ms": v[0], "launches": v[1]} for k, v in top] or None
+
+
+def profile_new_kernels():
+    """Device us per launch of kernels 6 and 7 at their paths' shapes
+    (rmsnorm on [4096, 2048] bf16; the hash on [8, 2^23] keys in
+    [0, 2^20), 8 buckets), early in the run: windows opened after the
+    dataframe and pipeline phases came back without device events."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    (x, w), = rms_cases(gen, 1)
+    keys = torch.randint(0, DF_KEYS, (DF_SHARDS, DF_ROWS // DF_SHARDS), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    (rms_symbol,), (hash_symbol,) = SYMBOLS["rmsnorm"], SYMBOLS["hash_partition_histogram"]
+    return {"rmsnorm": profiled_us(lambda: rms.rmsnorm_kernel(x, w), rms_symbol),
+            "hash_partition_histogram": profiled_us(
+                lambda: hp.hash_partition_histogram_kernel(keys, num_buckets=DF_SHARDS),
+                hash_symbol, reps=3)}
+
+
+def phase_dataframe():
+    """The dataframe path at 2^26 rows on 8 logical shards: every counter
+    zeroed just before the kernel run and read just after; numpy checks;
+    the impl="ref" run held to it.  Returns the host columns, the table
+    and the hash launches."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh((DF_SHARDS,), ("data",))
+    t0 = time.perf_counter()
+    cols, t, r = df_tables(mesh)
+    setup_s = time.perf_counter() - t0
+    table_gb = sum(c.numel() * c.element_size() for c in (*t.columns.values(), t.valid)) / 1e9
+    for call in df_calls(t, r, "auto").values():  # warm-up: library, allocator
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    counter = COUNTED["hash_partition_histogram"]
+    runs, op_launches = {}, {}
+    for name, call in df_calls(t, r, "auto").items():
+        before = counter.launches
+        runs[name] = timed(call)
+        op_launches[name] = counter.launches - before
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if op_launches != DF_LAUNCHES or \
+            launches["hash_partition_histogram"] != sum(DF_LAUNCHES.values()):
+        raise AssertionError(f"hash launches {op_launches}, expected {DF_LAUNCHES}")
+    others = {n: c for n, c in launches.items() if n not in PATH_KERNELS["dataframe"]}
+    if any(others.values()):
+        raise AssertionError(f"the dataframe path launched other kernels: {others}")
+    dropped = {n: int(d) for n, (_, d, _) in runs.items()}
+    if any(dropped.values()):
+        raise AssertionError(f"rows dropped: {dropped}")
+    checks, errs = check_df_on_host(cols, runs)
+    if not all(checks.values()):
+        raise AssertionError(f"dataframe results wrong: {checks} {errs}")
+    pairs = {}
+    ref_calls = df_calls(t, r, "ref")
+    for name in runs:  # the plain histogram path, one operator at a time
+        ok, diff = same_result(runs[name], timed(ref_calls[name]), name)
+        pairs[name] = {"equal": ok, "groupby_sum_max_abs_diff": diff}
+        if not ok:
+            raise AssertionError(f"{name}: kernel and impl='ref' runs differ: {pairs[name]}")
+    if read_counts()["hash_partition_histogram"] != launches["hash_partition_histogram"]:
+        raise AssertionError("the impl='ref' run launched the hash kernel")
+    calls = df_calls(t, r, "auto")
+    breakdown = {name: top_kernels(calls[name]) for name in ("shuffle", "sort", "groupby")}
+    emit({"phase": "dataframe", "ok": True, "gpu": gpu_line(), "rows": DF_ROWS,
+          "right_rows": DF_KEYS, "shards": DF_SHARDS, "table_gb": table_gb,
+          "setup_s": setup_s,
+          "ops": {n: {"ms": ms, "rows_per_s": DF_ROWS / (ms / 1e3), "dropped": d,
+                      "hash_launches": op_launches[n], "host_check": checks[n]}
+                  for n, (_, d, ms) in runs.items()},
+          "host_errors": errs, "launches": launches, "peak_memory_gb": peak_gb,
+          "ref_run": pairs, "top_kernels": breakdown,
+          "ref_tolerance": (f"groupby sums {DF_PAIR_ATOL} abs: float32 index_add_ "
+                            "adds with atomics in a run-dependent order; all else "
+                            "bitwise"),
+          "seconds": time.perf_counter() - t_phase})
+    del runs
+    return cols, t, launches["hash_partition_histogram"]
+
+
+def phase_pipeline(t, host_cols):
+    """tests/test_system.py's pipeline without the pilot, at 2^26 rows:
+    filter, the zero-copy loader (shuffled), SGD on a linear model,
+    postprocess; then the host prefetcher over host batches."""
+    t_phase = time.perf_counter()
+    cols, valid = filter_rows(t.columns, t.valid, t.col("x1").abs() < 3.0)
+    table = t.with_columns({c: cols[c] for c in ("x1", "x2", "y")}, valid)
+    loader = ZeroCopyLoader(table, ["x1", "x2"], "y", PIPE_BATCH, shuffle=True,
+                            seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in loader.epoch(0))
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+
+    w = torch.zeros(2, device="cuda", requires_grad=True)
+    b = torch.zeros((), device="cuda", requires_grad=True)
+    losses, epoch = [], 1
+    t0 = time.perf_counter()
+    while len(losses) < PIPE_STEPS:
+        for feats, labels, mask in loader.epoch(epoch):
+            err = torch.where(mask, feats @ w + b - labels, 0.0)
+            loss = (err ** 2).sum() / mask.sum().clamp(min=1)
+            gw, gb = torch.autograd.grad(loss, (w, b))
+            with torch.no_grad():
+                w -= 0.1 * gw
+                b -= 0.1 * gb
+            losses.append(loss.detach())
+            if len(losses) == PIPE_STEPS:
+                break
+        epoch += 1
+    losses = torch.stack(losses).tolist()  # the one host sync of the loop
+    train_s = time.perf_counter() - t0
+    w_err = float((w.detach().cpu() - torch.tensor([3.0, -2.0])).abs().max())
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not (w_err < 0.2 and last < first and np.isfinite(losses).all()):
+        raise AssertionError(f"pipeline did not learn: w_err {w_err}, loss {first} -> {last}")
+
+    # host -> device: 16 batches of four 2^22-row host columns (64 MB each)
+    step = DF_ROWS // 16
+    host = [tuple(host_cols[c][i:i + step] for c in ("x1", "x2", "y", "v"))
+            for i in range(0, DF_ROWS, step)]
+    nbytes = sum(a.nbytes for item in host for a in item)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(HostPrefetcher(iter(host), depth=2))
+    torch.cuda.synchronize()
+    prefetch_s = time.perf_counter() - t0
+    if not all(torch.equal(d, torch.from_numpy(h).cuda())
+               for item, dev in zip(host, got) for h, d in zip(item, dev)) \
+            or len(got) != len(host):
+        raise AssertionError("prefetched batches differ from the host batches")
+    emit({"phase": "pipeline", "ok": True, "gpu": gpu_line(), "rows": DF_ROWS,
+          "valid_rows": int(valid.sum()), "global_batch": PIPE_BATCH,
+          "loader_batches": batches, "loader_s": loader_s,
+          "loader_rows_per_s": batches * PIPE_BATCH / loader_s,
+          "train_steps": PIPE_STEPS, "train_s": train_s,
+          "train_steps_per_s": PIPE_STEPS / train_s,
+          "first10_mean_loss": first, "last10_mean_loss": last,
+          "w": w.detach().cpu().tolist(), "b": float(b.detach()), "w_err": w_err,
+          "prefetch_batches": len(got), "prefetch_bytes": nbytes,
+          "prefetch_s": prefetch_s, "prefetch_gb_per_s": nbytes / prefetch_s / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def rms_cases(gen, n):
+    """n (x, w) pairs at the training activations' shape, bf16."""
+    return [(randn(gen, RMS_SHAPE, torch.bfloat16),
+             randn(gen, RMS_SHAPE[-1:], torch.bfloat16)) for _ in range(n)]
+
+
+def phase_rmsnorm(cfg):
+    """The fused norm's only entry point, ``ops.rmsnorm``, once per layer on
+    bf16 training activations, counters zeroed just before and read just
+    after."""
+    cases = rms_cases(torch.Generator(device="cuda").manual_seed(SEED + 4),
+                      cfg.num_layers)
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = [ops.rmsnorm(x, w) for x, w in cases]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["rmsnorm"] != cfg.num_layers or any(
+            c for n, c in launches.items() if n not in PATH_KERNELS["rmsnorm"]):
+        raise AssertionError(f"ops.rmsnorm launches {launches}, expected "
+                             f"{cfg.num_layers} of rmsnorm alone")
+    if not all(o.shape == x.shape and o.dtype == x.dtype and bool(o.isfinite().all())
+               for o, (x, _) in zip(outs, cases)):
+        raise AssertionError("ops.rmsnorm output of the wrong shape or not finite")
+    emit({"phase": "rmsnorm", "ok": True, "calls": len(cases), "shape": list(RMS_SHAPE),
+          "dtype": "torch.bfloat16", "launches": launches})
+    return launches["rmsnorm"]
+
+
+def rmsnorm_row(launches, device_us):
+    """Kernel 6 at the training activations' shape, rotating over four
+    input sets (134 MB with the outputs, past the 50 MB L2)."""
+    cases = rms_cases(torch.Generator(device="cuda").manual_seed(SEED + 5), 4)
+    err = max((rms.rmsnorm_kernel(x, w).float() - rms.rmsnorm_plain(x, w).float())
+              .abs().max().item() for x, w in cases[:2])
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: rms.rmsnorm_kernel(*nxt()))
+    plain_ms = cuda_ms(lambda: rms.rmsnorm_plain(*nxt()))
+    d = RMS_SHAPE[-1]
+
+    def library():
+        x, w = nxt()
+        return F.rms_norm(x, (d,), w, eps=1e-5)
+
+    lib_ms = cuda_ms(library)
+    rows, esz = RMS_SHAPE[0], 2
+    row = kernel_row("rmsnorm", "src/repro/kernels/rmsnorm.py:24", launches, err, ms,
+                     plain_ms, 2 * rows * d * esz + d * esz, 4 * rows * d, lib_ms,
+                     "torch.nn.functional.rms_norm (weight w, eps 1e-5), timed "
+                     "only: the port never calls it",
+                     {"x": list(RMS_SHAPE), "dtype": "torch.bfloat16", "w": [d]},
+                     flops_per_s=FP32_FLOPS_PER_S)
+    row["device_us_per_launch"] = device_us
+    return row
+
+
+def hash_row(launches, device_us):
+    """Kernel 7 at the dataframe path's launch: [8, 2^23] int32 keys in
+    [0, 2^20), 8 buckets, blocks of 2048 (two key sets of 268 MB)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [torch.randint(0, DF_KEYS, (DF_SHARDS, DF_ROWS // DF_SHARDS), generator=gen,
+                           device="cuda", dtype=torch.int32) for _ in range(2)]
+    hist = [hp.hash_partition_histogram_kernel(k, num_buckets=DF_SHARDS) for k in cases]
+    if not all(torch.equal(h, hp.hash_partition_histogram_plain(k, num_buckets=DF_SHARDS))
+               for h, k in zip(hist, cases)):
+        raise AssertionError("hash kernel disagrees with its plain version at the path's shape")
+    nxt = rotate(cases)
+    ms = cuda_ms(lambda: hp.hash_partition_histogram_kernel(nxt(), num_buckets=DF_SHARDS))
+    plain_ms = cuda_ms(lambda: hp.hash_partition_histogram_plain(nxt(), num_buckets=DF_SHARDS),
+                       iters=10)
+    row = kernel_row("hash_partition_histogram", "src/repro/kernels/hash_partition.py:42",
+                     launches, 0.0, ms, plain_ms, 4 * DF_ROWS + 4 * hist[0].numel(), 0,
+                     None, "no single PyTorch call computes per-block histograms of "
+                     "this hash (the plain version is a hash, a pad and a scatter_add_)",
+                     {"keys": [DF_SHARDS, DF_ROWS // DF_SHARDS], "dtype": "torch.int32",
+                      "buckets": DF_SHARDS, "block": 2048,
+                      "ops_bound": "integer ops (~6 per key) not counted: bytes bound it"},
+                     source="hash_partition")
+    row["device_us_per_launch"] = device_us
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -920,6 +1370,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     phase_kernels()
+    new_us = profile_new_kernels()
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, model_specs(cfg), "cuda")
@@ -941,7 +1392,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_parity(cfg)
     rows.append(flash_row(cfg, {"flash_attention": flash_launches}, flash_us))
-    emit({"phase": "timing", "ok": True, "rows": rows[-1:]})
+    torch.cuda.empty_cache()
+    host_cols, table, hash_launches = phase_dataframe()
+    phase_pipeline(table, host_cols)
+    del table, host_cols
+    torch.cuda.empty_cache()
+    rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"]))
+    rows.append(hash_row({"hash_partition_histogram": hash_launches},
+                         new_us["hash_partition_histogram"]))
+    emit({"phase": "timing", "ok": True, "rows": rows[-3:]})
     print(gpu_line(), flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

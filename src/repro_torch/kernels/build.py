@@ -52,6 +52,10 @@ SIGNATURES = {
     # B, S, H, KV, D, causal, scale, stream
     "flash_attention": [_I] + [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
                        + [_I] * 6 + [ctypes.c_float, _P],
+    # keys, out, R, N, block, nb, P, stream
+    "hash_partition": [_P] * 2 + [_I] * 5 + [_P],
+    # dtype of x, dtype of w, x, w, out, rows, d, eps, stream
+    "rmsnorm": [_I] * 2 + [_P] * 3 + [_I] * 2 + [ctypes.c_float, _P],
 }
 
 

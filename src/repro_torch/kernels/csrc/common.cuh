@@ -1,7 +1,7 @@
-// Device code shared by the attention kernels: fp32/bf16 conversions and
-// the split-K combine pass of the two decode kernels.  Each kernel source
-// includes this header and is built into its own library, so everything
-// here sits in an anonymous namespace.
+// Device code shared by the kernels: fp32/bf16 conversions (the attention
+// kernels and rmsnorm) and the split-K combine pass of the two decode
+// kernels.  Each kernel source includes this header and is built into its
+// own library, so everything here sits in an anonymous namespace.
 #pragma once
 
 #include <cuda_bf16.h>

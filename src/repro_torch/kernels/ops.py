@@ -1,6 +1,6 @@
-"""Dispatch for the attention ops (mirror of the attention half of
-``repro.kernels.ops``: flash, decode and prefill attention).  The model
-code calls these with ``impl=cfg.decode_impl``:
+"""Dispatch for the kernels (mirror of ``repro.kernels.ops``).  The model
+code calls the attention ops with ``impl=cfg.decode_impl``, the dataframe
+operators ``hash_partition_histogram`` with their own ``impl``:
 
 * ``"auto"``: the hand-written CUDA kernel for CUDA tensors, the plain
   PyTorch version for CPU tensors (decided by the tensor's device only);
@@ -12,7 +12,9 @@ from __future__ import annotations
 from repro_torch.configs.base import DECODE_IMPLS
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import hash_partition as _hp
 from repro_torch.kernels import prefill_attention as _pf
+from repro_torch.kernels import rmsnorm as _rms
 
 
 def _check_impl(impl: str) -> None:
@@ -91,3 +93,30 @@ def prefill_attention_paged(q, k_new, v_new, k_pages, v_pages, block_table,
     if impl == "cuda":
         return _pf.prefill_attention_paged_kernel(*args)
     return _pf.prefill_attention_paged_plain(*args)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto"):
+    """The fused kernel's RMSNorm (fp32 multiply; not the model's norm):
+    x [..., d]; w [d] -> x's shape and dtype."""
+    _check_impl(impl)
+    if impl == "auto":
+        return _rms.rmsnorm(x, w, eps=eps)
+    if impl == "cuda":
+        return _rms.rmsnorm_kernel(x, w, eps=eps)
+    return _rms.rmsnorm_plain(x, w, eps=eps)
+
+
+def hash_partition_histogram(keys, *, num_buckets: int, impl: str = "auto",
+                             block: int = 2048):
+    """keys [N] (or [R, N]) -> [ceil(N/block), P] (or [R, ...]) int32
+    per-block bucket histograms on every ``impl``; JAX's ``"ref"`` returns
+    the global histogram as one block instead."""
+    _check_impl(impl)
+    if impl == "auto":
+        return _hp.hash_partition_histogram(keys, num_buckets=num_buckets,
+                                            block=block)
+    if impl == "cuda":
+        return _hp.hash_partition_histogram_kernel(keys, num_buckets=num_buckets,
+                                                   block=block)
+    return _hp.hash_partition_histogram_plain(keys, num_buckets=num_buckets,
+                                              block=block)

@@ -1,6 +1,6 @@
-"""Plain PyTorch oracles for the attention kernels (mirror of the
-attention half of ``repro.kernels.ref``): the ground truth the CUDA
-kernels are held against on the card, and the path CPU tensors take.
+"""Plain PyTorch oracles of the kernels (mirror of ``repro.kernels.ref``):
+the ground truth the CUDA kernels are held against on the card, and the
+path CPU tensors take.
 
 One deliberate difference from the JAX oracle: a decode row with no live
 position (``cache_len == 0``) returns zeros, as the kernels (the Pallas
@@ -125,3 +125,34 @@ def prefill_attention_paged_ref(q, k_new, v_new, k_pages, v_pages,
                              _gather_pages(v_pages, block_table), base,
                              chunk_lens)
     return out, k_pages, v_pages
+
+
+def rmsnorm_ref(x, w, *, eps: float = 1e-5) -> torch.Tensor:
+    """The fused kernel's RMSNorm: fp32 mean-square and rsqrt, the scale
+    multiplied in fp32, cast to x's dtype (the model's ``rmsnorm_apply``
+    multiplies in x's dtype instead)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+KNUTH = 2654435761
+
+
+def hash_u32_ref(keys) -> torch.Tensor:
+    """The uint32 hash ``h = k * 2654435761; h ^= h >> 16`` of integer keys
+    (cast to uint32 as JAX's ``astype`` does: their low 32 bits), as int64
+    in ``[0, 2^32)``: torch has no uint32 shift on the CPU.  The product is
+    formed from 16-bit halves, so no intermediate passes 2^63."""
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    lo, hi = k & 0xFFFF, k >> 16
+    mid = (hi * (KNUTH & 0xFFFF) + lo * (KNUTH >> 16)) & 0xFFFF
+    h = (lo * (KNUTH & 0xFFFF) + (mid << 16)) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def hash_partition_histogram_ref(keys, *, num_buckets: int) -> torch.Tensor:
+    """Global histogram [num_buckets] int32 of the keys' buckets
+    ``hash % num_buckets`` (per-block results sum to this)."""
+    bucket = hash_u32_ref(keys.reshape(-1)) % num_buckets
+    return torch.bincount(bucket, minlength=num_buckets).to(torch.int32)

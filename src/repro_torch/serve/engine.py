@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.common.params import init_params, map_tree, tree_bytes
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.lm import lm_cache_specs, lm_paged_cache_specs
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import make_slot_key
@@ -59,17 +60,6 @@ def _bucket(n: int, lo: int = 2) -> int:
     while p < n:
         p *= 2
     return p
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without a GPU that raises: only an
-    explicit ``"cpu"`` runs on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU by default; pass "
-            "device='cpu' to run on the CPU")
-    return dev
 
 
 class ServeEngine:

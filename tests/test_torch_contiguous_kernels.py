@@ -289,7 +289,8 @@ def test_build_knows_all_four_kernels():
     assert set(build.SIGNATURES) == {"decode_attention", "prefill_attention",
                                      "decode_attention_paged",
                                      "prefill_attention_paged",
-                                     "flash_attention"}
+                                     "flash_attention", "rmsnorm",
+                                     "hash_partition"}
     for name in build.SIGNATURES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR

@@ -1,5 +1,6 @@
 """The CUDA kernels of ``repro_torch`` (paged and contiguous serving,
-flash attention) against their plain PyTorch versions, on the card.  Every test here needs an
+flash attention, rmsnorm, the dataframe's hash-partition histogram)
+against their plain PyTorch versions, on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,9 +12,15 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.dataframe import ops_dist as tdd  # noqa: E402
+from repro_torch.dataframe.table import Table as TTable  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import hash_partition as thp  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import prefill_attention as tpa  # noqa: E402
+from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 
 # fp32 sums in another order; bf16 outputs may round one bf16 ulp apart
 TOLS = [("float32", 1e-4), ("bfloat16", 2e-2)]
@@ -165,3 +172,123 @@ def test_flash_function_gradients_match_plain():
     want = torch.autograd.grad(tfa.flash_attention_plain(*leaves), leaves, ct)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 1e-4
+
+
+def _keys(rng, shape):
+    """int32 keys over the whole range, the extremes first."""
+    keys = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(np.int32)
+    flat = keys.reshape(-1)
+    ext = np.array([-1, 0, 1, 2 ** 31 - 1, -2 ** 31], np.int32)[:flat.size]
+    flat[:len(ext)] = ext
+    return torch.from_numpy(keys).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 100_003, 1 << 23])
+def test_hash_kernel_matches_plain_bitwise(n):
+    """Counts are integers: the kernel equals its plain version exactly,
+    for every bucket count, block size, a batch of rows and keys that do
+    not start on a 16-byte boundary."""
+    _card()
+    rng = np.random.default_rng(13)
+    keys = _keys(rng, (n + 3,))
+    for P in (4, 8, 16, 64, 4096):
+        for block, k in ((2048, keys[:n]), (512, keys[3:])):
+            got = thp.hash_partition_histogram_kernel(k, num_buckets=P, block=block)
+            want = thp.hash_partition_histogram_plain(k, num_buckets=P, block=block)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), (P, block)
+            assert int(got.sum()) == k.numel()
+    rows = _keys(rng, (3, min(n, 5000)))
+    assert torch.equal(thp.hash_partition_histogram_kernel(rows, num_buckets=8),
+                       thp.hash_partition_histogram_plain(rows, num_buckets=8))
+
+
+@pytest.mark.cuda
+def test_hash_kernel_refuses_what_it_does_not_take():
+    _card()
+    keys = torch.arange(64, dtype=torch.int32, device="cuda")
+    for bad, kw in ((keys.long(), {}), (keys.view(4, 4, 4), {}),
+                    (keys.view(8, 8).t(), {}), (keys.cpu(), {}),
+                    (keys, {"num_buckets": thp.MAX_BUCKETS + 1}),
+                    (keys, {"num_buckets": 0}), (keys[:0], {})):
+        with pytest.raises(ValueError):
+            thp.hash_partition_histogram_kernel(bad, **{"num_buckets": 4, **kw})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_rmsnorm_kernel_matches_plain(dtype, tol):
+    """Training activations [4096, 2048], the shapes of tests/test_kernels.py,
+    d 5120 (block per row), d 1001 (no 16-byte access) and w in fp32; atol
+    = rtol as tests/test_kernels.py (a bf16 ulp grows with the value)."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(14)
+    for shape in ((4096, 2048), (4, 17, 256), (1, 5120), (32, 128), (1, 512),
+                  (9, 1001), (3, 3072), (5, 1)):
+        x = _randn(rng, shape, dt)
+        for w in (_randn(rng, shape[-1:], dt), _randn(rng, shape[-1:], torch.float32)):
+            got = trn.rmsnorm_kernel(x, w)
+            want = trn.rmsnorm_plain(x, w)
+            torch.cuda.synchronize()
+            assert got.shape == x.shape and got.dtype == dt
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_refuses_what_it_does_not_take():
+    _card()
+    x = torch.randn(4, 8, device="cuda")
+    w = torch.randn(8, device="cuda")
+    for bad_x, bad_w in ((x.half(), w), (x, w.half()), (x.t(), w[:4]),
+                         (x, w[:4]), (x.cpu(), w), (x, w.cpu())):
+        with pytest.raises(ValueError):
+            trn.rmsnorm_kernel(bad_x, bad_w)
+
+
+@pytest.mark.cuda
+def test_dataframe_path_counts_its_hash_launches():
+    """shuffle, join and groupby on the card launch the histogram kernel
+    once per exchange (1, 2, 1), sort and reduce never, and equal the
+    impl="ref" run: every column bitwise but the groupby's sums (the
+    moved floats too)."""
+    _card()
+    rng = np.random.default_rng(15)
+    n = 1 << 16
+    mesh = make_mesh((8,), ("data",))
+    t = TTable.from_columns({"k": rng.integers(0, 1 << 12, n).astype(np.int32),
+                             "v": rng.normal(size=n).astype(np.float32)}, mesh,
+                            valid=rng.random(n) < 0.9)
+    r = TTable.from_columns({"k": np.arange(1 << 12, dtype=np.int32),
+                             "w": np.arange(1 << 12, dtype=np.float32)}, mesh)
+    for fn, launches, sums in (
+            (lambda impl: tdd.shuffle(t, "k", impl=impl), 1, ()),
+            (lambda impl: tdd.join(t, r, "k", impl=impl), 2, ()),
+            (lambda impl: tdd.groupby_sum(t, "k", ["v"], impl=impl), 1, ("v",))):
+        thp.hash_partition_histogram_kernel.launches = 0
+        got, gd = fn("auto")
+        assert thp.hash_partition_histogram_kernel.launches == launches
+        want, wd = fn("ref")
+        assert thp.hash_partition_histogram_kernel.launches == launches
+        assert gd == wd == 0 and torch.equal(got.valid, want.valid)
+        for col in got.columns:
+            if col in sums:  # index_add_ adds with atomics on the card
+                torch.testing.assert_close(got.col(col), want.col(col))
+            else:
+                assert torch.equal(got.col(col), want.col(col)), col
+    thp.hash_partition_histogram_kernel.launches = 0
+    tdd.sort(t, "k")
+    tdd.reduce_sum(t, ["v"])
+    assert thp.hash_partition_histogram_kernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_rmsnorm_ops_entry_point_launches_the_kernel():
+    _card()
+    x = torch.randn(16, 256, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(256, device="cuda", dtype=torch.bfloat16)
+    trn.rmsnorm_kernel.launches = 0
+    tops.rmsnorm(x, w)
+    tops.rmsnorm(x, w, impl="ref")
+    assert trn.rmsnorm_kernel.launches == 1
