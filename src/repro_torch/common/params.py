@@ -16,6 +16,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import resolve_device
+
 PyTree = Any
 
 
@@ -80,7 +82,10 @@ def _init_one(generator: torch.Generator, p: Param, device) -> torch.Tensor:
 def init_params(generator: torch.Generator, specs: PyTree,
                 device=None) -> PyTree:
     """Materialize a Param tree into tensors on ``device``; ``generator``
-    must live on the same device (``torch.Generator(device=...)``)."""
+    must live on the same device (``torch.Generator(device=...)``).
+    ``None`` means the card, and raises without one: only an explicit
+    ``"cpu"`` builds the tree on the CPU."""
+    device = resolve_device(device)
     return map_tree(lambda p: _init_one(generator, p, device), specs)
 
 

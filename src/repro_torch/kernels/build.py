@@ -7,7 +7,8 @@ takes seconds) and loaded with ctypes.  Libraries land in
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is never served by a stale library.  The first launch
 of a kernel builds it; ``build_all`` builds every source at once, one
-``nvcc`` per source, all running together.
+``nvcc`` per source, all running together.  A library may export more
+than one entry point (``EXTRA_ENTRIES``).
 """
 from __future__ import annotations
 
@@ -56,6 +57,12 @@ SIGNATURES = {
     "hash_partition": [_P] * 2 + [_I] * 5 + [_P],
     # dtype of x, dtype of w, x, w, out, rows, d, eps, stream
     "rmsnorm": [_I] * 2 + [_P] * 3 + [_I] * 2 + [ctypes.c_float, _P],
+}
+# further entry points of a library: name -> (library, argument types)
+EXTRA_ENTRIES = {
+    # esize, k_new, v_new, k_pages, v_pages, block_table, base, chunk_lens,
+    # B, T, row_elems, num_pages, page_size, max_pages, stream
+    "paged_scatter": ("prefill_attention_paged", [_I] + [_P] * 7 + [_I] * 6 + [_P]),
 }
 
 
@@ -114,22 +121,35 @@ def build_all() -> Dict[str, str]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use, with
+    its entry point ``name`` and those ``EXTRA_ENTRIES`` gives it typed."""
     started = _start(name)
     if started is not None:
         _finish(name, started)
     lib = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, name)
-    fn.argtypes = SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    entries = {name: SIGNATURES[name]}
+    entries.update({e: args for e, (src, args) in EXTRA_ENTRIES.items() if src == name})
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def current_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def raise_on_error(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    """Raise if a launch of entry point ``name`` returned a CUDA error
+    (``cudaGetLastError``)."""
     if err != 0:
-        msg = load(name).kernel_error_string(err).decode()
+        lib = EXTRA_ENTRIES[name][0] if name in EXTRA_ENTRIES else name
+        msg = load(lib).kernel_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")

@@ -15,22 +15,33 @@
 //
 // What bounds it: at the training shape (B 8, H 32, KV 4, S 512, D 64,
 // bf16) the causal triangle is ~8.6 GFLOP against ~38 MB of inputs and
-// output, so on the card's tensor cores the bytes bound it (~11 us at
-// 3.35 TB/s).  This first kernel runs on the CUDA cores in plain fp32
-// FMAs (67 TFLOP/s), where its FMAs bound it, ~0.13 ms.  The design,
-// carried over from prefill_attention.cu, keeps every FMA useful:
-//   * one block per (row, KV head, tile of bq queries); its 128 threads
-//     each own one (query, head) row of the GQA group, with the q row and
-//     the fp32 accumulator in registers (D is a template parameter), so
-//     the G heads of a group share each staged K/V tile;
-//   * the block walks 32-key tiles only up to its tile's causal frontier
-//     (the TPU kernel's skip of fully masked blocks), and each row stops
-//     at its own last key inside the frontier tile;
-//   * each K/V tile is staged once in shared memory as fp32 and read by
-//     all threads as broadcasts (every thread reads the same key at once);
-//   * the online softmax rescales once per 16 keys.
-// wgmma/TMA and a tensor-core QK^T are later work.
-#include "common.cuh"
+// output: ~11 us of bytes at 3.35 TB/s, ~9 us of bf16 tensor-core work at
+// 989 TFLOP/s, so on the tensor cores the bytes bound it.
+//
+// bf16 (the training path): `flash_fwd_wgmma_kernel`, the tensor-core
+// tile routine of attn_tc.cuh.  One block of two warpgroups per 128 query
+// rows of one head; both read each 64-key K/V tile of KV head h / G,
+// copied through its strides by cp.async into a two-slot ring of swizzled
+// bf16 tiles, so the next tile loads while wgmma computes S = Q K^T and
+// O += P V.  The causal walk stops at the tile holding the block's last
+// query, each warpgroup at its own, and masks only the diagonal tile;
+// keys past S in the last tile are zero-filled and masked, rows past S
+// are not written.  The grid starts the causal triangle's longest tiles
+// first, so the last wave is not all long tiles.  The G heads of a group
+// read the same K/V tiles, which the 50 MB L2 serves after the first.
+// What holds it back at the training shape (PERF.md): the per-tile chain
+// of wgmma waits, the MUFU-bound softmax and the barrier runs in lockstep
+// in the warpgroups of an SM; the kernel takes ~4x its bound.
+//
+// fp32: `flash_fwd_kernel` on the CUDA cores, kept as it was written (the
+// tensor cores would round fp32 to TF32, and the fp32 checks compare the
+// kernel path with the plain one at 1e-4 in the training loss).  One
+// block per (row, KV head, tile of bq queries); its 128 threads each own
+// one (query, head) row of the GQA group, with the q row and the fp32
+// accumulator in registers; 32-key tiles staged in shared memory as fp32
+// and read as broadcasts; the online softmax rescales once per 16 keys.
+// A bf16 call whose rows are not 16-byte aligned takes this kernel too.
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -142,6 +153,92 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int d = 0; d < D; ++d) o_row[d] = from_f32<T>(acc[d] * inv);
 }
 
+// two warpgroups a block share each K/V tile; 128 registers a thread
+// keeps two blocks on an SM
+constexpr int kFlashWG = 2;
+constexpr int kFlashRows = kTcRows * kFlashWG;
+constexpr int kFlashThreads = kTcThreads * kFlashWG;
+
+// grid (n_qt * B*H), kFlashThreads threads: block x owns the kFlashRows
+// query rows of tile qt of head bh = x % (B*H); for causal attention the
+// first B*H blocks take the last (longest) tile.
+template <int D>
+__global__ void __launch_bounds__(kFlashThreads, 2) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, Strides qs,
+    Strides ks, Strides vs, Strides os, int S, int H, int KV, int BH, int n_qt, int causal,
+    float scale_log2) {
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t q_s = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + kFlashWG * TcShape<D>::kTileBytes;
+  const int rank = blockIdx.x / BH;
+  const int bh = blockIdx.x % BH;
+  const int qt = causal ? n_qt - 1 - rank : rank;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kv = h / (H / KV);
+  const int q0 = qt * kFlashRows;
+  const __nv_bfloat16* q_head = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* k_head = k + b * ks.b + kv * ks.h;
+  const __nv_bfloat16* v_head = v + b * vs.b + kv * vs.h;
+
+  tc_load_rows<D, kFlashWG, kFlashThreads>(q_s, [&](int r) {
+    return q0 + r < S ? q_head + (q0 + r) * qs.s : nullptr; }, q);
+  // the block's last key: its last query's (causal) or the last of all
+  const int last_key = causal ? min(q0 + kFlashRows - 1, S - 1) : S - 1;
+  auto load_kv = [&](int j, uint32_t k_dst, uint32_t v_dst) {
+    const int k0 = j * kTcKeys;
+    tc_load_rows<D, 1, kFlashThreads>(k_dst, [&](int r) {
+      return k0 + r <= last_key ? k_head + (k0 + r) * ks.s : nullptr; }, k);
+    tc_load_rows<D, 1, kFlashThreads>(v_dst, [&](int r) {
+      return k0 + r <= last_key ? v_head + (k0 + r) * vs.s : nullptr; }, v);
+  };
+  // this warpgroup's rows q0 + 64w .. q0 + 64w + 63
+  const int w0 = q0 + kTcRows * tc_wg();
+  int lim[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    lim[hh] = causal ? min(q0 + tc_row0() + 8 * hh, S - 1) : S - 1;
+  TcAcc<D> acc;
+  tc_attend<D>(
+      q_s, kv_s, last_key / kTcKeys + 1, load_kv, lim, causal ? w0 : S - 1,
+      w0 >= S ? -1 : causal ? min(w0 + kTcRows - 1, S - 1) : S - 1, scale_log2, acc);
+  tc_store<D>(acc, [&](int r) {
+    return q0 + r < S ? out + b * os.b + h * os.h + (q0 + r) * os.s : nullptr; },
+              [](int) { return false; });
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, Strides qs,
+                      Strides ks, Strides vs, Strides os, int B, int S, int H, int KV,
+                      int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<D>(kFlashWG);
+  static bool attr_set = false;  // raise the dynamic shared-memory cap once
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int n_qt = (S + kFlashRows - 1) / kFlashRows;
+  const long long blocks = (long long)n_qt * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<D><<<(unsigned)blocks, kFlashThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs,
+      os, S, H, KV, B * H, n_qt, causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// the tensor-core kernel reads and writes rows with 16-byte accesses
+bool rows_aligned(const void* const* ptrs, const Strides* strides) {
+  for (int i = 0; i < 4; ++i) {
+    if (!aligned16(ptrs[i])) return false;
+    if (strides[i].b % 8 || strides[i].h % 8 || strides[i].s % 8) return false;
+  }
+  return true;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    Strides qs, Strides ks, Strides vs, Strides os, int B,
@@ -149,6 +246,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    cudaStream_t stream) {
   const int G = H / KV;
   if (G > kThreads || B * KV > 65535) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {  // bf16
+    const void* ptrs[4] = {q, k, v, out};
+    const Strides strides[4] = {qs, ks, vs, os};
+    if (rows_aligned(ptrs, strides))
+      return launch_tc<D>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, stream);
+  }
   const int bq = kThreads / G;
   const size_t smem = sizeof(float) * 2 * (size_t)kTile * D;
   const dim3 grid((S + bq - 1) / bq, B * KV);

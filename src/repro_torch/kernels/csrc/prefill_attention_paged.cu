@@ -1,37 +1,56 @@
-// Ragged causal paged prefill attention for Hopper (sm_90a), fp32 and bf16.
+// Ragged causal paged prefill attention for Hopper (sm_90a), fp32 and
+// bf16, and the cache write that precedes it.
 //
 // Replaces: the Pallas TPU kernel `prefill_attention_paged`
 // (src/repro/kernels/prefill_attention.py, body `paged_kernel` ->
-// `_pf_kernel`).  The cache write (`write_chunk_paged`) stays a plain
-// masked scatter done before this kernel, as the JAX function does it
-// outside the Pallas body.
+// `_pf_kernel`) together with the cache write `write_chunk_paged` that
+// the JAX function runs before it.
 //
-// What it computes: row b carries chunk_lens[b] fresh queries at
-// positions base[b] + i; each valid query attends causally over the row's
-// whole prefix kpos <= base[b] + i, read page by page through the row's
-// block table from the pool [num_pages, page_size, KV, D] (sentinel table
-// entries are clamped to num_pages-1 before any address is formed).
-// Padding query rows (i >= chunk_lens[b]) are written as exact zeros; rows
-// with chunk_lens == 0 are inert (all zeros).
+// What it computes: row b carries chunk_lens[b] fresh tokens at positions
+// base[b] + i.  First `paged_scatter_kernel` copies each fresh K/V token
+// into the pools [num_pages, page_size, KV, D] through the row's block
+// table, exactly where the plain `write_chunk_paged` writes it: logical
+// page pos // page_size (floor), slot pos % page_size (floor), a negative
+// logical page indexing the table from its end as torch and JAX indexing
+// do; the token drops when it is padding (i >= chunk_lens[b]), when its
+// logical page is >= max_pages (or below -max_pages) and when the table
+// entry lies outside [0, num_pages) (the sentinel).  The decode step's
+// append is the same copy with T = 1 and every token live.  Then each
+// valid query i attends causally over the row's whole prefix
+// kpos <= base[b] + i, read page by page through the block table (sentinel
+// table entries are clamped to num_pages-1 before any address is formed).
+// Padding query rows are written as exact zeros; rows with chunk_lens == 0
+// are inert (all zeros).  Both kernels run on the caller's stream, in that
+// order: nothing syncs the host (the masked torch scatter does, on
+// `nonzero`).
 //
-// What bounds it: at serving shapes (a 64-token chunk over a prefix of a
-// few hundred tokens) each K/V page is used by G*bq = 128 query rows, ~64
-// FLOPs per byte of bf16 cache: below the H100's ~295 FLOPs/byte ridge in
-// the counted bytes, but this plain-FMA kernel runs on the CUDA cores
-// (67 TFLOP/s fp32), so in practice its FMAs bound it.  The design keeps
-// every byte read once per block and every FMA useful:
-//   * one block per (row, KV head, tile of bq queries); its 128 threads
-//     each own one (query, head) row of the GQA group, with the q row and
-//     the fp32 accumulator in registers (D is a template parameter);
-//   * the block walks logical pages only up to the tile's causal frontier
-//     base + last valid query of the tile, and skips tiles wholly past
-//     chunk_lens[b] (they only write zeros);
-//   * each page's K/V tile is staged once in shared memory and read by all
-//     threads as broadcasts (every thread reads the same key at once), so
-//     there are no bank conflicts;
-//   * the online softmax rescales once per 16 keys, in fp32.
-// wgmma/TMA and a tensor-core QK^T are later work.
-#include "common.cuh"
+// What bounds it: at the serving shape (one live 64-token chunk at base
+// 64 in B 8 slots, tinyllama's H 32, KV 4, D 64, bf16) the call moves
+// ~2.6 MB (most of it the zero rows of the seven inert slots) and does
+// ~51 MFLOP: ~0.8 us of bytes, ~0.05 us of tensor-core work.  Nothing that
+// small fills the card: two launches and each block's chain of dependent
+// reads (lengths, block table, K/V) bound it in practice.  The scatter
+// reads a token's data while its destination is still being looked up.
+//
+// bf16 (the serving path): `prefill_paged_wgmma_kernel`, the tensor-core
+// tile routine of attn_tc.cuh.  One block (one warpgroup) per 64
+// flattened query rows r = t*G + g (query token t, group head g) of one
+// (row, KV head), so the G heads of a group share every staged K/V tile,
+// as the TPU kernel's GQA index map does; a row's causal frontier is
+// base + r / G.  Its 64-key K/V tiles are gathered four 16-key pages at a
+// time through the block table by cp.async into a 3-slot ring of
+// swizzled bf16 tiles.  The walk stops at the tile holding the block's
+// last valid query's position, keys past it are zero-filled and masked,
+// and blocks wholly past chunk_lens[b] write zeros and return.  The grid
+// starts the latest (longest) query tiles first.
+//
+// fp32: `prefill_kernel` on the CUDA cores, kept as it was written (the
+// tensor cores would round fp32 to TF32, and the fp32 greedy streams are
+// held token for token against the plain path).  Its 128 threads each
+// own one (query, head) row with the q row and the fp32 accumulator in
+// registers; each page's K/V is staged once in shared memory as fp32 and
+// read as broadcasts; the online softmax rescales once per 16 keys.
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -144,6 +163,147 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
   for (int d = 0; d < D; ++d) o_row[d] = from_f32<T>(valid ? acc[d] * inv : 0.f);
 }
 
+// grid (B*T), kScatterThreads threads: token j of row b into the pools,
+// in units U of its K*D row (16 bytes where the rows allow it).  v_new
+// null: K only.  chunk_lens null: every token is live.  Each thread reads
+// its units of the token before it knows where they go, so the index
+// reads and the data reads are in flight together.
+constexpr int kScatterThreads = 64;
+template <typename U>
+__global__ void __launch_bounds__(kScatterThreads) paged_scatter_kernel(
+    const U* __restrict__ k_new, const U* __restrict__ v_new, U* __restrict__ k_pages,
+    U* __restrict__ v_pages, const int* __restrict__ block_table,
+    const int* __restrict__ base_v, const int* __restrict__ clen_v, int T_len,
+    int num_pages, int page_size, int max_pages, int row_units) {
+  constexpr int kUnits = 4;  // units a thread holds at once
+  const int bj = blockIdx.x;
+  const int b = bj / T_len;
+  const int j = bj % T_len;
+  const size_t src = (size_t)bj * row_units;
+  for (int i0 = 0; i0 < row_units; i0 += kUnits * kScatterThreads) {
+    U kx[kUnits], vx[kUnits];
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const int i = i0 + u * kScatterThreads + threadIdx.x;
+      if (i < row_units) {
+        kx[u] = k_new[src + i];
+        if (v_new) vx[u] = v_new[src + i];
+      }
+    }
+    if (clen_v && j >= clen_v[b]) return;  // padding token: dropped
+    const long long pos = (long long)base_v[b] + j;
+    long long lp = pos / page_size;
+    long long off = pos % page_size;
+    if (off < 0) {  // floor division and modulo, as torch's // and %
+      off += page_size;
+      lp -= 1;
+    }
+    if (lp >= max_pages) return;  // past the table: dropped
+    if (lp < 0) lp += max_pages;  // from the table's end, as indexing does
+    if (lp < 0) return;
+    const int phys = block_table[(size_t)b * max_pages + lp];
+    if (phys < 0 || phys >= num_pages) return;  // sentinel: dropped
+    const size_t dst = ((size_t)phys * page_size + off) * row_units;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const int i = i0 + u * kScatterThreads + threadIdx.x;
+      if (i < row_units) {
+        k_pages[dst + i] = kx[u];
+        if (v_new) v_pages[dst + i] = vx[u];
+      }
+    }
+  }
+}
+
+// grid (n_qt * B*KV), kTcThreads threads: block x owns flattened query
+// rows 64*qi .. 64*qi + 63 of (row, KV head) bkv = x % (B*KV), the first
+// B*KV blocks taking the last tile.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) prefill_paged_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ block_table,
+    const int* __restrict__ base_v, const int* __restrict__ clen_v,
+    __nv_bfloat16* __restrict__ out, int T_len, int H, int KV, int num_pages,
+    int page_size, int max_pages, int BKV, int n_qt, float scale_log2) {
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t q_s = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + TcShape<D>::kTileBytes;  // after the Q tile
+  const int qi = n_qt - 1 - (int)(blockIdx.x / BKV);
+  const int bkv = blockIdx.x % BKV;
+  const int b = bkv / KV;
+  const int kv = bkv % KV;
+  const int G = H / KV;
+  const int f0 = qi * kTcRows;  // first flattened row t*G + g of the tile
+  const int* bt = block_table + (size_t)b * max_pages;
+  // bring the row's block table into L1 while base and chunk_lens load
+  if (threadIdx.x < (max_pages + 31) / 32)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(bt + 32 * threadIdx.x));
+  const int base = base_v[b];
+  const int clen = clen_v[b];
+  auto row_ptr = [&](__nv_bfloat16* p, int r) -> __nv_bfloat16* {
+    const int t = (f0 + r) / G;
+    return t < T_len ? p + (((size_t)b * T_len + t) * H + kv * G + (f0 + r) % G) * D
+                     : nullptr;
+  };
+  auto is_pad = [&](int r) { return (f0 + r) / G >= clen; };
+
+  if (f0 / G >= clen) {  // tile wholly past the chunk: padding rows only
+    TcAcc<D> zero{};
+    tc_store<D>(zero, [&](int r) { return row_ptr(out, r); }, [](int) { return true; });
+    return;  // uniform over the block
+  }
+  tc_load_rows<D, 1, kTcThreads>(q_s, [&](int r) -> const __nv_bfloat16* {
+    return row_ptr(const_cast<__nv_bfloat16*>(q), r); }, q);
+  // the block's causal frontier: its last valid query's position, inside
+  // the table's capacity
+  const int cap = max_pages * page_size;
+  const int t_last = min(min((f0 + kTcRows - 1) / G, T_len - 1), clen - 1);
+  const int frontier = min(base + t_last, cap - 1);
+  auto load_kv = [&](int j, uint32_t k_dst, uint32_t v_dst) {
+    const int k0 = j * kTcKeys;
+    auto key = [&](const __nv_bfloat16* pool, int r) -> const __nv_bfloat16* {
+      const int pos = k0 + r;
+      if (pos > frontier) return nullptr;
+      const int phys = min(max(bt[pos / page_size], 0), num_pages - 1);  // clamp first
+      return pool + (((size_t)phys * page_size + pos % page_size) * KV + kv) * D;
+    };
+    tc_load_rows<D, 1, kTcThreads>(k_dst, [&](int r) { return key(k_pages, r); }, k_pages);
+    tc_load_rows<D, 1, kTcThreads>(v_dst, [&](int r) { return key(v_pages, r); }, v_pages);
+  };
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)  // padding rows see nothing; their output is 0
+    lim[h] = is_pad(tc_row0() + 8 * h) ? -1 : min(base + (f0 + tc_row0() + 8 * h) / G, cap - 1);
+  TcAcc<D> acc;
+  tc_attend<D>(q_s, kv_s, frontier >= 0 ? frontier / kTcKeys + 1 : 0, load_kv, lim,
+                        min(base + f0 / G, cap - 1), frontier, scale_log2, acc);
+  tc_store<D>(acc, [&](int r) { return row_ptr(out, r); }, is_pad);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
+                      const int* bt, const int* base, const int* clens, void* out, int B,
+                      int T_len, int H, int KV, int num_pages, int page_size, int max_pages,
+                      float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<D>(1);
+  static bool attr_set = false;  // raise the dynamic shared-memory cap once
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(prefill_paged_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int n_qt = (int)(((long long)T_len * (H / KV) + kTcRows - 1) / kTcRows);
+  const long long blocks = (long long)n_qt * B * KV;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  prefill_paged_wgmma_kernel<D><<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages), bt, base, clens,
+      static_cast<__nv_bfloat16*>(out), T_len, H, KV, num_pages, page_size, max_pages,
+      B * KV, n_qt, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int* bt, const int* base, const int* clens, void* out,
@@ -152,6 +312,11 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    cudaStream_t stream) {
   const int G = H / KV;
   if (G > kThreads) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {  // bf16; rows are D elements apart, so 16 B aligned
+    if (aligned16(q) && aligned16(k_pages) && aligned16(v_pages) && aligned16(out))
+      return launch_tc<D>(q, k_pages, v_pages, bt, base, clens, out, B, T_len, H, KV,
+                          num_pages, page_size, max_pages, scale, stream);
+  }
   const int bq = kThreads / G;
   const size_t smem = sizeof(float) * 2 * (size_t)page_size * D;
   if (smem > 48 * 1024) {
@@ -203,6 +368,41 @@ extern "C" int prefill_attention_paged(
   if (dtype == 1)
     return dispatch_dim<__nv_bfloat16>(D, q, k_pages, v_pages, bt, bs, cl, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// The chunk's cache write: esize bytes an element, row_elems = KV*D
+// elements a token; v_new / v_pages may be null (K only), chunk_lens may
+// be null (every token live).  Returns cudaGetLastError() after the
+// launch.
+extern "C" int paged_scatter(int esize, const void* k_new, const void* v_new,
+                             void* k_pages, void* v_pages, const void* block_table,
+                             const void* base, const void* chunk_lens, int B, int T_len,
+                             int row_elems, int num_pages, int page_size, int max_pages,
+                             void* stream) {
+  if (B == 0 || T_len == 0) return cudaSuccess;
+  if (num_pages <= 0 || page_size <= 0 || max_pages <= 0 || esize % 2)
+    return cudaErrorInvalidValue;
+  const int* bt = static_cast<const int*>(block_table);
+  const int* bs = static_cast<const int*>(base);
+  const int* cl = static_cast<const int*>(chunk_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long row_bytes = (long long)row_elems * esize;
+  const bool vec = row_bytes % 16 == 0 && aligned16(k_new) && aligned16(k_pages) &&
+                   (!v_new || (aligned16(v_new) && aligned16(v_pages)));
+  if (vec) {
+    using U = uint4;
+    paged_scatter_kernel<U><<<B * T_len, kScatterThreads, 0, s>>>(
+        static_cast<const U*>(k_new), static_cast<const U*>(v_new), static_cast<U*>(k_pages),
+        static_cast<U*>(v_pages), bt, bs, cl, T_len, num_pages, page_size, max_pages,
+        (int)(row_bytes / 16));
+  } else {
+    using U = unsigned short;
+    paged_scatter_kernel<U><<<B * T_len, kScatterThreads, 0, s>>>(
+        static_cast<const U*>(k_new), static_cast<const U*>(v_new), static_cast<U*>(k_pages),
+        static_cast<U*>(v_pages), bt, bs, cl, T_len, num_pages, page_size, max_pages,
+        (int)(row_bytes / 2));
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int err) {

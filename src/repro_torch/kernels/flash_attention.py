@@ -69,8 +69,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True) -> torch.Tensor:
     err = lib.flash_attention(
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), strides, B, S, H, k.shape[1], D, int(causal),
-        ctypes.c_float(1.0 / math.sqrt(D)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("flash_attention", err)
     flash_attention_kernel.launches += 1
     return out

@@ -95,6 +95,23 @@ def prefill_attention_paged(q, k_new, v_new, k_pages, v_pages, block_table,
     return _pf.prefill_attention_paged_plain(*args)
 
 
+def paged_append(k_pages, v_pages, block_table, idx, k_row, v_row, *,
+                 impl: str = "auto"):
+    """The paged decode step's cache write: ``k_row``, ``v_row [B, KV, D]``
+    into the pools ``[num_pages, page_size, KV, D]`` (in place) at
+    positions ``idx`` [B] through ``block_table`` [B, max_pages] int32 ->
+    (k_pages, v_pages).  On the kernel, one scatter launch for both
+    pools."""
+    _check_impl(impl)
+    args = (k_pages, v_pages, block_table, idx, k_row, v_row)
+    if impl == "auto":
+        return _pf.paged_append(*args)
+    if impl == "cuda":
+        return _pf.paged_append_kernel(*args)
+    return (_pf.paged_append_plain(k_pages, block_table, idx, k_row),
+            _pf.paged_append_plain(v_pages, block_table, idx, v_row))
+
+
 def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto"):
     """The fused kernel's RMSNorm (fp32 multiply; not the model's norm):
     x [..., d]; w [d] -> x's shape and dtype."""

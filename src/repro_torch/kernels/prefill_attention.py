@@ -14,8 +14,11 @@ layouts, as in JAX:
   kernel, on one stream with no host sync);
 * ``prefill_attention_paged``: the shared page pool ``[num_pages,
   page_size, KV, D]`` through per-row block tables
-  (``csrc/prefill_attention_paged.cu``; its cache write is the plain
-  scatter).
+  (``csrc/prefill_attention_paged.cu``: a scatter kernel through the
+  tables, then the attention kernel, on one stream with no host sync).
+
+The paged decode step's append of one token per row goes through the
+same scatter kernel (``paged_append``).
 
 The JAX functions return new caches; here the caches are updated **in
 place** (saving a copy of every cache per call) and returned, so the
@@ -78,6 +81,105 @@ def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
     keep = (phys >= 0) & (phys < num_pages)
     pages[phys[keep], (pos % page_size)[keep]] = new[keep].to(pages.dtype)
     return pages
+
+
+def paged_append_plain(pages: torch.Tensor, block_table: torch.Tensor,
+                       idx: torch.Tensor, row_vals: torch.Tensor) -> torch.Tensor:
+    """Scatter one new position per row into the shared page pool, in
+    place.  ``idx`` [B] is each row's append position; unallocated /
+    out-of-range logical pages hit the sentinel (>= num_pages) and the
+    write drops."""
+    num_pages, page_size = pages.shape[0], pages.shape[1]
+    max_pages = block_table.shape[1]
+    idx = idx.to(torch.int64)
+    rows = torch.arange(block_table.shape[0], device=pages.device)
+    lp = idx // page_size
+    phys = torch.where(
+        lp < max_pages,
+        block_table.to(torch.int64)[rows, lp.clamp(max=max_pages - 1)],
+        num_pages)
+    keep = (phys >= 0) & (phys < num_pages)
+    pages[phys[keep], (idx % page_size)[keep]] = row_vals[keep].to(pages.dtype)
+    return pages
+
+
+def _rows32(x, B: int, device) -> torch.Tensor:
+    """Scalar or [B] lengths -> contiguous [B] int32 on ``device``; a
+    tensor that already is one passes through (no copy, no launch)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 \
+            and x.device == device and x.shape == (B,) and x.is_contiguous():
+        return x
+    return _ref.as_rows(x, B, device).to(torch.int32).contiguous()
+
+
+def write_chunk_paged_kernel(k_pages, v_pages, block_table, k_new, v_new,
+                             base, chunk_lens=None):
+    """Launch the scatter kernel (CUDA tensors only, raises otherwise):
+    ``k_new``, ``v_new [B, T, ...]`` into both pools through the block
+    tables, in place, where ``write_chunk_paged`` writes them (bitwise);
+    ``chunk_lens`` None makes every token live.  Returns ``(k_pages,
+    v_pages)``."""
+    if k_pages.device.type != "cuda":
+        raise ValueError(f"paged scatter kernel needs CUDA tensors, got {k_pages.device}")
+    B = k_new.shape[0]
+    for name, t in (("v_pages", v_pages), ("k_new", k_new), ("v_new", v_new),
+                    ("block_table", block_table)):
+        if t.device != k_pages.device:
+            raise ValueError(f"{name} on {t.device}, k_pages on {k_pages.device}")
+    if v_pages.shape != k_pages.shape or v_new.shape != k_new.shape \
+            or k_new.shape[2:] != k_pages.shape[2:]:
+        raise ValueError("shape mismatch: pools [P, page, ...], new [B, T, ...] "
+                         "with the pools' trailing dims")
+    if k_new.dtype != k_pages.dtype or v_new.dtype != k_pages.dtype \
+            or v_pages.dtype != k_pages.dtype or k_pages.element_size() % 2:
+        raise ValueError("pools and new rows must share one dtype of 2 or 4 bytes")
+    if block_table.dtype != torch.int32 or block_table.shape[0] != B \
+            or not block_table.is_contiguous():
+        raise ValueError("block_table must be a contiguous int32 [B, max_pages]")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("the pools must be contiguous")
+    clens32 = None if chunk_lens is None else _rows32(chunk_lens, B, k_pages.device)
+    _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(), v_new.contiguous(),
+                    _rows32(base, B, k_pages.device), clens32,
+                    build.current_stream(k_pages))
+    return k_pages, v_pages
+
+
+write_chunk_paged_kernel.launches = 0
+
+
+def _launch_scatter(k_pages, v_pages, block_table, k_new, v_new, base32, clens32,
+                    stream) -> None:
+    """The scatter's launch on checked, contiguous tensors."""
+    num_pages, page_size = k_pages.shape[0], k_pages.shape[1]
+    row_elems = k_pages.numel() // max(num_pages * page_size, 1)
+    err = build.load("prefill_attention_paged").paged_scatter(
+        k_pages.element_size(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
+        base32.data_ptr(), None if clens32 is None else clens32.data_ptr(),
+        k_new.shape[0], k_new.shape[1], row_elems, num_pages, page_size,
+        block_table.shape[1], stream)
+    build.raise_on_error("paged_scatter", err)
+    write_chunk_paged_kernel.launches += 1
+
+
+def paged_append_kernel(k_pages, v_pages, block_table, idx, k_row, v_row):
+    """The decode step's append of ``k_row``, ``v_row [B, ...]`` at
+    positions ``idx`` [B]: one scatter launch for both pools (CUDA tensors
+    only).  Returns ``(k_pages, v_pages)``."""
+    return write_chunk_paged_kernel(
+        k_pages, v_pages, block_table, k_row.to(k_pages.dtype)[:, None],
+        v_row.to(v_pages.dtype)[:, None], idx)
+
+
+def paged_append(k_pages, v_pages, block_table, idx, k_row, v_row):
+    """Append one position per row to both pools, in place; CPU tensors
+    take the plain scatter, CUDA tensors the kernel.  Returns ``(k_pages,
+    v_pages)``."""
+    if k_pages.device.type == "cpu":
+        return (paged_append_plain(k_pages, block_table, idx, k_row),
+                paged_append_plain(v_pages, block_table, idx, v_row))
+    return paged_append_kernel(k_pages, v_pages, block_table, idx, k_row, v_row)
 
 
 def _check_chunk(q, k_new, v_new, k_cache, v_cache):
@@ -162,25 +264,25 @@ def _check_paged(q, k_new, v_new, k_pages, v_pages, block_table):
 
 def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
                                    block_table, base, chunk_lens):
-    """Launch the CUDA kernel (CUDA tensors only, raises otherwise).  The
-    cache write is the plain scatter, done in place before the launch.
-    Returns ``(out [B, T, H, D], k_pages, v_pages)``."""
+    """Launch the CUDA kernels (CUDA tensors only, raises otherwise): the
+    chunk scatter into the pools, in place, then the attention, with no
+    host sync.  Returns ``(out [B, T, H, D], k_pages, v_pages)``."""
     _check_paged(q, k_new, v_new, k_pages, v_pages, block_table)
     B, T, H, D = q.shape
     num_pages, page_size, KV, _ = k_pages.shape
     max_pages = block_table.shape[1]
-    base32 = _ref.as_rows(base, B, q.device).to(torch.int32).contiguous()
-    clens32 = _ref.as_rows(chunk_lens, B, q.device).to(torch.int32).contiguous()
-    write_chunk_paged(k_pages, block_table, k_new, base32, clens32)
-    write_chunk_paged(v_pages, block_table, v_new, base32, clens32)
+    base32 = _rows32(base, B, q.device)
+    clens32 = _rows32(chunk_lens, B, q.device)
+    stream = build.current_stream(q)
+    _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(),
+                    v_new.contiguous(), base32, clens32, stream)
     out = torch.empty_like(q)
     lib = build.load("prefill_attention_paged")
     err = lib.prefill_attention_paged(
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), base32.data_ptr(),
         clens32.data_ptr(), out.data_ptr(), B, T, H, KV, D, num_pages,
-        page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)), stream)
     build.raise_on_error("prefill_attention_paged", err)
     prefill_attention_paged_kernel.launches += 1
     return out, k_pages, v_pages

@@ -176,28 +176,8 @@ def _self_attention(cfg: ModelConfig, q, k, v) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Paged cache scatter
+# Contiguous cache append (the paged one is ops.paged_append)
 # ---------------------------------------------------------------------------
-
-
-def _paged_append(pages: torch.Tensor, block_table: torch.Tensor,
-                  idx: torch.Tensor, row_vals: torch.Tensor) -> torch.Tensor:
-    """Scatter one new position per row into the shared page pool, in
-    place.  ``idx`` [B] is each row's append position; unallocated /
-    out-of-range logical pages hit the sentinel (>= num_pages) and the
-    write drops."""
-    num_pages, page_size = pages.shape[0], pages.shape[1]
-    max_pages = block_table.shape[1]
-    idx = idx.to(torch.int64)
-    rows = torch.arange(block_table.shape[0], device=pages.device)
-    lp = idx // page_size
-    phys = torch.where(
-        lp < max_pages,
-        block_table.to(torch.int64)[rows, lp.clamp(max=max_pages - 1)],
-        num_pages)
-    keep = (phys >= 0) & (phys < num_pages)
-    pages[phys[keep], (idx % page_size)[keep]] = row_vals[keep].to(pages.dtype)
-    return pages
 
 
 def _slot_append(cache: torch.Tensor, idx: torch.Tensor,
@@ -269,8 +249,9 @@ def _cached_attention(cfg: ModelConfig, q, k, v, cache: Dict,
                 chunk_lens, impl=cfg.decode_impl)
         new_len = base + chunk_lens
     elif paged:
-        k_c = _paged_append(cache["k_pages"], cache["block_table"], length, k[:, 0])
-        v_c = _paged_append(cache["v_pages"], cache["block_table"], length, v[:, 0])
+        k_c, v_c = ops.paged_append(cache["k_pages"], cache["v_pages"],
+                                    cache["block_table"], length, k[:, 0], v[:, 0],
+                                    impl=cfg.decode_impl)
         new_len = length + 1
         o = ops.decode_attention_paged(q[:, 0], k_c, v_c, cache["block_table"],
                                        new_len, impl=cfg.decode_impl)[:, None]

@@ -1,6 +1,7 @@
-"""The CUDA kernels of ``repro_torch`` (paged and contiguous serving,
-flash attention, rmsnorm, the dataframe's hash-partition histogram)
-against their plain PyTorch versions, on the card.  Every test here needs an
+"""The CUDA kernels of ``repro_torch`` (paged and contiguous serving with
+the paged cache scatter, flash attention, rmsnorm, the dataframe's
+hash-partition histogram) against their plain PyTorch versions, on the
+card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
+import paged_scatter_cases as sc  # noqa: E402
 
 from repro_torch.dataframe import ops_dist as tdd  # noqa: E402
 from repro_torch.dataframe.table import Table as TTable  # noqa: E402
@@ -154,6 +156,137 @@ def test_flash_kernel_matches_plain(dtype, tol, causal):
         got_v = tfa.flash_attention_kernel(*views, causal=causal)
         assert got_v.stride() == views[0].stride()
         assert torch.equal(got_v, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_flash_kernel_sweep(dtype, tol, causal, D):
+    """Every S around the 64-row tile (1, 63, 64, 65, 127), the training S
+    and a long ragged one, G 1 and 8, on the model's [B, S, H, D]
+    activations viewed as [B, H, S, D]: the bf16 tensor-core kernel and the
+    fp32 CUDA-core one against the plain version."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(20 + D)
+    for S in (1, 63, 64, 65, 127, 512, 1000):
+        for G in (1, 8):
+            B, KV = 2, 2
+            q, k, v = (_randn(rng, (B, S, n, D), dt).transpose(1, 2)
+                       for n in (KV * G, KV, KV))
+            got = tfa.flash_attention_kernel(q, k, v, causal=causal)
+            want = tfa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert got.shape == q.shape and got.stride() == q.stride()
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol, (S, G, err)
+
+
+def _paged_case(rng, dt, B, T, H, KV, D, page, max_pages, base, clens):
+    """Pools with spare pages, a scrambled table giving each row the pages
+    its prefix needs, sentinels (some far past num_pages) elsewhere."""
+    need = [min(-(-(b + c) // page), max_pages) for b, c in zip(base, clens)]
+    num_pages = sum(need) + 2
+    ids = rng.permutation(num_pages)
+    bt = np.full((B, max_pages), num_pages, np.int32)
+    for b, n in enumerate(need):
+        bt[b, :n], ids = ids[:n], ids[n:]
+        bt[b, n:] += 1000 * b
+    q, kn, vn = (_randn(rng, s, dt) for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kp, vp = (_randn(rng, (num_pages, page, KV, D), dt) for _ in range(2))
+    rest = [torch.from_numpy(np.asarray(a, np.int32)).cuda() for a in (bt, base, clens)]
+    return [q, kn, vn, kp, vp] + rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_prefill_kernel_sweep(dtype, tol, T):
+    """Full tinyllama widths (G 8, D 64): bases 0, 5, 16 and 447 with
+    full, partial and empty chunks, a row whose chunk runs past max_pages
+    (its tail drops and it attends the table's whole capacity), sentinels
+    in every table; pools bitwise, padding rows exactly zero."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(30 + T)
+    page, max_pages, H, KV, D = 16, 32, 32, 4, 64
+    base = [0, 5, 16, 447, 500, 3]
+    clens = [T, max(T - 3, 0), T, T, T, 0]
+    args = _paged_case(rng, dt, len(base), T, H, KV, D, page, max_pages, base, clens)
+    q, kn, vn, kp, vp, bt, bs, cl = args
+    go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(), bt, bs, cl)
+    wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(), bt, bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    pad = torch.arange(T, device="cuda")[None, :] >= cl[:, None]
+    assert bool((go[pad] == 0).all())
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(1, 16), (4, 32), (8, 128), (128, 64)])
+def test_paged_prefill_kernel_other_widths(G, D):
+    """bf16 at other GQA groups and head dims: G 128 (two tiles a token),
+    D 16, 32 and 128."""
+    _card()
+    rng = np.random.default_rng(40 + D)
+    base, clens = [0, 21, 60], [17, 9, 0]
+    args = _paged_case(rng, torch.bfloat16, 3, 17, 2 * G, 2, D, 16, 8, base, clens)
+    q, kn, vn, kp, vp, bt, bs, cl = args
+    go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(), bt, bs, cl)
+    wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(), bt, bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert (go.float() - wo.float()).abs().max().item() <= 2e-2
+    assert (go[1, 9:] == 0).all() and (go[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(sc.SCATTER_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_scatter_kernel_bitwise(case, dtype):
+    """The scatter entry point writes the pools exactly where the plain
+    write_chunk_paged does, on its edge cases."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(50)
+    num_pages, (base, clens, bt) = sc.SCATTER_CASES[case]
+    B, T, KV, D, page = sc.B, sc.T, 2, 16, sc.PAGE
+    kp, vp = (_randn(rng, (num_pages, page, KV, D), dt) for _ in range(2))
+    kn, vn = (_randn(rng, (B, T, KV, D), dt) for _ in range(2))
+    bt, bs, cl = (torch.tensor(a, dtype=torch.int32).cuda() for a in (bt, base, clens))
+    gk, gv = tpa.write_chunk_paged_kernel(kp.clone(), vp.clone(), bt, kn, vn, bs, cl)
+    wk = tpa.write_chunk_paged(kp.clone(), bt, kn, bs, cl)
+    wv = tpa.write_chunk_paged(vp.clone(), bt, vn, bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+def test_paged_paths_make_no_host_sync():
+    """The paged prefill wrapper (scatter + attention) and the decode
+    append on the kernel run under sync-debug "error": a host sync would
+    raise.  The append equals the plain one bitwise."""
+    _card()
+    rng = np.random.default_rng(60)
+    q, kn, vn, kp, vp, bt, bs, cl = _paged_case(
+        rng, torch.bfloat16, 4, 64, 32, 4, 64, 16, 8, [64, 0, 0, 0], [64, 0, 5, 0])
+    idx = torch.tensor([5, 17, -1, 127], dtype=torch.int32).cuda()
+    kr, vr = (_randn(rng, (4, 4, 64), torch.bfloat16) for _ in range(2))
+    wk, wv = tops.paged_append(kp.clone(), vp.clone(), bt, idx, kr, vr, impl="ref")
+    gk, gv = kp.clone(), vp.clone()
+    torch.cuda.synchronize()
+    launches = tpa.write_chunk_paged_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.prefill_attention_paged_kernel(q, kn, vn, kp, vp, bt, bs, cl)
+        tops.paged_append(gk, gv, bt, idx, kr, vr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tpa.write_chunk_paged_kernel.launches == launches + 2
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import paged_scatter_cases as sc  # noqa: E402
 
 from repro.kernels import decode_attention as jda  # noqa: E402
 from repro.kernels import prefill_attention as jpa  # noqa: E402
@@ -17,7 +18,6 @@ from repro.models import blocks as jblocks  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import prefill_attention as tpa  # noqa: E402
-from repro_torch.models import blocks as tblocks  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)  # fp32, as tests/test_kernels.py
 
@@ -188,15 +188,16 @@ def test_prefill_plain_matches_contiguous_oracle():
 # -- cache scatters -----------------------------------------------------------
 
 
-def test_write_chunk_paged_exact():
+@pytest.mark.parametrize("case", sorted(sc.SCATTER_CASES))
+def test_write_chunk_paged_exact(case):
+    """The plain scatter equals JAX's bitwise on the edge cases the
+    scatter kernel must reproduce (tests/paged_scatter_cases.py)."""
     rng = np.random.default_rng(3)
-    B, T, KV, D, page, num_pages = 4, 8, 2, 16, 4, 10
+    num_pages, (base, clens, bt) = sc.SCATTER_CASES[case]
+    B, T, KV, D, page = sc.B, sc.T, 2, 16, sc.PAGE
     pages = _normal(rng, (num_pages, page, KV, D))
     new = _normal(rng, (B, T, KV, D))
-    bt = np.array([[3, 7, num_pages], [0, 1, 2], [9, num_pages + 4, 5],
-                   [8, 6, 4]], np.int32)
-    base = np.array([2, 0, 3, 11], np.int32)   # row 3 runs past max_pages
-    clens = np.array([6, 8, 5, 4], np.int32)
+    bt, base, clens = (np.array(a, np.int32) for a in (bt, base, clens))
     want = jpa.write_chunk_paged(*(jnp.asarray(a) for a in (pages, bt, new, base, clens)))
     got = tpa.write_chunk_paged(*(torch.from_numpy(np.array(a)) for a in
                                   (pages, bt, new, base, clens)))
@@ -212,8 +213,8 @@ def test_paged_append_exact():
                    [num_pages] * 3, [4, 6, 1]], np.int32)
     idx = np.array([5, 4, 11, 0, 12], np.int32)  # sentinel row, past max_pages
     want = jblocks._paged_append(*(jnp.asarray(a) for a in (pages, bt, idx, vals)))
-    got = tblocks._paged_append(*(torch.from_numpy(np.array(a)) for a in
-                                  (pages, bt, idx, vals)))
+    got = tpa.paged_append_plain(*(torch.from_numpy(np.array(a)) for a in
+                                   (pages, bt, idx, vals)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -251,14 +252,43 @@ def test_ops_auto_on_cpu_takes_plain_and_launches_nothing():
     assert tpa.prefill_attention_paged_kernel.launches == pf0 == 0
 
 
-@pytest.mark.parametrize("op", ["decode", "prefill"])
+def _small_append():
+    """Pools, a table with a sentinel, append positions (one past
+    max_pages' reach from the end: -1) and one new K/V row per row."""
+    rng = np.random.default_rng(5)
+    B, KV, D, page, num_pages = 3, 2, 16, 4, 8
+    bt = np.array([[3, 7, 1], [0, num_pages, 2], [5, 4, 6]], np.int32)
+    return [torch.from_numpy(np.array(a)) for a in
+            (_normal(rng, (num_pages, page, KV, D)), _normal(rng, (num_pages, page, KV, D)),
+             bt, np.array([5, 4, -1], np.int32), _normal(rng, (B, KV, D)),
+             _normal(rng, (B, KV, D)))]
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_ops_paged_append_on_cpu_is_the_plain_append(impl):
+    """The decode step's cache write through ops: on CPU tensors both
+    impls are the plain append (held against JAX above) on each pool, and
+    the scatter kernel never launches."""
+    a = _small_append()
+    kp, vp, bt, idx, kr, vr = (t.clone() for t in a)
+    n0 = tpa.write_chunk_paged_kernel.launches
+    gk, gv = ops.paged_append(*a, impl=impl)
+    np.testing.assert_array_equal(gk.numpy(), tpa.paged_append_plain(kp, bt, idx, kr).numpy())
+    np.testing.assert_array_equal(gv.numpy(), tpa.paged_append_plain(vp, bt, idx, vr).numpy())
+    assert tpa.write_chunk_paged_kernel.launches == n0 == 0
+
+
+@pytest.mark.parametrize("op", ["decode", "prefill", "append"])
 def test_ops_cuda_mode_on_cpu_raises(op):
     if op == "decode":
         with pytest.raises(ValueError, match="CUDA"):
             ops.decode_attention_paged(*_small_decode(), impl="cuda")
-    else:
+    elif op == "prefill":
         with pytest.raises(ValueError, match="CUDA"):
             ops.prefill_attention_paged(*_small_prefill(), impl="cuda")
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.paged_append(*_small_append(), impl="cuda")
 
 
 def test_ops_rejects_unknown_impl():

@@ -16,7 +16,9 @@ from repro.configs import get_config as jget  # noqa: E402
 from repro.models import blocks as jb  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.train.state import model_specs as jspecs  # noqa: E402
+from repro_torch.common.params import Param as TParam  # noqa: E402
 from repro_torch.common.params import from_jax_params, map_tree  # noqa: E402
+from repro_torch.common.params import init_params as tinit_params  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models import blocks as tb  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
@@ -132,3 +134,14 @@ def _assert_pools(tcache, jcache):
     for kind in ("k_pages", "v_pages"):
         np.testing.assert_allclose(tcache["unit"]["b0"][kind].numpy(),
                                    np.asarray(jcache["unit"]["b0"][kind]), **TOL)
+
+
+def test_init_params_defaults_to_the_card(monkeypatch):
+    """device=None means the card and raises without one (as
+    launch/mesh.resolve_device); only an explicit "cpu" builds on the CPU."""
+    spec = {"w": TParam((2, 3), (None, None))}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tinit_params(torch.Generator().manual_seed(0), spec)
+    w = tinit_params(torch.Generator().manual_seed(0), spec, "cpu")["w"]
+    assert w.device.type == "cpu" and w.shape == (2, 3)
