@@ -2,12 +2,23 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare 3 [--src OTHER_CHECKOUT/src]
+
+The second form builds the kernels, runs only the serve phase's rounds
+(3 rounds of both layouts in turn) and times the serving kernels'
+wrappers at the serving shape, the fp32 contiguous decode among them
+(``compare_kernels``); --src drives another checkout's package with this
+script.  Run parent, change, change, parent in one call to compare two
+trees on one card.
 
 Phases, each printing one JSON line per layout or run; any failure exits
 non-zero:
 
 1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
-            sm_90a (one nvcc per source, all at once) into build/kernels/.
+            sm_90a (one nvcc per source, all at once) into build/kernels/;
+            count the tensor-core instructions (HMMA for mma.sync, HGMMA
+            for wgmma) in the SASS of the two serving libraries redesigned
+            for the tensor cores (cuobjdump).
 2. kernels  each of the seven kernels against its plain PyTorch version on
             the card.  The five attention kernels at full tinyllama-1.1b
             shapes and at the smoke shapes, fp32 and bf16: ragged, empty,
@@ -16,40 +27,65 @@ non-zero:
             page-straddling chunks, inert rows and chunks whose tokens run
             past the end of the cache; flash attention causal and full at
             the training shape, an S that is not a multiple of the tile,
-            S = 1, D 16 and 128, and G = 1.  rmsnorm at [4096, 2048],
+            S = 1, D 16 and 128, and G = 1.  Both decodes and both
+            prefills at the shapes tinyllama-1.1b's serving path gives
+            them (``serving_shape_cases``: get_config and the serve
+            engine's settings).  Head dim 96 (phi3-mini) in all five
+            attention kernels at KV 2, G 1 and 8: flash causal and full,
+            both prefills and both decodes with ragged lengths.  rmsnorm at [4096, 2048],
             [4, 17, 256] and [1, 5120] in fp32 and bf16 (RMS_TOL); the
             hash-partition histogram bitwise at n 1, 2047, 2048, 2049 and
             2^23 keys (negatives and the int32 extremes among them) for 4,
-            8, 16, 64 and 4096 buckets.  The two kernels redesigned for
+            8, 16, 64 and 4096 buckets.  The four kernels redesigned for
             the tensor cores also over sweeps: flash attention at S 1, 63,
             64, 65, 127, 512 and 1000, D 16 to 128, G 1 and 8, causal and
-            full; the paged prefill at chunks of 1 to 64 tokens, bases 0 to
-            500.  The paged cache scatter bitwise against the plain one on
-            tests/paged_scatter_cases.py; the paged prefill wrapper and the
-            decode append once under sync-debug "error" (a host sync
-            fails the phase).  Then torch.profiler's device time
+            full; both prefills at chunks of 1 to 64 tokens, bases 0 to
+            500; the contiguous decode at lengths 0 to S + 5 across the
+            16-key tile, windows 0, 8, 64 and 100 and a scalar length, G 1
+            to 32, D 16 to 128, S 32, 512 (one launch) and 4096 (the
+            combine pass), and bf16 off the 16-byte boundary (the CUDA-core
+            body).  The paged cache scatter bitwise against the plain one
+            on tests/paged_scatter_cases.py; both prefill wrappers, both
+            decodes and the decode append once under sync-debug "error" (a
+            host sync fails the phase).  Then torch.profiler's device time
             per launch of rmsnorm and the hash at their paths' shapes
             (taken here: windows opened late in the run came back without
             device events).
 3. serve    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, bf16 compute) serves 16 greedy requests shaped
             like the repo's mixed workload through ``submit`` +
-            ``run_until_drained``, once on the paged KV cache and once on
-            the contiguous slot cache.  Every launch counter is zeroed just
-            before each run and read just after: the layout's two kernels
-            (and on the paged layout the cache scatter, once per prefill
-            call and decode append) must have launched, no other kernel
-            may have.
+            ``run_until_drained`` on the paged KV cache and on the
+            contiguous slot cache, SERVE_ROUNDS rounds of both layouts in
+            turn; one line per run, then each layout's tokens/s, TTFT p50
+            and step p50 per round with their median, min and max.  Every
+            launch counter is zeroed just before each run and read just
+            after: the layout's two kernels (and on the paged layout the
+            cache scatter, once per prefill call and decode append) must
+            have launched, no other kernel may have.
 4. timing   each kernel's wrapper at the shapes of its path against its
             plain version and a PyTorch SDPA yardstick (CUDA events), with
-            its roofline bound; for the paged prefill also the scatter
-            kernel alone and the device time of its two kernels.
+            its roofline bound and SDPA's device time per call
+            (torch.profiler); for both prefills and the contiguous decode
+            also the device time of their kernels, for the paged prefill
+            the scatter kernel alone, for the contiguous decode also its
+            fp32 call (the CUDA-core body) at the same shape.
 5. profile  torch.profiler over a separate serving run per layout: device
             busy and idle share, kernels and host ops per engine step, the
-            port's kernels' device time per launch, top kernels.
+            port's kernels' device time per launch, top kernels; the
+            contiguous layout must launch no combine pass.
 6. stream   the same engines in fp32: on each layout the kernel path and
             the plain path, and the two layouts' kernel paths, must emit
             token-identical greedy streams.
+   phi3     phi3-mini-3.8b at its published widths (32 layers, d_model
+            3072, 32 heads, 32 KV heads, head_dim 96, d_ff 8192, vocab
+            32064): first both decodes and both prefills against their
+            plain versions at the shapes its serving path gives them (B 8,
+            H 32, KV 32, D 96, S 512, T 64, page 16; fp32 and bf16,
+            ``serving_shape_cases``); then, tinyllama's parameters freed,
+            random weights from a seeded torch.Generator and bf16 compute,
+            it serves 4 greedy requests of the mixed workload on each KV
+            layout, on the serve phase's engine settings; counters as in
+            the serve phase: the layout's kernels launched, no other.
 7. train    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, fp32 parameters, bf16 compute, the default
             RunConfig: AdamW, remat per layer, clip 1.0, lr 3e-4) takes 20
@@ -88,6 +124,7 @@ table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import shutil
@@ -101,7 +138,20 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--compare", type=int, default=0, metavar="R",
+                    help="run only R rounds of the serve phase on both layouts "
+                         "and time the serving kernels' wrappers")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the package to drive (another checkout's src/)")
+    return ap.parse_args(argv)
+
+
+ARGS = parse_args(sys.argv[1:])
+sys.path.insert(0, str(ARGS.src.resolve()))
 sys.path.insert(0, str(ROOT / "tests"))  # the scatter's edge cases
 
 from repro_torch.bridge.loader import HostPrefetcher, ZeroCopyLoader  # noqa: E402
@@ -132,8 +182,17 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # bf16 outputs may round one bf16 ulp apart (2^-6 at |x| in [2, 4))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ARCH = "tinyllama-1.1b"
+# the second dense config, at full width: head dim 96, G 1
+PHI3, PHI3_REQUESTS = "phi3-mini-3.8b", 4
 PAGE = 16
 MAX_LEN = 512
+# the serve engine's settings, for every served config; the kernels are
+# checked at the shapes they give (serving_shape_cases)
+SERVE = {"max_slots": 8, "max_len": MAX_LEN, "page_size": PAGE,
+         "prefill_chunk_tokens": 64}
+# rounds of the serve phase per layout: tokens/s is read as a median and
+# a spread, never from one run
+SERVE_ROUNDS = 3
 SEED = 0
 LAYOUTS = ("paged", "contiguous")
 # each wrapper's launch counter, and the kernels each path runs
@@ -154,15 +213,21 @@ PATH_KERNELS = {"paged": ("decode_attention_paged", "prefill_attention_paged", "
                 "rmsnorm": ("rmsnorm",)}
 # each kernel's device symbols on its path (torch.profiler event names):
 # the bf16 bodies that serving and training run (the fp32 bodies of
-# kernels 1 and 5 are flash_fwd_kernel and prefill_kernel)
+# kernels 1, 2, 4 and 5 are flash_fwd_kernel, contig_decode_split_kernel,
+# contig_prefill_kernel and prefill_kernel); the contiguous decode at
+# S <= 512 launches no combine pass
 SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_kernel"),
            "prefill_attention_paged": ("prefill_paged_wgmma_kernel",),
            "paged_scatter": ("paged_scatter_kernel",),
-           "decode_attention": ("contig_decode_split_kernel", "decode_combine_kernel"),
-           "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_kernel"),
+           "decode_attention": ("contig_decode_mma_kernel",),
+           "prefill_attention": ("chunk_scatter_kernel", "contig_prefill_wgmma_kernel"),
            "flash_attention": ("flash_fwd_wgmma_kernel",),
            "rmsnorm": ("rmsnorm_kernel",),
            "hash_partition_histogram": ("hash_hist_kernel",)}
+# the libraries of the serving kernels redesigned for the tensor cores,
+# and the instruction their SASS must hold (HMMA: mma.sync; HGMMA: wgmma)
+TC_SASS = {"decode_attention": "HMMA", "prefill_attention": "HGMMA",
+           "prefill_attention_paged": "HGMMA"}
 # the train phase: B x S tokens per step, as many steps; the kernel path
 # and the plain path in fp32 must agree in loss and grad-norm within
 # TRAIN_TOL (relative) at each of PARITY_STEPS steps: both are fp32 with
@@ -338,6 +403,14 @@ def check_flash(args, causal=True):
 # -- phases ------------------------------------------------------------------
 
 
+def tc_instructions(name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of library ``name``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    return sum(1 for ln in sass.splitlines() if f" {opcode}." in ln)
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -345,8 +418,13 @@ def phase_build():
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if any(w in ln for w in ("entry function", "registers", "spill"))]
              for name, log in logs.items()}
+    sass = {name: {opcode: tc_instructions(name, opcode)}
+            for name, opcode in TC_SASS.items()}
+    if not all(n for counts in sass.values() for n in counts.values()):
+        raise AssertionError(f"a redesigned kernel has no tensor-core instruction: {sass}")
     emit({"phase": "build", "ok": True, "seconds": secs, "gpu": gpu_line(),
-          "nvcc": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
+          "nvcc": " ".join(build.NVCC_FLAGS), "ptxas": ptxas,
+          "tensor_core_sass": sass})
 
 
 def phase_kernels():
@@ -420,6 +498,8 @@ def phase_kernels():
                               "shape_dtype_ok": ok})
                 if not (err <= TOL[dtype] and ok):
                     raise AssertionError(f"flash kernel disagrees: {cases[-1]}")
+        cases += serving_shape_cases(gen, ARCH, dtype)
+        cases += head_dim_96_cases(gen, dtype)
         cases += redesigned_sweeps(gen, dtype)
         # rmsnorm: the training activations, the shapes of
         # tests/test_kernels.py, a block per row (d 5120)
@@ -452,17 +532,95 @@ def phase_kernels():
           "cases": cases})
 
 
+def serving_shape_cases(gen, arch, dtype):
+    """Both decodes and both prefills at the shapes ``arch``'s serving path
+    gives them: H and KV (after padded_gqa) and D from get_config(arch),
+    B, S, T and the page from the serve engine's settings (SERVE).  The
+    decodes over batches of B rows whose lengths hold an empty row, the
+    16-key (tensor-core) and 32-position (CUDA-core) tile edges, the page
+    edges, the 64-key edge and a full row; the prefills with full,
+    partial, one-token and empty chunks, at base 0, inside a page, on the
+    64-key edge and across page edges, one ending on the row's last
+    position (the contiguous one also a partial chunk running past S: its
+    tail drops).
+    Caches bitwise, padding and empty rows exactly zero."""
+    cfg = get_config(arch)
+    (H, KV), D = cfg.padded_gqa(), cfg.head_dim
+    B, S, T, page = (SERVE[k] for k in ("max_slots", "max_len", "prefill_chunk_tokens",
+                                        "page_size"))
+    mp = S // page
+    edges = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 255, S - 17, S - 1, S]
+    edges += [S] * (-len(edges) % B)
+    checks = []
+    for i in range(0, len(edges), B):
+        lens = edges[i:i + B]
+        checks.append(("decode_attention", lens, *check_contig_decode(
+            contig_decode_case(gen, H, KV, D, S, lens, dtype))))
+        checks.append(("decode_attention_paged", lens, *check_decode(
+            decode_case(gen, H, KV, D, mp, lens, dtype))))
+    base = ([0, 5, 64, 200, S - T, 13, 100, 3] * B)[:B]
+    clens = ([T, 3, T, 0, T, 1, T // 2 + 8, T] * B)[:B]
+    checks.append(("prefill_attention_paged", list(zip(base, clens)), *check_prefill(
+        prefill_case(gen, T, H, KV, D, mp, base, clens, dtype))))
+    base[-2] = S - T // 2  # its last 8 tokens fall past S and drop
+    checks.append(("prefill_attention", list(zip(base, clens)), *check_contig_prefill(
+        contig_prefill_case(gen, T, H, KV, D, S, base, clens, dtype))))
+    out = [{"kernel": kernel, "shape": f"{arch} serving", "B": B, "H": H, "KV": KV,
+            "head_dim": D, "S": S, "T": T, "page": page, "rows": rows, "dtype": str(dtype),
+            "max_abs_err": err, "tol": TOL[dtype], "ok": ok}
+           for kernel, rows, err, ok in checks]
+    for c in out:
+        if not (c["max_abs_err"] <= TOL[dtype] and c["ok"]):
+            raise AssertionError(f"{c['kernel']} disagrees at {arch}'s serving shapes: {c}")
+    return out
+
+
+def head_dim_96_cases(gen, dtype):
+    """phi3-mini's head dim in all five attention kernels at a small KV 2,
+    G 1 and 8 (its serving shapes are serving_shape_cases'): flash causal
+    and full, both decodes (the contiguous one also a row past S) and both
+    prefills with full, partial and empty chunks and one running past the
+    cache.  Caches bitwise, padding and empty rows exactly zero."""
+    out = []
+    D, KV, mp, S = 96, 2, 16, 256
+    for G in (1, 8):
+        H = KV * G
+        checks = [("flash_attention", *check_flash(flash_case(gen, 2, H, KV, 130, D, dtype),
+                                                   causal)) for causal in (True, False)]
+        lens = [0, 1, 15, 16, 17, 100, 255, 256]
+        checks.append(("decode_attention_paged",
+                       *check_decode(decode_case(gen, H, KV, D, mp, lens, dtype))))
+        checks.append(("decode_attention", *check_contig_decode(
+            contig_decode_case(gen, H, KV, D, S, lens + [300], dtype))))
+        base, clens = [0, 5, 30, 200, 250], [17, 3, 17, 0, 6]
+        checks.append(("prefill_attention_paged", *check_prefill(
+            prefill_case(gen, 17, H, KV, D, mp, base, clens, dtype))))
+        checks.append(("prefill_attention", *check_contig_prefill(contig_prefill_case(
+            gen, 17, H, KV, D, S, [0, 5, 30, 250, 300], [17, 3, 17, 17, 4], dtype))))
+        for kernel, err, ok in checks:
+            out.append({"kernel": kernel, "head_dim": D, "G": G, "dtype": str(dtype),
+                        "max_abs_err": err, "tol": TOL[dtype], "ok": ok})
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"{kernel} disagrees at head dim 96: {out[-1]}")
+    return out
+
+
 def redesigned_sweeps(gen, dtype):
-    """The two kernels redesigned for the tensor cores, on their edges:
+    """The four kernels redesigned for the tensor cores, on their edges:
     flash attention at every S around the 128-row block and 64-key tile,
     the training S and a long ragged one, D 16 to 128, G 1 and 8, causal
-    and full, on [B, S, H, D] views; the paged prefill at chunks of 1 to
-    64 tokens, bases 0 to 500 (a chunk running past max_pages), sentinels
-    in every table, pools bitwise, padding rows zero.  One summary per
+    and full, on [B, S, H, D] views; both prefills at chunks of 1 to 64
+    tokens, bases 0 to 500 (a chunk running past max_pages or past the
+    row), sentinels in every table, caches bitwise, padding rows zero; the
+    contiguous decode at lengths across the 16-key tile and the row's end,
+    windows and a scalar length, G 1 to 32, D 16 to 128, S 32 (one block
+    a row on both bodies), 512 (one block a row on the tensor cores) and
+    4096 (the combine pass), and bf16 off the 16-byte boundary (the
+    CUDA-core body) at S 32 and 512, empty rows zero.  One summary per
     kernel; any case past the tolerance fails the phase."""
     worst, n = 0.0, 0
     for S, D, G, causal in itertools.product((1, 63, 64, 65, 127, 512, 1000),
-                                             (16, 32, 64, 128), (1, 8), (True, False)):
+                                             build.HEAD_DIMS, (1, 8), (True, False)):
         err, ok = check_flash(flash_case(gen, 2, 2 * G, 2, S, D, dtype), causal)
         n, worst = n + 1, max(worst, err)
         if not (err <= TOL[dtype] and ok):
@@ -482,7 +640,53 @@ def redesigned_sweeps(gen, dtype):
     out.append({"kernel": "prefill_attention_paged", "sweep": "T x base", "cases": n,
                 "dtype": str(dtype), "max_abs_err": worst, "tol": TOL[dtype],
                 "pools_equal_pad_zero": True})
+    worst, n = 0.0, 0
+    for T in (1, 15, 16, 17, 64):
+        clens = [T, max(T - 3, 0), T, T, T, 0]
+        err, ok = check_contig_prefill(contig_prefill_case(gen, T, 32, 4, 64, MAX_LEN, base,
+                                                           clens, dtype))
+        n, worst = n + 1, max(worst, err)
+        if not (err <= TOL[dtype] and ok):
+            raise AssertionError(f"contiguous prefill kernel disagrees at T {T} {dtype}: "
+                                 f"{err}, caches equal and padding zero: {ok}")
+    out.append({"kernel": "prefill_attention", "sweep": "T x base", "cases": n,
+                "dtype": str(dtype), "max_abs_err": worst, "tol": TOL[dtype],
+                "caches_equal_pad_zero": True})
+    worst, n = 0.0, 0
+    for S, D, G in itertools.product((32, MAX_LEN, 4096), build.HEAD_DIMS, (1, 4, 8, 16, 32)):
+        lens = [0, 1, 7, 8, 15, 16, 17, 63, 64, 65, S - 1, S, S + 5]
+        q, k, v, cl = contig_decode_case(gen, 2 * G, 2, D, S, lens, dtype)
+        for c, window in ((cl, 0), (cl, 8), (cl, 64), (cl, 100), (i32(S // 2 + 3), 0)):
+            err, ok = check_contig_decode((q, k, v, c), window)
+            n, worst = n + 1, max(worst, err)
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"contiguous decode kernel disagrees at S {S} D {D} "
+                                     f"G {G} window {window} {dtype}: {err}, empty rows "
+                                     f"zero: {ok}")
+    if dtype == torch.bfloat16:  # off the 16-byte boundary: the CUDA-core body
+        for S in (32, MAX_LEN):
+            args = tuple(unaligned(t) for t in contig_decode_case(
+                gen, 32, 4, 64, S, [0, 1, 17, S - 1, S, S + 5], dtype)[:3])
+            for window in (0, 8):
+                err, ok = check_contig_decode(args + (i32([0, 1, 17, S - 1, S, S + 5]),),
+                                              window)
+                n, worst = n + 1, max(worst, err)
+                if not (err <= TOL[dtype] and ok):
+                    raise AssertionError(f"contiguous decode kernel disagrees on unaligned "
+                                         f"bf16 at S {S} window {window}: {err}, empty "
+                                         f"rows zero: {ok}")
+    out.append({"kernel": "decode_attention",
+                "sweep": "S x D x G x lengths x window (+ unaligned bf16)",
+                "cases": n, "dtype": str(dtype), "max_abs_err": worst, "tol": TOL[dtype],
+                "empty_rows_zero": True})
     return out
+
+
+def unaligned(x):
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary (so the contiguous decode takes its CUDA-core body)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
 
 
 def sweep_prefill_case(gen, T, base, clens, dtype, H=32, KV=4, D=64, max_pages=32):
@@ -524,23 +728,33 @@ def scatter_cases(gen):
 
 
 def check_no_host_sync(gen):
-    """The paged prefill wrapper (scatter + attention) and the decode
-    append on the kernel, once each under sync-debug "error": a host sync
-    raises and fails the phase."""
+    """Both prefill wrappers (scatter + attention), both decodes and the
+    decode append on the kernel, once each at the serving shape under
+    sync-debug "error": a host sync raises and fails the phase."""
     q, kn, vn, kp, vp, bt, bs, cl = sweep_prefill_case(
         gen, 64, [64, 0, 0, 0], [64, 0, 5, 0], torch.bfloat16, max_pages=8)
     idx = i32([5, 17, -1, 127])
     kr, vr = randn(gen, (4, 4, 64), torch.bfloat16), randn(gen, (4, 4, 64), torch.bfloat16)
+    contig = contig_prefill_case(gen, 64, 32, 4, 64, MAX_LEN, [64, 0, 0, 0], [64, 0, 5, 0],
+                                 torch.bfloat16)
+    qd, kc, vc, lens = contig_decode_case(gen, 32, 4, 64, MAX_LEN, [128, 1, 5, 0],
+                                          torch.bfloat16)
+    dec_args = decode_case(gen, 32, 4, 64, 8, [128, 1, 5, 0], torch.bfloat16)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         pf.prefill_attention_paged_kernel(q, kn, vn, kp, vp, bt, bs, cl)
         ops.paged_append(kp, vp, bt, idx, kr, vr)
+        dec.decode_attention_paged_kernel(*dec_args)
+        pf.prefill_attention_kernel(*contig)
+        dec.decode_attention_kernel(qd, kc, vc, lens)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return {"kernel": "prefill_attention_paged", "check": "no host sync",
-            "calls": ["prefill_attention_paged_kernel", "ops.paged_append"],
+    return {"kernel": "serving kernels", "check": "no host sync",
+            "calls": ["prefill_attention_paged_kernel", "ops.paged_append",
+                      "decode_attention_paged_kernel", "prefill_attention_kernel",
+                      "decode_attention_kernel"],
             "sync_debug_mode": "error", "ok": True}
 
 
@@ -567,8 +781,7 @@ def mixed_requests(n: int, vocab: int, seed: int):
 
 
 def serve_engine(cfg, params, **kw):
-    return ServeEngine(cfg, max_slots=8, max_len=MAX_LEN, page_size=PAGE,
-                       prefill_chunk_tokens=64, params=params, **kw)
+    return ServeEngine(cfg, params=params, **SERVE, **kw)
 
 
 def zero_counts() -> None:
@@ -580,10 +793,10 @@ def read_counts():
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
-def phase_serve(cfg, params, layout):
-    """The main path on one KV layout: every counter zeroed just before
-    the run and read just after."""
-    work = mixed_requests(16, cfg.vocab_size, SEED)
+def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
+    """The main path on one KV layout, ``n`` requests: every counter zeroed
+    just before the run and read just after."""
+    work = mixed_requests(n, cfg.vocab_size, SEED)
     warm = serve_engine(cfg, params, kv_layout=layout)  # cuBLAS, libraries
     for p, _ in work[:2]:
         warm.submit(p, max_new_tokens=4)
@@ -622,7 +835,8 @@ def phase_serve(cfg, params, layout):
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     gaps = np.array([g for r in reqs for g in r.inter_token_s]) * 1e3
     tokens = sum(len(r.tokens) for r in reqs)
-    out = {"phase": "serve", "ok": True, "kv_layout": layout, "arch": cfg.name,
+    out = {"phase": "serve", "ok": True, "kv_layout": layout, "round": round_,
+           "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "compute_dtype": str(cfg.compute_dtype), "requests": len(reqs),
            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -651,7 +865,8 @@ def phase_serve(cfg, params, layout):
 
 
 def kernel_row(name, replaces, launches, err, ms, plain_ms, bytes_, flops,
-               lib_ms, lib_note, at, source=None, flops_per_s=BF16_FLOPS_PER_S):
+               lib_ms, lib_note, at, source=None, flops_per_s=BF16_FLOPS_PER_S,
+               lib_us=None):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return {"name": name, "route": "cuda",
@@ -661,7 +876,36 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, bytes_, flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "library_note": lib_note,
+            "library_device_us": lib_us,
             "bytes": bytes_, "flops": flops, "at": at}
+
+
+def device_window(fn, reps: int):
+    """``{kernel name: [device ms, launches]}`` of ``reps`` runs of ``fn``
+    under torch.profiler (the device's own time, free of host dispatch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_kernels(prof)[1]
+
+
+def device_us_per_call(fn, reps: int = 10):
+    """Device us per call of ``fn``: every device kernel its call launches,
+    in all and by kernel name; (None, {}) (not measured) when the window
+    came back without device events."""
+    by_name = device_window(fn, reps)
+    if not by_name:
+        return None, {}
+    by_kernel = {}
+    for name, (ms, _) in by_name.items():
+        short = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        short = short.split("(")[0][:80]
+        by_kernel[short] = by_kernel.get(short, 0.0) + 1e3 * ms / reps
+    return sum(by_kernel.values()), by_kernel
 
 
 PAGED_SDPA = ("SDPA over K/V pre-gathered to contiguous [B,H,S,D]: no table "
@@ -732,6 +976,7 @@ def phase_timing(cfg, launches, shapes):
                                < cl[:, None])[:, None, None, :], H, KV)
                   for q, kp, vp, bt, cl in cases])
     lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    lib_us = device_us_per_call(lambda: sdpa(*lib()))[0]
     live = sum(lens)
     bytes_ = (2 * live * KV * D * esz          # live K and V, read once
               + 2 * B * H * D * esz            # q read, out written
@@ -740,7 +985,7 @@ def phase_timing(cfg, launches, shapes):
         "decode_attention_paged", "src/repro/kernels/decode_attention.py:199",
         launches, err, ms, plain_ms, bytes_, 4 * H * D * live, lib_ms, PAGED_SDPA,
         {"B": B, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mb,
-         "cache_len": lens, "dtype": str(dt)}))
+         "cache_len": lens, "dtype": str(dt)}, lib_us=lib_us))
 
     # a 64-token chunk of a long prompt at base 64 while the other rows
     # decode (inert in this call): the widest chunk the main path runs
@@ -763,6 +1008,7 @@ def phase_timing(cfg, launches, shapes):
                               causal_mask(bs, T, mbp * PAGE), H, KV)
                   for q, kn, vn, kp, vp, bt, bs, cl in cases])
     lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    lib_us = device_us_per_call(lambda: sdpa(*lib()))[0]
     rows.append(kernel_row(
         "prefill_attention_paged", "src/repro/kernels/prefill_attention.py:222",
         launches, err, ms, plain_ms,
@@ -770,7 +1016,7 @@ def phase_timing(cfg, launches, shapes):
         prefill_flops(base, clens, H, D), lib_ms, PAGED_SDPA,
         {"B": B, "T": T, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mbp,
          "base": base, "chunk_lens": clens, "dtype": str(dt),
-         "scatter_ms": scatter_ms, "scatter": "paged_scatter_kernel"}))
+         "scatter_ms": scatter_ms, "scatter": "paged_scatter_kernel"}, lib_us=lib_us))
     redesigned(rows[-1], sum(split.values()), split)
 
     # the contiguous slot cache: each slot owns a [MAX_LEN, KV, D] row
@@ -781,11 +1027,14 @@ def phase_timing(cfg, launches, shapes):
     nxt = rotate(cases)
     ms = cuda_ms(lambda: dec.decode_attention_kernel(*nxt()))
     plain_ms = cuda_ms(lambda: dec.decode_attention_plain(*nxt()))
+    split = profiled_us(lambda: dec.decode_attention_kernel(*nxt()),
+                        SYMBOLS["decode_attention"])
     lib = rotate([contig_sdpa_inputs(
         q[:, :, None], k, v,
         (torch.arange(S, device="cuda")[None, :] < cl[:, None])[:, None, None, :],
         H, KV) for q, k, v, cl in cases])
     lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    lib_us = device_us_per_call(lambda: sdpa(*lib()))[0]
     live = sum(lens)
     bytes_ = (2 * live * KV * D * esz          # live K and V, read once
               + 2 * B * H * D * esz            # q read, out written
@@ -794,7 +1043,24 @@ def phase_timing(cfg, launches, shapes):
         "decode_attention", "src/repro/kernels/decode_attention.py:114",
         launches, err, ms, plain_ms, bytes_, 4 * H * D * live, lib_ms, CONTIG_SDPA,
         {"B": B, "H": H, "KV": KV, "D": D, "S": S, "cache_len": lens,
-         "window": 0, "dtype": str(dt)}))
+         "window": 0, "dtype": str(dt)}, lib_us=lib_us))
+    redesigned(rows[-1], sum(split.values()), split, design="mma.sync m16n8k16, GQA-packed",
+               header="decode_tc.cuh")
+    # the same call in fp32: the CUDA-core body with its ~264-block split-K spans
+    cases = [tuple(t.float() if t.is_floating_point() else t for t in a) for a in cases]
+    err = max(check_contig_decode(a)[0] for a in cases[:2])
+    if err > TOL[torch.float32]:
+        raise AssertionError(f"fp32 contiguous decode disagrees at the timing shape: {err}")
+    nxt = rotate(cases)
+    us, by_kernel = device_us_per_call(lambda: dec.decode_attention_kernel(*nxt()), reps=2 * L)
+    t_bytes = (bytes_ + 2 * (live * KV + B * H) * D * (4 - esz)) / HBM_BYTES_PER_S * 1e3
+    rows[-1]["fp32"] = {
+        "body": "contig_decode_split_kernel + decode_combine_kernel (CUDA cores)",
+        "max_abs_err": err, "tol": TOL[torch.float32],
+        "ms": cuda_ms(lambda: dec.decode_attention_kernel(*nxt())),
+        "plain_ms": cuda_ms(lambda: dec.decode_attention_plain(*nxt())),
+        "device_us_per_launch": us, "device_us_by_kernel": by_kernel,
+        "bound_ms": max(t_bytes, 4 * H * D * live / FP32_FLOPS_PER_S * 1e3)}
 
     cases = [contig_prefill_case(gen, T, H, KV, D, S, base, clens, dt)
              for _ in range(L)]
@@ -802,26 +1068,30 @@ def phase_timing(cfg, launches, shapes):
     nxt = rotate(cases)
     ms = cuda_ms(lambda: pf.prefill_attention_kernel(*nxt()))
     plain_ms = cuda_ms(lambda: pf.prefill_attention_plain(*nxt()))
+    split = profiled_us(lambda: pf.prefill_attention_kernel(*nxt()),
+                        SYMBOLS["prefill_attention"])
     lib = rotate([contig_sdpa_inputs(q.transpose(1, 2).contiguous(), kc, vc,
                                      causal_mask(bs, T, S), H, KV)
                   for q, kn, vn, kc, vc, bs, cl in cases])
     lib_ms = cuda_ms(lambda: sdpa(*lib()))
+    lib_us = device_us_per_call(lambda: sdpa(*lib()))[0]
     rows.append(kernel_row(
         "prefill_attention", "src/repro/kernels/prefill_attention.py:162",
         launches, err, ms, plain_ms,
         prefill_bytes(base, clens, T, B, H, KV, D, esz, 4 * B * 2),
         prefill_flops(base, clens, H, D), lib_ms, CONTIG_SDPA,
         {"B": B, "T": T, "H": H, "KV": KV, "D": D, "S": S, "base": base,
-         "chunk_lens": clens, "dtype": str(dt)}))
+         "chunk_lens": clens, "dtype": str(dt)}, lib_us=lib_us))
+    redesigned(rows[-1], sum(split.values()), split)
     emit({"phase": "timing", "ok": True, "rows": rows})
     return rows
 
 
-def redesigned(row, device_us, split=None):
+def redesigned(row, device_us, split=None, design="wgmma", header="attn_tc.cuh"):
     """The fields of a kernel redesigned for the tensor cores: its design,
     its device time per call at the row's shape and the share of the
     bound that time and the wrapper's time reach."""
-    row.update({"design": "wgmma", "header": "src/repro_torch/kernels/csrc/attn_tc.cuh",
+    row.update({"design": design, "header": f"src/repro_torch/kernels/csrc/{header}",
                 "device_us_per_launch": device_us,
                 "bound_share_device": row["bound_ms"] * 1e3 / device_us,
                 "bound_share_wrapper": row["bound_ms"] / row["ms"]})
@@ -872,6 +1142,10 @@ def phase_profile(cfg, params, layout, n: int = 8):
                 raise AssertionError(f"the profiler saw no {name} launch")
             ours[name] = {"ms": ms, "launches": launches,
                           "us_per_launch": 1e3 * ms / launches}
+    combine = sum(v[1] for k, v in by_name.items() if "decode_combine_kernel" in k)
+    if layout == "contiguous" and combine:
+        raise AssertionError(f"the contiguous decode ran {combine} combine passes at "
+                             f"S {MAX_LEN}: it must be one launch")
     stats = eng.stats()
     steps = stats["decode_steps"] + stats["prefill_chunks"]
     cpu_ops = sum(1 for e in prof.events()
@@ -884,7 +1158,7 @@ def phase_profile(cfg, params, layout, n: int = 8):
           "gpu_kernels": len(kernels), "engine_steps": steps,
           "gpu_kernels_per_step": len(kernels) / steps,
           "top_level_aten_ops_per_step": cpu_ops / steps,
-          "port_kernels": ours,
+          "port_kernels": ours, "combine_launches": combine,
           "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
                           for k, v in top]})
     return {kernel: sum(ours[name]["us_per_launch"] for name in SYMBOLS[kernel])
@@ -903,6 +1177,87 @@ def top2_gap(cfg, params, prompt, prefix):
         i32([list(range(pages))]))
     top = torch.topk(last[0].float(), 2).values
     return float(top[0] - top[1])
+
+
+def serve_rounds(cfg, params, rounds: int):
+    """The serve phase: ``rounds`` rounds of phase_serve on both layouts in
+    turn, on the same engine settings and requests, then one line with
+    each layout's tokens/s, TTFT p50 and step p50 per round and their
+    median, min and max.  Returns the paged layout's kernel launches (first
+    round), the contiguous layout's, and the first paged run's shapes."""
+    keys = ("tokens_per_s", "ttft_ms_p50", "step_ms_p50")
+    runs = {layout: {key: [] for key in keys} for layout in LAYOUTS}
+    launches, shapes = {}, None
+    for r in range(rounds):
+        for layout in LAYOUTS:
+            out, layout_shapes = phase_serve(cfg, params, layout, round_=r)
+            for key in keys:
+                runs[layout][key].append(out[key])
+            if r == 0:
+                launches.update({n: out["launches"][n] for n in PATH_KERNELS[layout]})
+                shapes = shapes or layout_shapes  # the paged run's buckets
+    spread = {layout: {key: {"runs": v, "median": float(np.median(v)), "min": min(v),
+                             "max": max(v)} for key, v in by_key.items()}
+              for layout, by_key in runs.items()}
+    spread["paged_over_contiguous_tokens_per_s_median"] = (
+        spread["paged"]["tokens_per_s"]["median"]
+        / spread["contiguous"]["tokens_per_s"]["median"])
+    emit({"phase": "serve_spread", "ok": True, "arch": cfg.name, "rounds": rounds,
+          "requests": 16, "src": str(ARGS.src.resolve()), **spread})
+    return launches, shapes
+
+
+def compare_kernels(cfg, shapes):
+    """The serving kernels' wrappers at the timing rows' shapes, with only
+    the public wrappers, so another checkout's package runs it too: CUDA
+    events per call and the device us per call by kernel name (every
+    device kernel the call launches, under torch.profiler).  The bf16
+    serving calls, and the contiguous decode in fp32 (its CUDA-core
+    body)."""
+    H, KV, D, L, B = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers, 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    S, mb = MAX_LEN, shapes["decode_mb"]
+    T, mbp = shapes["prefill_T_mb"]
+    base, clens = [64] + [0] * (B - 1), [T] + [0] * (B - 1)
+    calls = {}
+    for dt in (torch.bfloat16, torch.float32):
+        lens = [min(n, S) for n in shapes["lens"]]
+        calls[f"decode_attention {dt}"] = (dec.decode_attention_kernel, [
+            contig_decode_case(gen, H, KV, D, S, lens, dt) for _ in range(L)])
+    dt = torch.bfloat16
+    calls["prefill_attention"] = (pf.prefill_attention_kernel, [
+        contig_prefill_case(gen, T, H, KV, D, S, base, clens, dt) for _ in range(L)])
+    lens = [min(n, mb * PAGE) for n in shapes["lens"]]
+    calls["decode_attention_paged"] = (dec.decode_attention_paged_kernel, [
+        decode_case(gen, H, KV, D, mb, lens, dt) for _ in range(L)])
+    calls["prefill_attention_paged"] = (pf.prefill_attention_paged_kernel, [
+        prefill_case(gen, T, H, KV, D, mbp, base, clens, dt) for _ in range(L)])
+    out = {}
+    for name, (fn, cases) in calls.items():
+        nxt = rotate(cases)
+        total, by_kernel = device_us_per_call(lambda: fn(*nxt()), reps=2 * L)
+        out[name] = {"ms": cuda_ms(lambda: fn(*nxt())), "device_us": total,
+                     "device_us_by_kernel": by_kernel}
+    return out
+
+
+def phase_compare(rounds: int):
+    """One tree's serve spread and serving kernel times (see the module
+    docstring's second form)."""
+    t0 = time.perf_counter()
+    build.build_all()
+    build_s = time.perf_counter() - t0
+    cfg = get_config(ARCH)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         model_specs(cfg), "cuda")
+    _, shapes = serve_rounds(cfg, params, rounds)
+    emit({"phase": "compare", "ok": True, "src": str(ARGS.src.resolve()),
+          "build_s": build_s, "gpu": gpu_line(),
+          "shape": {"B": 8, "H": cfg.num_heads, "KV": cfg.num_kv_heads, "D": cfg.head_dim,
+                    "S": MAX_LEN, "cache_len": shapes["lens"],
+                    "decode_max_pages": shapes["decode_mb"],
+                    "prefill_T_max_pages": shapes["prefill_T_mb"]},
+          "kernels": compare_kernels(cfg, shapes)})
 
 
 def phase_stream(cfg, params, n: int = 4):
@@ -937,6 +1292,26 @@ def phase_stream(cfg, params, n: int = 4):
           "identical": ["paged kernel == paged plain",
                         "contiguous kernel == contiguous plain",
                         "contiguous kernel == paged kernel"]})
+
+
+def phase_phi3():
+    """phi3-mini-3.8b at its published widths (head dim 96, G 1): both
+    decodes and both prefills held against their plain versions at the
+    shapes its serving path gives them, fp32 and bf16 (one line); then it
+    serves PHI3_REQUESTS greedy requests on each KV layout, through the
+    layout's kernels alone (phase_serve's checks; one serve line per
+    layout)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = [c for dtype in (torch.float32, torch.bfloat16)
+             for c in serving_shape_cases(gen, PHI3, dtype)]
+    emit({"phase": "phi3_kernels", "ok": True, "arch": PHI3, "cases": cases})
+    cfg = get_config(PHI3)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         model_specs(cfg), "cuda")
+    for layout in LAYOUTS:
+        phase_serve(cfg, params, layout, n=PHI3_REQUESTS)
+    del params
+    torch.cuda.empty_cache()
 
 
 def corpus_batches(cfg, steps: int):
@@ -1109,9 +1484,10 @@ def phase_train_parity(cfg):
         raise AssertionError("fp32 kernel and plain training paths disagree")
 
 
-def flash_row(cfg, launches, device_us):
+def flash_row(cfg, launches, device_us, lib_us):
     """The flash kernel's timing row at the training shape, rotating over
-    one input set per layer."""
+    one input set per layer; ``lib_us``: SDPA's device us per call at that
+    shape (profile_new_kernels)."""
     dt = cfg.compute_dtype
     B, S, H, KV, D = TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     esz = torch.finfo(dt).bits // 8
@@ -1130,7 +1506,8 @@ def flash_row(cfg, launches, device_us):
                      launches, err, ms, plain_ms, bytes_, flops, lib_ms,
                      "SDPA (is_causal) with K/V pre-expanded to [B,H,S,D]",
                      {"B": B, "H": H, "KV": KV, "S": S, "D": D, "causal": True,
-                      "layout": "[B,S,H,D] viewed as [B,H,S,D]", "dtype": str(dt)})
+                      "layout": "[B,S,H,D] viewed as [B,H,S,D]", "dtype": str(dt)},
+                     lib_us=lib_us)
     redesigned(row, device_us)
     return row
 
@@ -1233,16 +1610,8 @@ def same_result(a, b, name):
 
 def profiled_us(fn, symbols, reps: int = 10):
     """Device us per launch of each of ``symbols`` over ``reps`` runs of
-    ``fn`` under torch.profiler (the device's own time, free of host
-    dispatch)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    _, by_name = device_kernels(prof)
+    ``fn`` (device_window); a symbol that never launched fails."""
+    by_name = device_window(fn, reps)
     out = {}
     for symbol in symbols:
         hits = [v for k, v in by_name.items() if symbol in k]
@@ -1259,31 +1628,44 @@ def top_kernels(fn, n: int = 6):
     most device ms under torch.profiler, or None when the window came back
     without device events (it informs section 5 of PERF.md; nothing is
     checked on it)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    _, by_name = device_kernels(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    top = sorted(device_window(fn, 1).items(), key=lambda kv: -kv[1][0])[:n]
     return [{"name": k[:90], "ms": v[0], "launches": v[1]} for k, v in top] or None
 
 
 def profile_new_kernels():
     """Device us per launch of kernels 6 and 7 at their paths' shapes
     (rmsnorm on [4096, 2048] bf16; the hash on [8, 2^23] keys in
-    [0, 2^20), 8 buckets), early in the run: windows opened after the
-    dataframe and pipeline phases came back without device events."""
+    [0, 2^20), 8 buckets), and the device us per call of the library
+    yardsticks of kernels 1 and 6 at the rows' shapes (SDPA at the
+    training shape, F.rms_norm), early in the run: windows opened after
+    the training, dataframe and pipeline phases came back without device
+    events."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     (x, w), = rms_cases(gen, 1)
     keys = torch.randint(0, DF_KEYS, (DF_SHARDS, DF_ROWS // DF_SHARDS), generator=gen,
                          device="cuda", dtype=torch.int32)
     (rms_symbol,), (hash_symbol,) = SYMBOLS["rmsnorm"], SYMBOLS["hash_partition_histogram"]
+    # the yardsticks rotate over four input sets, as their rows' timings
+    # do, so their inputs are not served from L2
+    cfg = get_config(ARCH)
+    G = cfg.num_heads // cfg.num_kv_heads
+    attn = rotate([(q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1))
+                   for q, k, v in (flash_case(gen, TRAIN_B, cfg.num_heads, cfg.num_kv_heads,
+                                              TRAIN_S, cfg.head_dim, cfg.compute_dtype)
+                                   for _ in range(4))])
+    norms = rotate(rms_cases(gen, 4))
+
+    def norm():
+        x, w = norms()
+        return F.rms_norm(x, x.shape[-1:], w, eps=1e-5)
+
     return {"rmsnorm": profiled_us(lambda: rms.rmsnorm_kernel(x, w), (rms_symbol,))[rms_symbol],
             "hash_partition_histogram": profiled_us(
                 lambda: hp.hash_partition_histogram_kernel(keys, num_buckets=DF_SHARDS),
-                (hash_symbol,), reps=3)[hash_symbol]}
+                (hash_symbol,), reps=3)[hash_symbol],
+            "flash_attention_library": device_us_per_call(
+                lambda: F.scaled_dot_product_attention(*attn(), is_causal=True))[0],
+            "rmsnorm_library": device_us_per_call(norm)[0]}
 
 
 def phase_dataframe():
@@ -1443,9 +1825,10 @@ def phase_rmsnorm(cfg):
     return launches["rmsnorm"]
 
 
-def rmsnorm_row(launches, device_us):
+def rmsnorm_row(launches, device_us, lib_us):
     """Kernel 6 at the training activations' shape, rotating over four
-    input sets (134 MB with the outputs, past the 50 MB L2)."""
+    input sets (134 MB with the outputs, past the 50 MB L2); ``lib_us``:
+    F.rms_norm's device us per call (profile_new_kernels)."""
     cases = rms_cases(torch.Generator(device="cuda").manual_seed(SEED + 5), 4)
     err = max((rms.rmsnorm_kernel(x, w).float() - rms.rmsnorm_plain(x, w).float())
               .abs().max().item() for x, w in cases[:2])
@@ -1465,7 +1848,7 @@ def rmsnorm_row(launches, device_us):
                      "torch.nn.functional.rms_norm (weight w, eps 1e-5), timed "
                      "only: the port never calls it",
                      {"x": list(RMS_SHAPE), "dtype": "torch.bfloat16", "w": [d]},
-                     flops_per_s=FP32_FLOPS_PER_S)
+                     flops_per_s=FP32_FLOPS_PER_S, lib_us=lib_us)
     row["device_us_per_launch"] = device_us
     return row
 
@@ -1503,17 +1886,16 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
+    if ARGS.compare:
+        phase_compare(ARGS.compare)
+        return 0
     phase_build()
     phase_kernels()
     new_us = profile_new_kernels()
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, model_specs(cfg), "cuda")
-    launches, shapes = {}, None
-    for layout in LAYOUTS:
-        serve, layout_shapes = phase_serve(cfg, params, layout)
-        launches.update({n: serve["launches"][n] for n in PATH_KERNELS[layout]})
-        shapes = shapes or layout_shapes  # the paged run's buckets
+    launches, shapes = serve_rounds(cfg, params, SERVE_ROUNDS)
     rows = phase_timing(cfg, launches, shapes)
     device_us = {}
     for layout in LAYOUTS:
@@ -1523,16 +1905,19 @@ def main() -> int:
     phase_stream(cfg, params)
     del params
     torch.cuda.empty_cache()
+    phase_phi3()
     flash_launches, flash_us = phase_train(cfg)
     torch.cuda.empty_cache()
     phase_train_parity(cfg)
-    rows.append(flash_row(cfg, {"flash_attention": flash_launches}, flash_us))
+    rows.append(flash_row(cfg, {"flash_attention": flash_launches}, flash_us,
+                          new_us["flash_attention_library"]))
     torch.cuda.empty_cache()
     host_cols, table, hash_launches = phase_dataframe()
     phase_pipeline(table, host_cols)
     del table, host_cols
     torch.cuda.empty_cache()
-    rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"]))
+    rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"],
+                            new_us["rmsnorm_library"]))
     rows.append(hash_row({"hash_partition_histogram": hash_launches},
                          new_us["hash_partition_histogram"]))
     emit({"phase": "timing", "ok": True, "rows": rows[-3:]})

@@ -28,18 +28,25 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# dtype codes of the C interface; head dims the kernels are instantiated for
+# dtype codes of the C interface; head dims the attention kernels are
+# instantiated for (every `case` of their dispatch tables)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DTYPES = tuple(DTYPE_CODE)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
+# head dims of the repo's configs that no kernel takes yet, and the
+# ROADMAP.md item whose port adds each
+PENDING_HEAD_DIMS = {
+    24: "ROADMAP.md queue 1 item 3 (minicpm3's expanded MLA decode at smoke width)",
+    256: "ROADMAP.md queue 1 item 5 (recurrentgemma)",
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of each library's entry point (pointers and the stream as
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int)
 SIGNATURES = {
-    # dtype, q, k, v, cache_len, m, l, acc, out,
+    # dtype, tensor_cores, q, k, v, cache_len, m, l, acc, out,
     # B, S, H, KV, D, span, nsplit, window, scale, stream
-    "decode_attention": [_I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
+    "decode_attention": [_I, _I] + [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
     # dtype, q, k_new, v_new, k_cache, v_cache, base, chunk_lens, out,
     # B, T, S, H, KV, D, scale, stream
     "prefill_attention": [_I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
@@ -64,6 +71,16 @@ EXTRA_ENTRIES = {
     # B, T, row_elems, num_pages, page_size, max_pages, stream
     "paged_scatter": ("prefill_attention_paged", [_I] + [_P] * 7 + [_I] * 6 + [_P]),
 }
+
+
+def check_head_dim(D: int) -> None:
+    """Raise ValueError when no attention kernel is instantiated for head
+    dim ``D``, naming the item that will add it where one does."""
+    if D in HEAD_DIMS:
+        return
+    todo = PENDING_HEAD_DIMS.get(D)
+    raise ValueError(f"head dim {D} not in {HEAD_DIMS}"
+                     + (f"; {todo} adds it" if todo else ""))
 
 
 def _nvcc() -> str:

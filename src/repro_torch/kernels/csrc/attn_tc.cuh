@@ -1,6 +1,7 @@
 // The tensor-core attention tile routine for Hopper (sm_90a): bf16 in,
-// fp32 accumulate.  The bf16 bodies of flash_attention.cu and
-// prefill_attention_paged.cu are built on it; their fp32 bodies stay on
+// fp32 accumulate.  The bf16 bodies of flash_attention.cu and of both
+// prefills (prefill_attention.cu, prefill_attention_paged.cu, through
+// tc_prefill_block at the end) are built on it; their fp32 bodies stay on
 // the CUDA cores (tensor cores would round fp32 inputs to TF32).
 //
 // A block of NWG warpgroups (128 threads each) owns a tile of 64*NWG
@@ -22,9 +23,11 @@
 //     layout K is stored in.
 // Every tile in shared memory is [64 rows][64 bf16] blocks of 128-byte
 // rows with the 128-byte swizzle (16-byte chunk c of row r at chunk
-// c ^ (r % 8)), 1024-byte aligned; D = 128 takes two such blocks.  D = 16
-// and 32 use the first D columns of one block: Q K^T takes D/16 k-steps,
-// and the columns of P V past D are garbage that is never written out.
+// c ^ (r % 8)), 1024-byte aligned; a row of D columns takes ceil(D / 64)
+// such blocks (D = 96 and 128 take two).  When D is not a multiple of 64
+// (16, 32, 96) the last block is used in its first columns: Q K^T takes
+// D/16 k-steps, the copies zero-fill the block's columns past D, and the
+// columns of P V past D (zeros) are never written out.
 //
 // Measured on the H100 (PERF.md), none of these ran
 // faster at the training shape than the one-barrier loop below: issuing a
@@ -50,9 +53,10 @@ constexpr int kTcBlockBytes = 64 * 128;  // one [64][64] bf16 block
 
 template <int D>
 struct TcShape {
-  static constexpr int kBlocks = D > 64 ? D / 64 : 1;        // 64-column blocks
+  static constexpr int kBlocks = (D + 63) / 64;              // 64-column blocks
   static constexpr int kTileBytes = kBlocks * kTcBlockBytes;  // a Q, K or V tile
   static constexpr int kChunks = D / 8;                       // 16 B chunks of a row
+  static constexpr int kRowChunks = kBlocks * 8;              // the same, with the pad
   static constexpr int kSteps = D / 16;                       // k16 steps of Q K^T
 };
 
@@ -168,11 +172,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Stage 64*NR rows into the swizzled tile(s) at dst (NR tiles of 64 rows,
 // one after another) with the block's THREADS threads: src(r) is row r's
 // first element, or nullptr for a row to zero-fill (dummy is then the
-// address handed to the copy, which reads none of it).
+// address handed to the copy, which reads none of it).  The chunks of the
+// last 64-column block past D are zero-filled too.
 template <int D, int NR, int THREADS, typename Src>
 __device__ __forceinline__ void tc_load_rows(uint32_t dst, Src src,
                                              const __nv_bfloat16* dummy) {
-  constexpr int C = TcShape<D>::kChunks;
+  constexpr int C = TcShape<D>::kRowChunks;
   constexpr int N = kTcRows * NR * C;
 #pragma unroll
   for (int it = 0; it < (N + THREADS - 1) / THREADS; ++it) {
@@ -180,7 +185,7 @@ __device__ __forceinline__ void tc_load_rows(uint32_t dst, Src src,
     if (N % THREADS == 0 || i < N) {
       const int r = i / C;
       const int ch = i % C;
-      const __nv_bfloat16* p = src(r);
+      const __nv_bfloat16* p = ch < TcShape<D>::kChunks ? src(r) : nullptr;
       cp_async16(dst + (r / kTcRows) * TcShape<D>::kTileBytes + tc_offset(r % kTcRows, ch),
                  p ? p + ch * 8 : dummy, p ? 16 : 0);
     }
@@ -386,6 +391,61 @@ __device__ __forceinline__ void tc_store(const TcAcc<D>& acc, Dst dst, Zero zero
 // true when p is 16-byte aligned
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The ragged causal chunk prefill of one block (one warpgroup), the body
+// of both prefill kernels; they differ only in where a key's row lives.
+// The block owns flattened query rows r = t*G + g, 64*qi .. 64*qi + 63,
+// of (row b, KV head kv), so the G heads of a group share every staged
+// K/V tile; row r's causal frontier is base + r / G.  q, out are [B,
+// T_len, H, D]; key position pos (0 <= pos < cap) has its K and V rows at
+// element offset key_off(pos) of k and v.  The walk stops at the tile
+// holding the block's last valid query's position (inside cap), keys past
+// it are zero-filled and masked, and a block wholly past clen writes its
+// rows as zeros and returns.  Padding rows (t >= clen) are exact zeros.
+template <int D, typename KeyOff>
+__device__ __forceinline__ void tc_prefill_block(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int T_len,
+    int H, int KV, int b, int kv, int qi, int base, int clen, int cap, float scale_log2,
+    KeyOff key_off) {
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t q_s = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + TcShape<D>::kTileBytes;  // after the Q tile
+  const int G = H / KV;
+  const int f0 = qi * kTcRows;  // first flattened row t*G + g of the tile
+  auto row_ptr = [&](__nv_bfloat16* p, int r) -> __nv_bfloat16* {
+    const int t = (f0 + r) / G;
+    return t < T_len ? p + (((size_t)b * T_len + t) * H + kv * G + (f0 + r) % G) * D
+                     : nullptr;
+  };
+  auto is_pad = [&](int r) { return (f0 + r) / G >= clen; };
+
+  if (f0 / G >= clen) {  // tile wholly past the chunk: padding rows only
+    TcAcc<D> zero{};
+    tc_store<D>(zero, [&](int r) { return row_ptr(out, r); }, [](int) { return true; });
+    return;  // uniform over the block
+  }
+  tc_load_rows<D, 1, kTcThreads>(q_s, [&](int r) -> const __nv_bfloat16* {
+    return row_ptr(const_cast<__nv_bfloat16*>(q), r); }, q);
+  // the block's causal frontier: its last valid query's position, inside cap
+  const int t_last = min(min((f0 + kTcRows - 1) / G, T_len - 1), clen - 1);
+  const int frontier = min(base + t_last, cap - 1);
+  auto load_kv = [&](int j, uint32_t k_dst, uint32_t v_dst) {
+    const int k0 = j * kTcKeys;
+    tc_load_rows<D, 1, kTcThreads>(k_dst, [&](int r) -> const __nv_bfloat16* {
+      return k0 + r <= frontier ? k + key_off(k0 + r) : nullptr; }, k);
+    tc_load_rows<D, 1, kTcThreads>(v_dst, [&](int r) -> const __nv_bfloat16* {
+      return k0 + r <= frontier ? v + key_off(k0 + r) : nullptr; }, v);
+  };
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)  // padding rows see nothing; their output is 0
+    lim[h] = is_pad(tc_row0() + 8 * h) ? -1 : min(base + (f0 + tc_row0() + 8 * h) / G, cap - 1);
+  TcAcc<D> acc;
+  tc_attend<D>(q_s, kv_s, frontier >= 0 ? frontier / kTcKeys + 1 : 0, load_kv, lim,
+               min(base + f0 / G, cap - 1), frontier, scale_log2, acc);
+  tc_store<D>(acc, [&](int r) { return row_ptr(out, r); }, is_pad);
 }
 
 }  // namespace

@@ -190,6 +190,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp,
     case 16: return launch<T, 16>(q, kp, vp, bt, lens, m, l, acc, out, B, H, KV, num_pages, page_size, max_pages, span, nsplit, scale, s);
     case 32: return launch<T, 32>(q, kp, vp, bt, lens, m, l, acc, out, B, H, KV, num_pages, page_size, max_pages, span, nsplit, scale, s);
     case 64: return launch<T, 64>(q, kp, vp, bt, lens, m, l, acc, out, B, H, KV, num_pages, page_size, max_pages, span, nsplit, scale, s);
+    case 96: return launch<T, 96>(q, kp, vp, bt, lens, m, l, acc, out, B, H, KV, num_pages, page_size, max_pages, span, nsplit, scale, s);
     case 128: return launch<T, 128>(q, kp, vp, bt, lens, m, l, acc, out, B, H, KV, num_pages, page_size, max_pages, span, nsplit, scale, s);
     default: return cudaErrorInvalidValue;
   }

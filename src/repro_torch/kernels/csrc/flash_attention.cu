@@ -271,6 +271,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, s);
+    case 96: return launch<T, 96>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, S, H, KV, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }

@@ -9,7 +9,7 @@
 // base[b] + i.  First `chunk_scatter_kernel` copies each fresh K/V token
 // into the caches k_cache, v_cache [B, S, KV, D]; a token past
 // chunk_lens[b], or whose position falls outside [0, S), is skipped (the
-// JAX scatter drops it).  Then `contig_prefill_kernel` lets each valid
+// JAX scatter drops it).  Then the attention kernel lets each valid
 // query i attend causally over kpos <= base[b] + i of the row's cache.
 // Padding query rows (i >= chunk_lens[b]) are written as exact zeros; rows
 // with chunk_lens == 0 are inert (no writes, all zeros).  Both kernels run
@@ -22,24 +22,40 @@
 // in no fixed order.  Skipping dropped tokens outright has no collision;
 // the masked torch form that does skip them syncs the host on `nonzero`.
 //
-// What bounds it: at serving shapes (a 64-token chunk over a prefix of a
-// few hundred tokens) each K/V element staged in shared memory is used by
-// G*bq = 128 query rows, ~64 FLOPs per byte of bf16 cache: below the
-// H100's ~295 FLOPs/byte ridge in the counted bytes, but this plain-FMA
-// kernel runs on the CUDA cores (67 TFLOP/s fp32), so in practice its FMAs
-// bound it.  The design, carried over from prefill_attention_paged.cu,
-// keeps every byte read once per block and every FMA useful:
-//   * one block per (row, KV head, tile of bq queries); its 128 threads
-//     each own one (query, head) row of the GQA group, with the q row and
-//     the fp32 accumulator in registers (D is a template parameter);
-//   * the block walks 32-position K/V tiles of its row only up to the
-//     tile's causal frontier base + last valid query (inside the cache),
-//     and tiles wholly past chunk_lens[b] only write zeros;
-//   * each K/V tile is staged once in shared memory and read by all
-//     threads as broadcasts (every thread reads the same key at once);
-//   * the online softmax rescales once per 16 keys, in fp32.
-// wgmma/TMA and a tensor-core QK^T are later work.
-#include "common.cuh"
+// What bounds it: at the serving shape (one live 64-token chunk at base
+// 64 in B 8 slots, tinyllama's H 32, KV 4, D 64, bf16) the call moves
+// ~2.6 MB, most of it the zero rows of the seven inert slots, and does
+// ~51 MFLOP: ~0.8 us of bytes, ~0.05 us of tensor-core work.  Nothing
+// that small fills the card: the call is two launches, and each block
+// reads the lengths before it can address its K/V.  The first
+// design, the fp32 body below run in bf16 (one thread per (query, head)
+// row, K/V staged as fp32 by synchronous scalar loads, Q K^T and P V as
+// FMAs on the CUDA cores), took 55.7-57.6 us for the attention at that
+// shape on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+//
+// bf16 (the serving path): `contig_prefill_wgmma_kernel`, the tensor-core
+// block of attn_tc.cuh (`tc_prefill_block`), which the paged prefill
+// shares; only the address of a key's row differs, here one strided row
+// of the row's own cache, ((b*S + pos)*KV + kv)*D.  One block (one
+// warpgroup) per 64 flattened query rows r = t*G + g of one (row, KV
+// head), so the G heads of a group share each staged K/V tile; 64-key K/V
+// tiles by 16-byte cp.async into a two-slot ring of swizzled tiles, S =
+// Q K^T and O += P V by wgmma with P from registers; the walk stops at the
+// block's causal frontier, keys past it are zero-filled and masked;
+// blocks wholly past chunk_lens[b] write zeros and return; the grid
+// starts the latest query tiles first.  Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py, PERF.md): 8.0-8.5 us of device time per
+// call at the serving shape (scatter 2.3-2.7, attention 5.7-5.8), against
+// 27.9 us for SDPA on the same inputs.
+//
+// fp32: `contig_prefill_kernel` on the CUDA cores, the first design, kept
+// (the tensor cores would round fp32 to TF32, and the fp32 greedy streams
+// are held token for token against the plain path).  Its 128 threads each
+// own one (query, head) row with the q row and the fp32 accumulator in
+// registers; 32-position K/V tiles staged once in shared memory as fp32
+// and read as broadcasts; the online softmax rescales once per 16 keys.
+// A bf16 call whose tensors are not 16-byte aligned takes it too.
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -178,6 +194,50 @@ __global__ void __launch_bounds__(kThreads) contig_prefill_kernel(
   for (int d = 0; d < D; ++d) o_row[d] = from_f32<T>(valid ? acc[d] * inv : 0.f);
 }
 
+// grid (n_qt * B*KV), kTcThreads threads: block x owns flattened query
+// rows 64*qi .. 64*qi + 63 of (row, KV head) bkv = x % (B*KV), the first
+// B*KV blocks taking the last tile.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) contig_prefill_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ base_v,
+    const int* __restrict__ clen_v, __nv_bfloat16* __restrict__ out, int T_len, int S,
+    int H, int KV, int BKV, int n_qt, float scale_log2) {
+  const int qi = n_qt - 1 - (int)(blockIdx.x / BKV);
+  const int bkv = blockIdx.x % BKV;
+  const int b = bkv / KV;
+  const int kv = bkv % KV;
+  const int base = base_v[b];
+  const int clen = clen_v[b];
+  tc_prefill_block<D>(q, k_cache, v_cache, out, T_len, H, KV, b, kv, qi, base, clen, S,
+                      scale_log2, [&](int pos) {
+    return (((size_t)b * S + pos) * KV + kv) * D;
+  });
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k_cache, const void* v_cache,
+                      const int* base, const int* clens, void* out, int B, int T_len,
+                      int S, int H, int KV, float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<D>(1);
+  static bool attr_set = false;  // raise the dynamic shared-memory cap once
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(contig_prefill_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int n_qt = (int)(((long long)T_len * (H / KV) + kTcRows - 1) / kTcRows);
+  const long long blocks = (long long)n_qt * B * KV;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  contig_prefill_wgmma_kernel<D><<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
+      static_cast<const __nv_bfloat16*>(v_cache), base, clens,
+      static_cast<__nv_bfloat16*>(out), T_len, S, H, KV, B * KV, n_qt,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_cache, void* v_cache, const int* base,
@@ -191,6 +251,11 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
       S, KV * D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if constexpr (sizeof(T) == 2) {  // bf16; rows are D elements apart, so 16 B aligned
+    if (aligned16(q) && aligned16(k_cache) && aligned16(v_cache) && aligned16(out))
+      return launch_tc<D>(q, k_cache, v_cache, base, clens, out, B, T_len, S, H, KV,
+                          scale, stream);
+  }
   const int bq = kThreads / G;
   const size_t smem = sizeof(float) * 2 * (size_t)kTile * D;
   const dim3 grid((T_len + bq - 1) / bq, B * KV);
@@ -210,6 +275,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kn, const void* vn,
     case 16: return launch<T, 16>(q, kn, vn, kc, vc, base, clens, out, B, T_len, S, H, KV, scale, s);
     case 32: return launch<T, 32>(q, kn, vn, kc, vc, base, clens, out, B, T_len, S, H, KV, scale, s);
     case 64: return launch<T, 64>(q, kn, vn, kc, vc, base, clens, out, B, T_len, S, H, KV, scale, s);
+    case 96: return launch<T, 96>(q, kn, vn, kc, vc, base, clens, out, B, T_len, S, H, KV, scale, s);
     case 128: return launch<T, 128>(q, kn, vn, kc, vc, base, clens, out, B, T_len, S, H, KV, scale, s);
     default: return cudaErrorInvalidValue;
   }

@@ -33,16 +33,18 @@
 // reads a token's data while its destination is still being looked up.
 //
 // bf16 (the serving path): `prefill_paged_wgmma_kernel`, the tensor-core
-// tile routine of attn_tc.cuh.  One block (one warpgroup) per 64
-// flattened query rows r = t*G + g (query token t, group head g) of one
-// (row, KV head), so the G heads of a group share every staged K/V tile,
-// as the TPU kernel's GQA index map does; a row's causal frontier is
-// base + r / G.  Its 64-key K/V tiles are gathered four 16-key pages at a
-// time through the block table by cp.async into a 3-slot ring of
-// swizzled bf16 tiles.  The walk stops at the tile holding the block's
-// last valid query's position, keys past it are zero-filled and masked,
-// and blocks wholly past chunk_lens[b] write zeros and return.  The grid
-// starts the latest (longest) query tiles first.
+// block of attn_tc.cuh (`tc_prefill_block`), which the contiguous prefill
+// shares; here a key's row is found through the block table.  One block
+// (one warpgroup) per 64 flattened query rows r = t*G + g (query token t,
+// group head g) of one (row, KV head), so the G heads of a group share
+// every staged K/V tile, as the TPU kernel's GQA index map does; a row's
+// causal frontier is base + r / G.  Its 64-key K/V tiles are gathered
+// four 16-key pages at a time through the block table by cp.async into a
+// two-slot ring of swizzled bf16 tiles.  The walk stops at the tile
+// holding the block's last valid query's position, keys past it are
+// zero-filled and masked, and blocks wholly past chunk_lens[b] write
+// zeros and return.  The grid starts the latest (longest) query tiles
+// first.
 //
 // fp32: `prefill_kernel` on the CUDA cores, kept as it was written (the
 // tensor cores would round fp32 to TF32, and the fp32 greedy streams are
@@ -225,59 +227,21 @@ __global__ void __launch_bounds__(kTcThreads) prefill_paged_wgmma_kernel(
     const int* __restrict__ base_v, const int* __restrict__ clen_v,
     __nv_bfloat16* __restrict__ out, int T_len, int H, int KV, int num_pages,
     int page_size, int max_pages, int BKV, int n_qt, float scale_log2) {
-  extern __shared__ unsigned char tc_smem[];
-  const uint32_t q_s = (smem_u32(tc_smem) + 1023) & ~1023u;
-  const uint32_t kv_s = q_s + TcShape<D>::kTileBytes;  // after the Q tile
   const int qi = n_qt - 1 - (int)(blockIdx.x / BKV);
   const int bkv = blockIdx.x % BKV;
   const int b = bkv / KV;
   const int kv = bkv % KV;
-  const int G = H / KV;
-  const int f0 = qi * kTcRows;  // first flattened row t*G + g of the tile
   const int* bt = block_table + (size_t)b * max_pages;
   // bring the row's block table into L1 while base and chunk_lens load
   if (threadIdx.x < (max_pages + 31) / 32)
     asm volatile("prefetch.global.L1 [%0];" ::"l"(bt + 32 * threadIdx.x));
   const int base = base_v[b];
   const int clen = clen_v[b];
-  auto row_ptr = [&](__nv_bfloat16* p, int r) -> __nv_bfloat16* {
-    const int t = (f0 + r) / G;
-    return t < T_len ? p + (((size_t)b * T_len + t) * H + kv * G + (f0 + r) % G) * D
-                     : nullptr;
-  };
-  auto is_pad = [&](int r) { return (f0 + r) / G >= clen; };
-
-  if (f0 / G >= clen) {  // tile wholly past the chunk: padding rows only
-    TcAcc<D> zero{};
-    tc_store<D>(zero, [&](int r) { return row_ptr(out, r); }, [](int) { return true; });
-    return;  // uniform over the block
-  }
-  tc_load_rows<D, 1, kTcThreads>(q_s, [&](int r) -> const __nv_bfloat16* {
-    return row_ptr(const_cast<__nv_bfloat16*>(q), r); }, q);
-  // the block's causal frontier: its last valid query's position, inside
-  // the table's capacity
-  const int cap = max_pages * page_size;
-  const int t_last = min(min((f0 + kTcRows - 1) / G, T_len - 1), clen - 1);
-  const int frontier = min(base + t_last, cap - 1);
-  auto load_kv = [&](int j, uint32_t k_dst, uint32_t v_dst) {
-    const int k0 = j * kTcKeys;
-    auto key = [&](const __nv_bfloat16* pool, int r) -> const __nv_bfloat16* {
-      const int pos = k0 + r;
-      if (pos > frontier) return nullptr;
-      const int phys = min(max(bt[pos / page_size], 0), num_pages - 1);  // clamp first
-      return pool + (((size_t)phys * page_size + pos % page_size) * KV + kv) * D;
-    };
-    tc_load_rows<D, 1, kTcThreads>(k_dst, [&](int r) { return key(k_pages, r); }, k_pages);
-    tc_load_rows<D, 1, kTcThreads>(v_dst, [&](int r) { return key(v_pages, r); }, v_pages);
-  };
-  int lim[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)  // padding rows see nothing; their output is 0
-    lim[h] = is_pad(tc_row0() + 8 * h) ? -1 : min(base + (f0 + tc_row0() + 8 * h) / G, cap - 1);
-  TcAcc<D> acc;
-  tc_attend<D>(q_s, kv_s, frontier >= 0 ? frontier / kTcKeys + 1 : 0, load_kv, lim,
-                        min(base + f0 / G, cap - 1), frontier, scale_log2, acc);
-  tc_store<D>(acc, [&](int r) { return row_ptr(out, r); }, is_pad);
+  tc_prefill_block<D>(q, k_pages, v_pages, out, T_len, H, KV, b, kv, qi, base, clen,
+                      max_pages * page_size, scale_log2, [&](int pos) {
+    const int phys = min(max(bt[pos / page_size], 0), num_pages - 1);  // clamp first
+    return (((size_t)phys * page_size + pos % page_size) * KV + kv) * D;
+  });
 }
 
 template <int D>
@@ -343,6 +307,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp,
     case 16: return launch<T, 16>(q, kp, vp, bt, base, clens, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
     case 32: return launch<T, 32>(q, kp, vp, bt, base, clens, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
     case 64: return launch<T, 64>(q, kp, vp, bt, base, clens, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
+    case 96: return launch<T, 96>(q, kp, vp, bt, base, clens, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
     case 128: return launch<T, 128>(q, kp, vp, bt, base, clens, out, B, T_len, H, KV, num_pages, page_size, max_pages, scale, s);
     default: return cudaErrorInvalidValue;
   }

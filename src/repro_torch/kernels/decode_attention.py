@@ -1,5 +1,5 @@
-"""Split-K decode attention: the CUDA kernels' wrappers and their plain
-PyTorch versions (mirror of ``repro.kernels.decode_attention``).
+"""Decode attention: the CUDA kernels' wrappers and their plain PyTorch
+versions (mirror of ``repro.kernels.decode_attention``).
 
 One query token per row attends the row's live prefix ``[0, cache_len)``.
 Two layouts, as in JAX:
@@ -7,15 +7,22 @@ Two layouts, as in JAX:
 * ``decode_attention``: the row's own contiguous cache ``[B, S, KV, D]``;
   ``cache_len`` is a scalar or ``[B]`` and a static ``window`` > 0 also
   masks positions before ``cache_len - window``
-  (``csrc/decode_attention.cu``);
+  (``csrc/decode_attention.cu``).  The wrapper picks the kernel's body
+  and cuts the row into spans for it, in one place
+  (``contiguous_plan``): the bf16 tensor-core body walks up to
+  ``_TC_SPAN`` positions a block (``contiguous_tc_span``), so at S <= 512
+  a row is one block and one launch; the CUDA-core body (fp32, or bf16
+  tensors that are not 16-byte aligned) keeps split-K spans that leave
+  ~``_TARGET_BLOCKS`` blocks (``contiguous_split_span``).  A row of one
+  span is written by its block; longer rows write fp32 ``(m, l, acc)``
+  partials (``contiguous_partials``) that a combine pass merges;
 * ``decode_attention_paged``: the shared page pool ``[num_pages,
   page_size, KV, D]`` read through the row's block table
-  (``csrc/decode_attention_paged.cu``).
+  (``csrc/decode_attention_paged.cu``): spans of pages sized so the grid
+  holds ~``_TARGET_BLOCKS`` blocks, always through the partials and the
+  combine pass.
 
-Each kernel reduces spans of positions into fp32 ``(m, l, acc)``
-partials; a combine pass in the same library merges them into ``[B, H,
-D]`` in q's dtype.  Rows with nothing live (``cache_len == 0``) return
-zeros.
+Rows with nothing live (``cache_len == 0``) return zeros.
 
 The dispatchers take the plain version for CPU tensors and launch the
 kernel for CUDA tensors; there is no fallback between them.
@@ -35,10 +42,16 @@ from repro_torch.kernels import ref as _ref
 decode_attention_plain = _ref.decode_attention_ref
 decode_attention_paged_plain = _ref.decode_attention_paged_ref
 
-# enough (row, KV head, span) blocks to cover the card's 132 SMs twice
+# enough (row, KV head, span) blocks of the paged kernel and of the
+# contiguous CUDA-core body to cover the card's 132 SMs twice
 _TARGET_BLOCKS = 264
-# cache positions the contiguous kernel stages per step (kTile in the .cu)
+# positions the contiguous CUDA-core body stages per step (kTile in the .cu)
 _TILE = 32
+# cache positions a block of the contiguous tensor-core body walks at most:
+# a row of the serving max_len (512) is one block, so one launch; spans
+# are whole 16-key tiles (kDecKeys in csrc/decode_tc.cuh)
+_TC_SPAN = 512
+_TC_TILE = 16
 
 
 def _splits(B: int, KV: int) -> int:
@@ -53,15 +66,38 @@ def split_span(B: int, KV: int, max_pages: int) -> int:
 
 
 def contiguous_split_span(B: int, KV: int, S: int) -> int:
-    """Cache positions per split-K block of the contiguous kernel, in
-    whole tiles."""
+    """Cache positions per split-K block of the contiguous CUDA-core body,
+    in whole tiles."""
     span = -(-S // _splits(B, KV))
     return -(-span // _TILE) * _TILE
 
 
-def _rows_i32(cache_len, B, device) -> torch.Tensor:
-    """Scalar or [B] lengths -> contiguous [B] int32 on ``device``."""
-    return _ref.as_rows(cache_len, B, device).to(torch.int32).contiguous()
+def contiguous_tc_span(S: int) -> int:
+    """Cache positions per block of the contiguous tensor-core body: whole
+    16-key tiles, at most ``_TC_SPAN``."""
+    return min(-(-S // _TC_TILE) * _TC_TILE, _TC_SPAN)
+
+
+def contiguous_plan(dtype: torch.dtype, aligned: bool, B: int, KV: int, S: int):
+    """The one decision of which contiguous decode body runs, and how it
+    cuts a row: ``(tensor_cores, span, nsplit)``.  The tensor-core body
+    takes bf16 tensors that are all 16-byte aligned; anything else runs on
+    the CUDA cores.  The C entry point is handed the choice and refuses a
+    mismatch; it guesses nothing."""
+    tensor_cores = dtype == torch.bfloat16 and aligned
+    span = contiguous_tc_span(S) if tensor_cores else contiguous_split_span(B, KV, S)
+    return tensor_cores, span, -(-S // span)
+
+
+def contiguous_partials(nsplit: int, B: int, KV: int, G: int, D: int, device):
+    """The fp32 ``(m, l, acc)`` partials of a split row, for the combine
+    pass; ``(None, None, None)`` when a row is one span, whose block
+    writes ``out`` itself (on either body)."""
+    if nsplit == 1:
+        return None, None, None
+    m = torch.empty((B * KV, nsplit, G), dtype=torch.float32, device=device)
+    return m, torch.empty_like(m), torch.empty((B * KV, nsplit, G, D), dtype=torch.float32,
+                                               device=device)
 
 
 def _check(q, k, v, cache_len):
@@ -77,9 +113,9 @@ def _check(q, k, v, cache_len):
         raise ValueError(f"decode kernel takes fp32/bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("caches must have q's dtype")
-    if D not in build.HEAD_DIMS or Dk != D or v.shape != k.shape:
-        raise ValueError(f"head dim {D} (caches {tuple(k.shape)}) not in "
-                         f"{build.HEAD_DIMS}")
+    if Dk != D or v.shape != k.shape:
+        raise ValueError(f"caches {tuple(k.shape)} do not match q's head dim {D}")
+    build.check_head_dim(D)
     if H % KV or cache_len.shape != (B,):
         raise ValueError("shape mismatch: q [B,H,D], cache_len [B], "
                          "H % KV == 0")
@@ -92,27 +128,22 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
     """Launch the contiguous CUDA kernel (CUDA tensors only, raises
     otherwise)."""
     B, H, D = q.shape
-    cache_len = _rows_i32(cache_len, B, q.device)
+    cache_len = _ref.rows_i32(cache_len, B, q.device)
     _check(q, k, v, cache_len)
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     if k.shape[0] != B or G > 32 or S < 1 or window < 0:
         raise ValueError("caches must be [B, S>=1, KV, D] with H/KV <= 32 "
                          "and window >= 0")
-    span = contiguous_split_span(B, KV, S)
-    nsplit = -(-S // span)
-    m_p = torch.empty((B * KV, nsplit, G), dtype=torch.float32, device=q.device)
-    l_p = torch.empty_like(m_p)
-    acc_p = torch.empty((B * KV, nsplit, G, D), dtype=torch.float32,
-                        device=q.device)
+    tc, span, nsplit = contiguous_plan(
+        q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)), B, KV, S)
+    parts = contiguous_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
-    lib = build.load("decode_attention")
-    err = lib.decode_attention(
-        build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        cache_len.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(),
+    err = build.load("decode_attention").decode_attention(
+        build.DTYPE_CODE[q.dtype], int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cache_len.data_ptr(), *(None if t is None else t.data_ptr() for t in parts),
         out.data_ptr(), B, S, H, KV, D, span, nsplit, int(window),
-        ctypes.c_float(1.0 / math.sqrt(D)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("decode_attention", err)
     decode_attention_kernel.launches += 1
     return out
@@ -134,7 +165,7 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
                                   cache_len) -> torch.Tensor:
     """Launch the CUDA kernel (CUDA tensors only, raises otherwise)."""
     B, H, D = q.shape
-    cache_len = _rows_i32(cache_len, B, q.device)
+    cache_len = _ref.rows_i32(cache_len, B, q.device)
     _check(q, k_pages, v_pages, cache_len)
     if block_table.device != q.device or block_table.dtype != torch.int32 \
             or block_table.shape[0] != B or not block_table.is_contiguous():
@@ -157,8 +188,7 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
         v_pages.data_ptr(), block_table.data_ptr(), cache_len.data_ptr(),
         m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(), out.data_ptr(),
         B, H, KV, D, num_pages, page_size, max_pages, span, nsplit,
-        ctypes.c_float(1.0 / math.sqrt(D)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("decode_attention_paged", err)
     decode_attention_paged_kernel.launches += 1
     return out

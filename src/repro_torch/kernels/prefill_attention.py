@@ -103,15 +103,6 @@ def paged_append_plain(pages: torch.Tensor, block_table: torch.Tensor,
     return pages
 
 
-def _rows32(x, B: int, device) -> torch.Tensor:
-    """Scalar or [B] lengths -> contiguous [B] int32 on ``device``; a
-    tensor that already is one passes through (no copy, no launch)."""
-    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 \
-            and x.device == device and x.shape == (B,) and x.is_contiguous():
-        return x
-    return _ref.as_rows(x, B, device).to(torch.int32).contiguous()
-
-
 def write_chunk_paged_kernel(k_pages, v_pages, block_table, k_new, v_new,
                              base, chunk_lens=None):
     """Launch the scatter kernel (CUDA tensors only, raises otherwise):
@@ -138,9 +129,10 @@ def write_chunk_paged_kernel(k_pages, v_pages, block_table, k_new, v_new,
         raise ValueError("block_table must be a contiguous int32 [B, max_pages]")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("the pools must be contiguous")
-    clens32 = None if chunk_lens is None else _rows32(chunk_lens, B, k_pages.device)
+    dev = k_pages.device
+    clens32 = None if chunk_lens is None else _ref.rows_i32(chunk_lens, B, dev)
     _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(), v_new.contiguous(),
-                    _rows32(base, B, k_pages.device), clens32,
+                    _ref.rows_i32(base, B, dev), clens32,
                     build.current_stream(k_pages))
     return k_pages, v_pages
 
@@ -197,9 +189,9 @@ def _check_chunk(q, k_new, v_new, k_cache, v_cache):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     KV, Dk = k_cache.shape[2], k_cache.shape[3]
-    if D not in build.HEAD_DIMS or Dk != D or v_cache.shape != k_cache.shape:
-        raise ValueError(f"head dim {D} (caches {tuple(k_cache.shape)}) not in "
-                         f"{build.HEAD_DIMS}")
+    if Dk != D or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match q's head dim {D}")
+    build.check_head_dim(D)
     if H % KV or H // KV > 128 or k_new.shape != (B, T, KV, D) \
             or v_new.shape != k_new.shape:
         raise ValueError("shape mismatch: q [B,T,H,D], k/v_new [B,T,KV,D], "
@@ -222,16 +214,15 @@ def prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    base32 = _ref.as_rows(base, B, q.device).to(torch.int32).contiguous()
-    clens32 = _ref.as_rows(chunk_lens, B, q.device).to(torch.int32).contiguous()
+    base32 = _ref.rows_i32(base, B, q.device)
+    clens32 = _ref.rows_i32(chunk_lens, B, q.device)
     out = torch.empty_like(q)
     lib = build.load("prefill_attention")
     err = lib.prefill_attention(
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         base32.data_ptr(), clens32.data_ptr(), out.data_ptr(), B, T, S, H, KV,
-        D, ctypes.c_float(1.0 / math.sqrt(D)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        D, ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("prefill_attention", err)
     prefill_attention_kernel.launches += 1
     return out, k_cache, v_cache
@@ -271,8 +262,8 @@ def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
     B, T, H, D = q.shape
     num_pages, page_size, KV, _ = k_pages.shape
     max_pages = block_table.shape[1]
-    base32 = _rows32(base, B, q.device)
-    clens32 = _rows32(chunk_lens, B, q.device)
+    base32 = _ref.rows_i32(base, B, q.device)
+    clens32 = _ref.rows_i32(chunk_lens, B, q.device)
     stream = build.current_stream(q)
     _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(),
                     v_new.contiguous(), base32, clens32, stream)

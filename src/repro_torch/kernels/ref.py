@@ -20,6 +20,16 @@ def as_rows(x, B: int, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int64).reshape(-1).expand(B)
 
 
+def rows_i32(x, B: int, device) -> torch.Tensor:
+    """Scalar or [B] lengths -> contiguous [B] int32 on ``device``, as the
+    kernels take them; a tensor that already is one passes through (no
+    copy, no launch)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 \
+            and x.device == device and x.shape == (B,) and x.is_contiguous():
+        return x
+    return as_rows(x, B, device).to(torch.int32).contiguous()
+
+
 def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     """[num_pages, page, KV, D] pool through a [B, max_pages] table ->
     contiguous [B, max_pages*page, KV, D]; sentinel entries are clamped,

@@ -14,7 +14,14 @@ before that rounding (the plain version on the same bf16 values in fp32)
 within half of 2e-2, EMU_TOL: the step P takes moves the output by less
 than that, and the card's check keeps its headroom.  The rounded outputs
 are held to the card's own tolerance.  Run with ``-s`` to print the
-errors."""
+errors.
+
+The contiguous decode (``csrc/decode_tc.cuh``) takes the same steps at
+another tiling: 16-key tiles dealt round-robin to the four warps of a
+block, each warp with its own online softmax in base 2 (``exp2(s *
+scale * log2e - m * scale * log2e)``), the warps' ``(m, l, O)`` merged
+in the block, and rows longer than 512 positions split into blocks whose
+fp32 partials a combine pass merges in natural exponents."""
 import math
 
 import pytest
@@ -24,9 +31,11 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.prefill_attention import write_chunk_paged  # noqa: E402
+from repro_torch.kernels.prefill_attention import write_chunk, write_chunk_paged  # noqa: E402
 
 TILE = 64     # keys per K/V tile, as the kernels walk them
+DEC_TILE, DEC_WARPS, DEC_SPLIT = 16, 4, 512  # the contiguous decode's tiling
+LOG2E = 1.0 / math.log(2.0)
 EMU_TOL = 1e-2    # fp32, before the output's rounding: half the card's 2e-2
 CARD_TOL = 2e-2   # bf16 outputs, as the card holds the kernels
 
@@ -70,15 +79,13 @@ def flash_emulated(q, k, v, causal):
     return out
 
 
-def paged_emulated(q, k_new, v_new, k_pages, v_pages, block_table, base, clens):
-    """The paged prefill: the plain scatter, then each (row, KV head)'s
-    G*T flattened query rows attend its gathered pages; fp32 out."""
-    write_chunk_paged(k_pages, block_table, k_new, base, clens)
-    write_chunk_paged(v_pages, block_table, v_new, base, clens)
+def chunk_emulated(q, kc, vc, base, clens):
+    """Both prefills' attention over contiguous caches [B, S, KV, D]: each
+    (row, KV head)'s G*T flattened query rows attend causally; fp32 out,
+    padding rows zero."""
     B, T, H, D = q.shape
-    KV = k_pages.shape[2]
+    KV = kc.shape[2]
     G = H // KV
-    kc, vc = ref._gather_pages(k_pages, block_table), ref._gather_pages(v_pages, block_table)
     kpos = torch.arange(kc.shape[1])
     out = torch.zeros(q.shape)
     for b in range(B):
@@ -90,6 +97,74 @@ def paged_emulated(q, k_new, v_new, k_pages, v_pages, block_table, base, clens):
             out[b, :, kv * G:(kv + 1) * G] = o.reshape(T, G, D)
     pad = torch.arange(T)[None, :] >= clens[:, None]
     out[pad] = 0
+    return out
+
+
+def paged_emulated(q, k_new, v_new, k_pages, v_pages, block_table, base, clens):
+    """The paged prefill: the plain scatter, then the attention over the
+    gathered pages."""
+    write_chunk_paged(k_pages, block_table, k_new, base, clens)
+    write_chunk_paged(v_pages, block_table, v_new, base, clens)
+    return chunk_emulated(q, ref._gather_pages(k_pages, block_table),
+                          ref._gather_pages(v_pages, block_table), base, clens)
+
+
+def _warp_walk(q, k, v, tiles, scale_log2):
+    """One warp of the decode: q [G, D] bf16; its tiles' keys in turn, an
+    online softmax in base 2 on raw scores -> (m raw, l, O) in fp32."""
+    G, D = q.shape
+    m = torch.full((G, 1), ref.NEG_INF)
+    l = torch.zeros((G, 1))
+    o = torch.zeros((G, D))
+    for p0, p1 in tiles:
+        s = q.float() @ k[p0:p1].float().T
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale_log2)
+        p = torch.exp2(s * scale_log2 - m_new * scale_log2)
+        l = l * alpha + p.sum(dim=1, keepdim=True)          # unrounded P
+        o = o * alpha + p.to(torch.bfloat16).float() @ v[p0:p1].float()
+        m = m_new
+    return m, l, o
+
+
+def decode_emulated(q, k, v, lens, window=0):
+    """The contiguous decode: q [B, H, D], caches [B, S, KV, D] bf16 ->
+    [B, H, D] fp32 in the kernel's order of operations."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    scale_log2 = scale * LOG2E
+    span = min(-(-S // DEC_TILE) * DEC_TILE, DEC_SPLIT)
+    nsplit = -(-S // span)
+    out = torch.zeros((B, H, D))
+    for b in range(B):
+        n = int(lens[b])
+        hi, lo = min(max(n, 0), S), max(n - window, 0) if window else 0
+        for kv in range(KV):
+            qg = q[b, kv * G:(kv + 1) * G]
+            parts = []  # (m in natural units, l, acc) of each block
+            for sp in range(nsplit):
+                start, end = max(sp * span, lo), min((sp + 1) * span, hi)
+                if start >= end:
+                    parts.append((torch.full((G, 1), ref.NEG_INF), torch.zeros((G, 1)),
+                                  torch.zeros((G, D))))
+                    continue
+                tiles = [(p0, min(p0 + DEC_TILE, end)) for p0 in range(start, end, DEC_TILE)]
+                warps = [_warp_walk(qg, k[b, :, kv], v[b, :, kv], tiles[w::DEC_WARPS],
+                                    scale_log2) for w in range(DEC_WARPS)]
+                mx = torch.stack([w[0] for w in warps]).amax(dim=0)
+                f = [torch.exp2((w[0] - mx) * scale_log2) for w in warps]
+                parts.append((mx * scale, sum(w[1] * fw for w, fw in zip(warps, f)),
+                              sum(w[2] * fw for w, fw in zip(warps, f))))
+            if nsplit == 1:  # an empty row: acc 0 over 1e-30
+                o = parts[0][2] / parts[0][1].clamp(min=1e-30)
+            else:  # the combine pass, in natural exponents
+                m_all = torch.stack([p[0] for p in parts]).amax(dim=0)
+                w = [torch.exp(p[0] - m_all) for p in parts]
+                o = (sum(p[2] * wi for p, wi in zip(parts, w))
+                     / sum(p[1] * wi for p, wi in zip(parts, w)).clamp(min=1e-30))
+            out[b, kv * G:(kv + 1) * G] = o
     return out
 
 
@@ -138,3 +213,47 @@ def test_paged_prefill_emulation_within_half_the_card_tolerance(T, H, KV, D, bas
     want, _, _ = ref.prefill_attention_paged_ref(q, kn, vn, kp.clone(), vp.clone(), bt,
                                                  base, clens)
     _check(f"paged prefill T{T} H{H} KV{KV} D{D}", got, want32, want)
+
+
+@pytest.mark.parametrize("T,H,KV,D,S,base,clens", [
+    (64, 32, 4, 64, 512, [64, 0, 480], [64, 0, 64]),   # serving shape; a chunk past S
+    (33, 32, 32, 96, 256, [0, 100, 7], [33, 9, 0]),    # phi3-mini's MHA at D 96
+    (17, 16, 2, 96, 128, [0, 100], [17, 9]),           # D 96, GQA 8
+])
+def test_contiguous_prefill_emulation_within_half_the_card_tolerance(T, H, KV, D, S, base,
+                                                                     clens):
+    rng = np.random.default_rng(T + D + S)
+    B = len(base)
+    q, kn, vn = (_bf16(rng, s) for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kc, vc = _bf16(rng, (B, S, KV, D)), _bf16(rng, (B, S, KV, D))
+    base, clens = torch.tensor(base, dtype=torch.int32), torch.tensor(clens, dtype=torch.int32)
+    k2, v2 = write_chunk(kc.clone(), kn, base, clens), write_chunk(vc.clone(), vn, base, clens)
+    got = chunk_emulated(q, k2, v2, base, clens)
+    want32, _, _ = ref.prefill_attention_ref(*(t.float() for t in (q, kn, vn, kc, vc)),
+                                             base, clens)
+    want, _, _ = ref.prefill_attention_ref(q, kn, vn, kc.clone(), vc.clone(), base, clens)
+    _check(f"contiguous prefill T{T} H{H} KV{KV} D{D}", got, want32, want)
+
+
+# lengths across the 16-key tile, the four warps' first round (64) and
+# the 512-position split, an empty row and one past S
+DEC_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 200, 511, 512, 513, 1030, 1200]
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("S,window", [(512, 0), (1100, 0), (1100, 100)])
+def test_decode_emulation_within_half_the_card_tolerance(G, D, S, window):
+    """S 512: one block a row, the warps merged in the block; S 1100: three
+    blocks a row and the combine pass; a window of 100 across a split
+    edge.  Rows with nothing live are exact zeros."""
+    rng = np.random.default_rng(G + D + S + window)
+    KV = 2
+    lens = torch.tensor(DEC_LENS, dtype=torch.int32)
+    B = len(DEC_LENS)
+    q, k, v = _bf16(rng, (B, KV * G, D)), _bf16(rng, (B, S, KV, D)), _bf16(rng, (B, S, KV, D))
+    got = decode_emulated(q, k, v, lens, window)
+    want32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens, window=window)
+    want = ref.decode_attention_ref(q, k, v, lens, window=window)
+    assert (got[0] == 0).all()
+    _check(f"decode G{G} D{D} S{S} window {window}", got, want32, want)

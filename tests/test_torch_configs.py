@@ -16,6 +16,7 @@ import repro_torch.configs as tcfg  # noqa: E402
 from repro.common.params import is_param as j_is_param  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.common.params import tree_leaves  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.train.state import model_specs  # noqa: E402
 
@@ -84,6 +85,19 @@ def test_spec_trees_match(arch, smoke):
 def test_dense_gqa_subset_is_the_expected_one():
     assert DENSE_GQA == ["phi3-medium-14b", "phi3-mini-3.8b", "qwen2-vl-72b",
                          "tinyllama-1.1b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_GQA)
+def test_served_configs_fit_the_attention_kernels(arch):
+    """Every dense GQA config the port serves, at full width after
+    ``padded_gqa``, has a head dim that every attention kernel is
+    instantiated for and a group the decode kernels take (G <= 32): on
+    the card its attention never reaches a kernel that refuses it."""
+    cfg = tcfg.get_config(arch)
+    H, KV = cfg.padded_gqa()
+    assert cfg.head_dim in build.HEAD_DIMS, (arch, cfg.head_dim)
+    build.check_head_dim(cfg.head_dim)
+    assert H % KV == 0 and H // KV <= 32, (arch, H, KV)
 
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE_GQA)))

@@ -52,6 +52,8 @@ def _decode_both(q, k, v, lens, window=0, **kw):
     (3, 32, 4, 512, 64, 512),   # tinyllama width at the serving max_len
     (3, 8, 2, 200, 16, 512),    # S not a multiple of block_k: one block
     (2, 8, 2, 768, 32, 512),    # S > block_k, not a multiple: one block
+    (2, 8, 2, 256, 96, 128),    # head dim 96 (phi3-mini), GQA 4x
+    (3, 4, 4, 200, 96, 64),     # head dim 96, MHA (phi3-mini's G 1)
 ])
 @pytest.mark.parametrize("scalar", [True, False])
 def test_decode_plain_matches_pallas(B, H, KV, S, D, bk, scalar):
@@ -116,6 +118,59 @@ def test_contiguous_split_span_covers_the_row_in_whole_tiles():
     assert tda.contiguous_split_span(8, 4, 512) * 8 == 512
 
 
+@pytest.mark.parametrize("S,nsplit", [(1, 1), (16, 1), (17, 1), (200, 1), (512, 1),
+                                      (513, 2), (4096, 8), (5000, 10)])
+def test_contiguous_tc_span_makes_a_serving_row_one_block(S, nsplit):
+    """The tensor-core body's spans: whole 16-key tiles, at most 512
+    positions, so a row of the serving max_len (512) is one block (one
+    launch, no combine pass) and a longer row splits into 512-position
+    spans."""
+    span = tda.contiguous_tc_span(S)
+    assert span % 16 == 0 and 16 <= span <= 512
+    assert -(-S // span) == nsplit
+    assert nsplit * span >= S > (nsplit - 1) * span
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("B,KV,G,S", [(8, 4, 8, 512), (8, 32, 1, 512), (3, 2, 32, 32),
+                                      (2, 2, 4, 4096), (264, 1, 8, 512)])
+def test_contiguous_plan_and_partials_agree(dtype, aligned, B, KV, G, S):
+    """One decision of the body (bf16 and 16-byte aligned: the tensor
+    cores; anything else: the CUDA cores with ~264-block split-K spans), and
+    fp32 partials exactly when a row splits, shaped as the combine pass
+    reads them."""
+    D = 64
+    tc, span, nsplit = tda.contiguous_plan(dtype, aligned, B, KV, S)
+    assert tc == (dtype == torch.bfloat16 and aligned)
+    assert span == (tda.contiguous_tc_span(S) if tc else tda.contiguous_split_span(B, KV, S))
+    assert nsplit == -(-S // span)
+    if tc and S <= 512:
+        assert nsplit == 1  # one launch
+    m, l, acc = tda.contiguous_partials(nsplit, B, KV, G, D, "cpu")
+    if nsplit == 1:
+        assert m is None and l is None and acc is None
+    else:
+        assert m.shape == l.shape == (B * KV, nsplit, G)
+        assert acc.shape == (B * KV, nsplit, G, D)
+        assert m.dtype == l.dtype == acc.dtype == torch.float32
+
+
+def test_head_dims_without_a_kernel_raise_naming_their_item():
+    """96 is instantiated; 24 (minicpm3's expanded MLA decode at smoke
+    width) and 256 (recurrentgemma) raise naming the queue item that adds
+    them; any other raises too."""
+    assert 96 in build.HEAD_DIMS
+    for D in build.HEAD_DIMS:
+        build.check_head_dim(D)
+    with pytest.raises(ValueError, match="queue 1 item 3"):
+        build.check_head_dim(24)
+    with pytest.raises(ValueError, match="queue 1 item 5"):
+        build.check_head_dim(256)
+    with pytest.raises(ValueError, match="head dim 80 not in"):
+        build.check_head_dim(80)
+
+
 # -- prefill -------------------------------------------------------------------
 
 
@@ -148,6 +203,21 @@ def test_prefill_plain_matches_pallas(H, KV):
     np.testing.assert_array_equal(tv, jv)
     assert (to[1, 3:] == 0).all() and (to[2] == 0).all()  # padding rows
     np.testing.assert_array_equal(tk[2], kc[2])  # the inert row wrote nothing
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])  # phi3-mini's MHA, GQA
+def test_prefill_plain_matches_pallas_at_head_dim_96(H, KV):
+    B, T, D, S = 3, 8, 96, 64
+    rng = np.random.default_rng(H * 10 + KV + D)
+    q, kn, vn, kc, vc = _prefill_inputs(rng, B, T, H, KV, D, S)
+    base = np.array([0, 5, 60], np.int32)   # row 2 runs past S
+    clens = np.array([8, 3, 8], np.int32)
+    (jo, jk, jv), (to, tk, tv) = _prefill_both(q, kn, vn, kc, vc, base, clens,
+                                               block_q=8, block_k=16)
+    np.testing.assert_allclose(to, jo, **TOL)
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_array_equal(tv, jv)
+    assert (to[1, 3:] == 0).all()
 
 
 @pytest.mark.parametrize("base,clens", [

@@ -1,7 +1,8 @@
 """The CUDA kernels of ``repro_torch`` (paged and contiguous serving with
 the paged cache scatter, flash attention, rmsnorm, the dataframe's
 hash-partition histogram) against their plain PyTorch versions, on the
-card.  Every test here needs an
+card, at every head dim the attention kernels take (16, 32, 64, 96,
+128).  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -159,7 +160,7 @@ def test_flash_kernel_matches_plain(dtype, tol, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", TOLS)
 def test_flash_kernel_sweep(dtype, tol, causal, D):
@@ -225,10 +226,10 @@ def test_paged_prefill_kernel_sweep(dtype, tol, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,D", [(1, 16), (4, 32), (8, 128), (128, 64)])
+@pytest.mark.parametrize("G,D", [(1, 16), (4, 32), (8, 128), (128, 64), (1, 96), (8, 96)])
 def test_paged_prefill_kernel_other_widths(G, D):
     """bf16 at other GQA groups and head dims: G 128 (two tiles a token),
-    D 16, 32 and 128."""
+    D 16, 32, 96 and 128."""
     _card()
     rng = np.random.default_rng(40 + D)
     base, clens = [0, 21, 60], [17, 9, 0]
@@ -240,6 +241,260 @@ def test_paged_prefill_kernel_other_widths(G, D):
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
     assert (go.float() - wo.float()).abs().max().item() <= 2e-2
     assert (go[1, 9:] == 0).all() and (go[2] == 0).all()
+
+
+# the contiguous decode's sweep: lengths across the 16-key tile, the four
+# warps' first round (64) and the row's end, an empty row, one past S
+def _decode_lens(S):
+    return [0, 1, 7, 8, 15, 16, 17, 63, 64, 65, S - 1, S, S + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_decode_kernel_sweep(dtype, tol, D):
+    """G 1, 4, 8, 16 and 32; S 32 (one block a row on both bodies: each
+    writes out itself), 512 (one block a row on the tensor cores, split on
+    the CUDA cores) and 4096 (split on both, the combine pass); [B]
+    lengths with windows 0, 8, 64 and 100, and a scalar length."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(70 + D)
+    KV = 2
+    for S in (32, 512, 4096):
+        lens = _decode_lens(S)
+        for G in (1, 4, 8, 16, 32):
+            k, v = (_randn(rng, (len(lens), S, KV, D), dt) for _ in range(2))
+            q = _randn(rng, (len(lens), KV * G, D), dt)
+            for cl, window in ((lens, 0), (lens, 8), (lens, 64), (lens, 100), (S // 2 + 3, 0)):
+                cl = torch.tensor(cl, dtype=torch.int32).cuda()
+                got = tda.decode_attention_kernel(q, k, v, cl, window=window)
+                want = tda.decode_attention_plain(q, k, v, cl, window=window)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= tol, (S, G, window, err)
+                assert got.dtype == dt and (got[cl.expand(len(lens)) == 0] == 0).all()
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 512])
+def test_contiguous_decode_unaligned_bf16_runs_on_the_cuda_cores(S):
+    """bf16 tensors off the 16-byte boundary take the CUDA-core body: one
+    block a row at S 32 (it writes out itself), split with the combine
+    pass at 512; empty rows zero."""
+    _card()
+    rng = np.random.default_rng(75)
+    H, KV, D = 32, 4, 64
+    lens = [0, 1, 17, S - 1, S, S + 5]
+    q, k, v = (_unaligned(_randn(rng, s, torch.bfloat16))
+               for s in ((len(lens), H, D), (len(lens), S, KV, D), (len(lens), S, KV, D)))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    cl = torch.tensor(lens, dtype=torch.int32).cuda()
+    for window in (0, 8):
+        got = tda.decode_attention_kernel(q, k, v, cl, window=window)
+        want = tda.decode_attention_plain(q, k, v, cl, window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+        assert (got[0] == 0).all()
+
+
+# the serve engine's settings in chip_smoke.py (SERVE): slots, max_len,
+# prefill chunk, page
+SERVE_B, SERVE_S, SERVE_T, SERVE_PAGE = 8, 512, 64, 16
+
+
+def _serving_shape_checks(arch, dtype, tol, seed):
+    """Both decodes and both prefills at the shapes ``arch``'s serving path
+    gives them (H and KV after padded_gqa, D from get_config; the serve
+    engine's B, S, T and page), as chip_smoke.py's serving_shape_cases:
+    decode lengths over an empty row, the 16-key and 32-position tile
+    edges, the page edges, the 64-key edge and a full row, in batches of
+    B; full, partial, one-token and empty chunks (the contiguous one also
+    a partial chunk running past S); caches bitwise, padding and empty
+    rows exactly zero."""
+    _card()
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    (H, KV), D = cfg.padded_gqa(), cfg.head_dim
+    B, S, T, page = SERVE_B, SERVE_S, SERVE_T, SERVE_PAGE
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 255, S - 17, S - 1, S]
+    for i in range(0, len(edges), B):
+        cl = torch.tensor(edges[i:i + B], dtype=torch.int32).cuda()
+        q = _randn(rng, (B, H, D), dt)
+        k, v = (_randn(rng, (B, S, KV, D), dt) for _ in range(2))
+        got = tda.decode_attention_kernel(q, k, v, cl)
+        want = tda.decode_attention_plain(q, k, v, cl)
+        assert (got.float() - want.float()).abs().max().item() <= tol, (arch, cl)
+        assert (got[cl == 0] == 0).all()
+        bt = torch.from_numpy(rng.permutation(B * S // page).astype(np.int32))
+        bt = bt.cuda().reshape(B, S // page)
+        kp, vp = (t.reshape(-1, page, KV, D) for t in (k, v))
+        got = tda.decode_attention_paged_kernel(q, kp, vp, bt, cl)
+        want = tda.decode_attention_paged_plain(q, kp, vp, bt, cl)
+        assert (got.float() - want.float()).abs().max().item() <= tol, (arch, cl)
+        assert (got[cl == 0] == 0).all()
+    base, clens = [0, 5, 64, 200, S - T, 13, 100, 3], [T, 3, T, 0, T, 1, T // 2 + 8, T]
+    q, kn, vn, kp, vp, bt, bs, cls = _paged_case(rng, dt, B, T, H, KV, D, page, S // page,
+                                                 base, clens)
+    go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(),
+                                                    bt, bs, cls)
+    wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(),
+                                                   bt, bs, cls)
+    pad = torch.arange(T, device="cuda")[None, :] >= cls[:, None]
+    assert torch.equal(gk, wk) and torch.equal(gv, wv) and bool((go[pad] == 0).all())
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+    # the contiguous chunk at S - T/2 runs past S: its last 8 tokens drop
+    base[-2] = S - T // 2
+    bs = torch.tensor(base, dtype=torch.int32).cuda()
+    kc, vc = (_randn(rng, (B, S, KV, D), dt) for _ in range(2))
+    go, gk, gv = tpa.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(), bs, cls)
+    wo, wk, wv = tpa.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(), bs, cls)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv) and bool((go[pad] == 0).all())
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_serving_kernels_at_phi3_mini_shapes(dtype, tol):
+    """phi3-mini-3.8b's serving path: B 8, H 32, KV 32, D 96, S 512, T 64,
+    page 16."""
+    _serving_shape_checks("phi3-mini-3.8b", dtype, tol, seed=97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_serving_kernels_at_tinyllama_shapes(dtype, tol):
+    """tinyllama-1.1b's serving path: B 8, H 32, KV 4, D 64, S 512, T 64,
+    page 16."""
+    _serving_shape_checks("tinyllama-1.1b", dtype, tol, seed=98)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_prefill_kernel_sweep(dtype, tol, T):
+    """Full tinyllama widths (G 8, D 64) over the paged prefill's sweep:
+    bases 0, 5, 16, 447 and 500 with full, partial and empty chunks, at
+    S 512 (the chunk at 500 runs past the row: its tail drops and it
+    attends the whole row); caches bitwise, padding rows exactly zero."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(80 + T)
+    B, H, KV, D, S = 6, 32, 4, 64, 512
+    q, kn, vn = (_randn(rng, s, dt) for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kc, vc = (_randn(rng, (B, S, KV, D), dt) for _ in range(2))
+    bs = torch.tensor([0, 5, 16, 447, 500, 3], dtype=torch.int32).cuda()
+    cl = torch.tensor([T, max(T - 3, 0), T, T, T, 0], dtype=torch.int32).cuda()
+    go, gk, gv = tpa.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+    wo, wk, wv = tpa.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    pad = torch.arange(T, device="cuda")[None, :] >= cl[:, None]
+    assert bool((go[pad] == 0).all())
+    assert (go.float() - wo.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(1, 16), (4, 32), (8, 128), (128, 64), (1, 96), (8, 96)])
+def test_contiguous_prefill_kernel_other_widths(G, D):
+    """bf16 at other GQA groups and head dims: G 128 (two tiles a token),
+    D 16, 32, 96 and 128."""
+    _card()
+    rng = np.random.default_rng(90 + D)
+    B, T, KV, S = 3, 17, 2, 128
+    q, kn, vn = (_randn(rng, s, torch.bfloat16)
+                 for s in ((B, T, KV * G, D), (B, T, KV, D), (B, T, KV, D)))
+    kc, vc = (_randn(rng, (B, S, KV, D), torch.bfloat16) for _ in range(2))
+    bs, cl = (torch.tensor(a, dtype=torch.int32).cuda() for a in ([0, 21, 120], [17, 9, 0]))
+    go, gk, gv = tpa.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+    wo, wk, wv = tpa.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert (go.float() - wo.float()).abs().max().item() <= 2e-2
+    assert (go[1, 9:] == 0).all() and (go[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_attention_kernels_at_head_dim_96(dtype, tol):
+    """phi3-mini's head dim in all five attention kernels against their
+    plain versions: flash at G 1 and 8, causal and full; both prefills
+    and both decodes with ragged lengths (caches bitwise)."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(96)
+    D, KV, page = 96, 2, 16
+    for G in (1, 8):
+        H = KV * G
+        for causal in (True, False):
+            q, k, v = (_randn(rng, (2, 130, n, D), dt).transpose(1, 2) for n in (H, KV, KV))
+            got = tfa.flash_attention_kernel(q, k, v, causal=causal)
+            want = tfa.flash_attention_plain(q, k, v, causal=causal)
+            assert (got.float() - want.float()).abs().max().item() <= tol
+        lens = [0, 1, 17, 100, 255, 256]
+        q = _randn(rng, (len(lens), H, D), dt)
+        k, v = (_randn(rng, (len(lens), 256, KV, D), dt) for _ in range(2))
+        cl = torch.tensor(lens, dtype=torch.int32).cuda()
+        got = tda.decode_attention_kernel(q, k, v, cl)
+        assert (got.float() - tda.decode_attention_plain(q, k, v, cl).float()).abs().max() <= tol
+        bt = torch.arange(len(lens) * 16, dtype=torch.int32).cuda().reshape(len(lens), 16)
+        kp, vp = (t.reshape(-1, page, KV, D) for t in (k, v))
+        got = tda.decode_attention_paged_kernel(q, kp, vp, bt, cl)
+        want = tda.decode_attention_paged_plain(q, kp, vp, bt, cl)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        base, clens = [0, 30, 200], [17, 5, 0]
+        args = _paged_case(rng, dt, 3, 17, H, KV, D, page, 16, base, clens)
+        q, kn, vn, kp, vp, bt, bs, cl = args
+        go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(),
+                                                        bt, bs, cl)
+        wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(),
+                                                       bt, bs, cl)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+        assert (go.float() - wo.float()).abs().max().item() <= tol
+        kc, vc = (_randn(rng, (3, 256, KV, D), dt) for _ in range(2))
+        go, gk, gv = tpa.prefill_attention_kernel(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+        wo, wk, wv = tpa.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(), bs, cl)
+        torch.cuda.synchronize()
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+        assert (go.float() - wo.float()).abs().max().item() <= tol
+        assert (go[1, 5:] == 0).all() and (go[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_contiguous_paths_make_no_host_sync():
+    """The contiguous prefill wrapper (scatter + attention) and the decode
+    at the serving shape run under sync-debug "error": a host sync would
+    raise.  Each launches once."""
+    _card()
+    rng = np.random.default_rng(61)
+    B, T, H, KV, D, S = 4, 64, 32, 4, 64, 512
+    q, kn, vn = (_randn(rng, s, torch.bfloat16)
+                 for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kc, vc = (_randn(rng, (B, S, KV, D), torch.bfloat16) for _ in range(2))
+    bs, cl = (torch.tensor(a, dtype=torch.int32).cuda() for a in ([64, 0, 0, 0], [64, 0, 5, 0]))
+    qd = _randn(rng, (B, H, D), torch.bfloat16)
+    lens = torch.tensor([128, 1, 5, 0], dtype=torch.int32).cuda()
+    torch.cuda.synchronize()
+    n_pf, n_dec = tpa.prefill_attention_kernel.launches, tda.decode_attention_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.prefill_attention_kernel(q, kn, vn, kc, vc, bs, cl)
+        tda.decode_attention_kernel(qd, kc, vc, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tpa.prefill_attention_kernel.launches == n_pf + 1
+    assert tda.decode_attention_kernel.launches == n_dec + 1
 
 
 @pytest.mark.cuda

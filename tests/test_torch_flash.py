@@ -47,7 +47,8 @@ def _qkv(seed, B, H, KV, S, D):
 # that is not a multiple of 128) and the ragged tail of
 # tests/test_prefill_kernel.py (S 130 over 64-blocks)
 SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
-          (1, 8, 8, 192, 32), (1, 4, 4, 130, 64)]
+          (1, 8, 8, 192, 32), (1, 4, 4, 130, 64),
+          (1, 8, 2, 130, 96), (1, 4, 4, 64, 96)]  # head dim 96 (phi3-mini), G 4 and 1
 
 
 @pytest.mark.parametrize("causal", [True, False])

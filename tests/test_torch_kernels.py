@@ -52,6 +52,8 @@ def _paged(rng, B, H, KV, S, D, page, sentinel_tail=True):
     (2, 4, 4, 128, 48, 32),    # MLA-expanded layout
     (3, 32, 4, 256, 64, 16),   # tinyllama width, serving page size
     (4, 8, 2, 128, 16, 16),    # tinyllama smoke width
+    (2, 4, 4, 128, 96, 16),    # head dim 96 (phi3-mini, G 1)
+    (2, 8, 2, 256, 96, 32),    # head dim 96, GQA 4x
 ])
 def test_decode_plain_matches_pallas(B, H, KV, S, D, page):
     rng = np.random.default_rng(B * 100 + D)
@@ -145,6 +147,22 @@ def test_prefill_plain_matches_pallas(H, KV):
     np.testing.assert_array_equal(tk, jk)  # cache writes: exact
     np.testing.assert_array_equal(tv, jv)
     assert (to[1, 3:] == 0).all() and (to[2] == 0).all()  # padding rows
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])  # phi3-mini's MHA, GQA
+def test_prefill_plain_matches_pallas_at_head_dim_96(H, KV):
+    B, T, D, page, num_pages = 3, 8, 96, 16, 16
+    rng = np.random.default_rng(H * 10 + KV + D)
+    q, kn, vn, kp, vp = _prefill_inputs(rng, B, T, H, KV, D, page, num_pages)
+    bt = np.array([[5, 9, 2, num_pages], [0, 7, num_pages, num_pages + 3],
+                   [11, 3, 8, 1]], np.int32)
+    base = np.array([0, 5, 13], np.int32)
+    clens = np.array([8, 3, 0], np.int32)
+    (jo, jk, jv), (to, tk, tv) = _run_prefill_both(q, kn, vn, kp, vp, bt, base, clens)
+    np.testing.assert_allclose(to, jo, **TOL)
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_array_equal(tv, jv)
+    assert (to[1, 3:] == 0).all() and (to[2] == 0).all()
 
 
 @pytest.mark.parametrize("base,clens", [
