@@ -6,7 +6,7 @@
 
 The second form builds the kernels, runs only the serve phase's rounds
 (3 rounds of both layouts in turn) and times the serving kernels'
-wrappers at the serving shape, the fp32 contiguous decode among them
+wrappers at the serving shape, both decodes also in fp32
 (``compare_kernels``); --src drives another checkout's package with this
 script.  Run parent, change, change, parent in one call to compare two
 trees on one card.
@@ -17,7 +17,7 @@ non-zero:
 1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
             sm_90a (one nvcc per source, all at once) into build/kernels/;
             count the tensor-core instructions (HMMA for mma.sync, HGMMA
-            for wgmma) in the SASS of the two serving libraries redesigned
+            for wgmma) in the SASS of the four serving libraries redesigned
             for the tensor cores (cuobjdump).
 2. kernels  each of the seven kernels against its plain PyTorch version on
             the card.  The five attention kernels at full tinyllama-1.1b
@@ -36,7 +36,7 @@ non-zero:
             [4, 17, 256] and [1, 5120] in fp32 and bf16 (RMS_TOL); the
             hash-partition histogram bitwise at n 1, 2047, 2048, 2049 and
             2^23 keys (negatives and the int32 extremes among them) for 4,
-            8, 16, 64 and 4096 buckets.  The four kernels redesigned for
+            8, 16, 64 and 4096 buckets.  The five kernels redesigned for
             the tensor cores also over sweeps: flash attention at S 1, 63,
             64, 65, 127, 512 and 1000, D 16 to 128, G 1 and 8, causal and
             full; both prefills at chunks of 1 to 64 tokens, bases 0 to
@@ -44,7 +44,12 @@ non-zero:
             16-key tile, windows 0, 8, 64 and 100 and a scalar length, G 1
             to 32, D 16 to 128, S 32, 512 (one launch) and 4096 (the
             combine pass), and bf16 off the 16-byte boundary (the CUDA-core
-            body).  The paged cache scatter bitwise against the plain one
+            body); the paged decode at pages of 8, 16, 64 and 128, rows of
+            one page, 512 positions (one launch) and 4096 (the combine
+            pass), lengths across the tile and page edges, S - 1, S and
+            past it, windows 0, 1, 100 and past every length, a scalar
+            length, G 1 to 32, D 16 to 128, sentinels in every table, and
+            bf16 off the 16-byte boundary.  The paged cache scatter bitwise against the plain one
             on tests/paged_scatter_cases.py; both prefill wrappers, both
             decodes and the decode append once under sync-debug "error" (a
             host sync fails the phase).  Then torch.profiler's device time
@@ -65,14 +70,14 @@ non-zero:
 4. timing   each kernel's wrapper at the shapes of its path against its
             plain version and a PyTorch SDPA yardstick (CUDA events), with
             its roofline bound and SDPA's device time per call
-            (torch.profiler); for both prefills and the contiguous decode
-            also the device time of their kernels, for the paged prefill
-            the scatter kernel alone, for the contiguous decode also its
-            fp32 call (the CUDA-core body) at the same shape.
+            (torch.profiler); for both prefills and both decodes also the
+            device time of their kernels, for the paged prefill the
+            scatter kernel alone, for both decodes also their fp32 call
+            (the CUDA-core body) at the same shape.
 5. profile  torch.profiler over a separate serving run per layout: device
             busy and idle share, kernels and host ops per engine step, the
-            port's kernels' device time per launch, top kernels; the
-            contiguous layout must launch no combine pass.
+            port's kernels' device time per launch, top kernels; neither
+            layout may launch a combine pass.
 6. stream   the same engines in fp32: on each layout the kernel path and
             the plain path, and the two layouts' kernel paths, must emit
             token-identical greedy streams.
@@ -214,9 +219,10 @@ PATH_KERNELS = {"paged": ("decode_attention_paged", "prefill_attention_paged", "
 # each kernel's device symbols on its path (torch.profiler event names):
 # the bf16 bodies that serving and training run (the fp32 bodies of
 # kernels 1, 2, 4 and 5 are flash_fwd_kernel, contig_decode_split_kernel,
-# contig_prefill_kernel and prefill_kernel); the contiguous decode at
-# S <= 512 launches no combine pass
-SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_kernel"),
+# contig_prefill_kernel and prefill_kernel; the paged decode's fp32 body
+# is decode_split_kernel); neither decode launches a combine pass at
+# S <= 512
+SYMBOLS = {"decode_attention_paged": ("paged_decode_mma_kernel",),
            "prefill_attention_paged": ("prefill_paged_wgmma_kernel",),
            "paged_scatter": ("paged_scatter_kernel",),
            "decode_attention": ("contig_decode_mma_kernel",),
@@ -226,8 +232,8 @@ SYMBOLS = {"decode_attention_paged": ("decode_split_kernel", "decode_combine_ker
            "hash_partition_histogram": ("hash_hist_kernel",)}
 # the libraries of the serving kernels redesigned for the tensor cores,
 # and the instruction their SASS must hold (HMMA: mma.sync; HGMMA: wgmma)
-TC_SASS = {"decode_attention": "HMMA", "prefill_attention": "HGMMA",
-           "prefill_attention_paged": "HGMMA"}
+TC_SASS = {"decode_attention": "HMMA", "decode_attention_paged": "HMMA",
+           "prefill_attention": "HGMMA", "prefill_attention_paged": "HGMMA"}
 # the train phase: B x S tokens per step, as many steps; the kernel path
 # and the plain path in fp32 must agree in loss and grad-norm within
 # TRAIN_TOL (relative) at each of PARITY_STEPS steps: both are fp32 with
@@ -292,10 +298,11 @@ def randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def paged_pool(gen, B, KV, D, max_pages, lens, dtype):
+def paged_pool(gen, B, KV, D, max_pages, lens, dtype, page=PAGE):
     """Pools with spare pages and a scrambled table giving each row exactly
-    the pages ``lens`` need; every other entry is a sentinel (>= num_pages)."""
-    need = [-(-int(n) // PAGE) for n in lens]
+    the pages ``lens`` need (at most max_pages); every other entry is a
+    sentinel (>= num_pages)."""
+    need = [min(-(-max(int(n), 0) // page), max_pages) for n in lens]
     num_pages = sum(need) + 3
     ids = torch.randperm(num_pages, generator=gen, device="cuda").tolist()
     bt = torch.full((B, max_pages), num_pages, dtype=torch.int32)
@@ -303,8 +310,8 @@ def paged_pool(gen, B, KV, D, max_pages, lens, dtype):
         bt[b, :n] = torch.tensor(ids[:n], dtype=torch.int32)
         bt[b, n:] += b  # sentinels past num_pages too
         ids = ids[n:]
-    kp = randn(gen, (num_pages, PAGE, KV, D), dtype)
-    vp = randn(gen, (num_pages, PAGE, KV, D), dtype)
+    kp = randn(gen, (num_pages, page, KV, D), dtype)
+    vp = randn(gen, (num_pages, page, KV, D), dtype)
     return kp, vp, bt.cuda()
 
 
@@ -312,9 +319,9 @@ def i32(x):
     return torch.tensor(x, dtype=torch.int32, device="cuda")
 
 
-def decode_case(gen, H, KV, D, max_pages, lens, dtype):
+def decode_case(gen, H, KV, D, max_pages, lens, dtype, page=PAGE):
     B = len(lens)
-    kp, vp, bt = paged_pool(gen, B, KV, D, max_pages, lens, dtype)
+    kp, vp, bt = paged_pool(gen, B, KV, D, max_pages, lens, dtype, page)
     return randn(gen, (B, H, D), dtype), kp, vp, bt, i32(lens)
 
 
@@ -363,11 +370,11 @@ def check_contig_prefill(args):
     return (got.float() - want.float()).abs().max().item(), ok
 
 
-def check_decode(args):
+def check_decode(args, window=0):
     """(max abs error vs plain, empty rows exactly zero)."""
-    got = dec.decode_attention_paged_kernel(*args)
-    want = dec.decode_attention_paged_plain(*args)
-    empty = args[4] == 0
+    got = dec.decode_attention_paged_kernel(*args, window=window)
+    want = dec.decode_attention_paged_plain(*args, window=window)
+    empty = args[4].expand(got.shape[0]) == 0
     return ((got.float() - want.float()).abs().max().item(),
             bool((got[empty] == 0).all()))
 
@@ -606,7 +613,7 @@ def head_dim_96_cases(gen, dtype):
 
 
 def redesigned_sweeps(gen, dtype):
-    """The four kernels redesigned for the tensor cores, on their edges:
+    """The five kernels redesigned for the tensor cores, on their edges:
     flash attention at every S around the 128-row block and 64-key tile,
     the training S and a long ragged one, D 16 to 128, G 1 and 8, causal
     and full, on [B, S, H, D] views; both prefills at chunks of 1 to 64
@@ -616,8 +623,15 @@ def redesigned_sweeps(gen, dtype):
     windows and a scalar length, G 1 to 32, D 16 to 128, S 32 (one block
     a row on both bodies), 512 (one block a row on the tensor cores) and
     4096 (the combine pass), and bf16 off the 16-byte boundary (the
-    CUDA-core body) at S 32 and 512, empty rows zero.  One summary per
-    kernel; any case past the tolerance fails the phase."""
+    CUDA-core body) at S 32 and 512, empty rows zero; the paged decode
+    at pages of 8, 16, 64 and 128 (a 16-key tile spans pages, or a page
+    tiles), rows of one page, 512 positions (one block a row on the
+    tensor cores) and 4096 (the combine pass), lengths across the tile
+    and page edges, S - 1, S and past S, windows 0, 1, 100 and past every
+    length, a scalar length, G 1 to 32, D 16 to 128, sentinels in every
+    table, and bf16 off the 16-byte boundary (the CUDA-core body, split
+    and one block a row), empty rows zero.  One summary per kernel; any
+    case past the tolerance fails the phase."""
     worst, n = 0.0, 0
     for S, D, G, causal in itertools.product((1, 63, 64, 65, 127, 512, 1000),
                                              build.HEAD_DIMS, (1, 8), (True, False)):
@@ -679,12 +693,48 @@ def redesigned_sweeps(gen, dtype):
                 "sweep": "S x D x G x lengths x window (+ unaligned bf16)",
                 "cases": n, "dtype": str(dtype), "max_abs_err": worst, "tol": TOL[dtype],
                 "empty_rows_zero": True})
+    worst, n = 0.0, 0
+    for page, S, D, G in itertools.product((8, 16, 64, 128), (None, MAX_LEN, 4096),
+                                           build.HEAD_DIMS, (1, 4, 8, 16, 32)):
+        S = S or page  # None: one page a row
+        lens = paged_decode_lens(S, page)
+        q, kp, vp, bt, cl = decode_case(gen, 2 * G, 2, D, S // page, lens, dtype, page)
+        for c, window in ((cl, 0), (cl, 1), (cl, 100), (cl, S + 5), (i32(S // 2 + 3), 0)):
+            err, ok = check_decode((q, kp, vp, bt, c), window)
+            n, worst = n + 1, max(worst, err)
+            if not (err <= TOL[dtype] and ok):
+                raise AssertionError(f"paged decode kernel disagrees at page {page} S {S} "
+                                     f"D {D} G {G} window {window} {dtype}: {err}, empty "
+                                     f"rows zero: {ok}")
+    if dtype == torch.bfloat16:  # off the 16-byte boundary: the CUDA-core body
+        for page, max_pages in ((PAGE, MAX_LEN // PAGE), (64, 1)):
+            S = page * max_pages
+            lens = [0, 1, 17, S - 1, S, S + 5]
+            q, kp, vp, bt, cl = decode_case(gen, 32, 4, 64, max_pages, lens, dtype, page)
+            args = tuple(unaligned(t) for t in (q, kp, vp)) + (bt, cl)
+            for window in (0, 8):
+                err, ok = check_decode(args, window)
+                n, worst = n + 1, max(worst, err)
+                if not (err <= TOL[dtype] and ok):
+                    raise AssertionError(f"paged decode kernel disagrees on unaligned bf16 "
+                                         f"at page {page} window {window}: {err}, empty "
+                                         f"rows zero: {ok}")
+    out.append({"kernel": "decode_attention_paged",
+                "sweep": "page x S x D x G x lengths x window (+ unaligned bf16)",
+                "cases": n, "dtype": str(dtype), "max_abs_err": worst, "tol": TOL[dtype],
+                "empty_rows_zero": True})
     return out
+
+
+def paged_decode_lens(S, page):
+    """An empty row, one token, the 16-key tile edges, the page edges, S - 1,
+    S and a length past S."""
+    return [0, 1, 15, 16, 17, page - 1, page, page + 1, 2 * page + 1, S - 1, S, S + 5]
 
 
 def unaligned(x):
     """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
-    boundary (so the contiguous decode takes its CUDA-core body)."""
+    boundary (so either decode takes its CUDA-core body)."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     return buf[1:].view(x.shape).copy_(x)
 
@@ -971,6 +1021,8 @@ def phase_timing(cfg, launches, shapes):
     nxt = rotate(cases)
     ms = cuda_ms(lambda: dec.decode_attention_paged_kernel(*nxt()))
     plain_ms = cuda_ms(lambda: dec.decode_attention_paged_plain(*nxt()))
+    split = profiled_us(lambda: dec.decode_attention_paged_kernel(*nxt()),
+                        SYMBOLS["decode_attention_paged"])
     lib = rotate([sdpa_inputs(q[:, :, None], kp, vp, bt,
                               (torch.arange(mb * PAGE, device="cuda")[None, :]
                                < cl[:, None])[:, None, None, :], H, KV)
@@ -985,7 +1037,14 @@ def phase_timing(cfg, launches, shapes):
         "decode_attention_paged", "src/repro/kernels/decode_attention.py:199",
         launches, err, ms, plain_ms, bytes_, 4 * H * D * live, lib_ms, PAGED_SDPA,
         {"B": B, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mb,
-         "cache_len": lens, "dtype": str(dt)}, lib_us=lib_us))
+         "cache_len": lens, "window": 0, "dtype": str(dt)}, lib_us=lib_us))
+    redesigned(rows[-1], sum(split.values()), split, design="mma.sync m16n8k16, GQA-packed",
+               header="decode_tc.cuh")
+    # the same call in fp32: the CUDA-core body with its ~264-block split-K spans
+    rows[-1]["fp32"] = fp32_timing(
+        cases, dec.decode_attention_paged_kernel, dec.decode_attention_paged_plain,
+        check_decode, bytes_, esz, live, KV, B, H, D, L,
+        "decode_split_kernel + decode_combine_kernel (CUDA cores)")
 
     # a 64-token chunk of a long prompt at base 64 while the other rows
     # decode (inert in this call): the widest chunk the main path runs
@@ -1047,20 +1106,10 @@ def phase_timing(cfg, launches, shapes):
     redesigned(rows[-1], sum(split.values()), split, design="mma.sync m16n8k16, GQA-packed",
                header="decode_tc.cuh")
     # the same call in fp32: the CUDA-core body with its ~264-block split-K spans
-    cases = [tuple(t.float() if t.is_floating_point() else t for t in a) for a in cases]
-    err = max(check_contig_decode(a)[0] for a in cases[:2])
-    if err > TOL[torch.float32]:
-        raise AssertionError(f"fp32 contiguous decode disagrees at the timing shape: {err}")
-    nxt = rotate(cases)
-    us, by_kernel = device_us_per_call(lambda: dec.decode_attention_kernel(*nxt()), reps=2 * L)
-    t_bytes = (bytes_ + 2 * (live * KV + B * H) * D * (4 - esz)) / HBM_BYTES_PER_S * 1e3
-    rows[-1]["fp32"] = {
-        "body": "contig_decode_split_kernel + decode_combine_kernel (CUDA cores)",
-        "max_abs_err": err, "tol": TOL[torch.float32],
-        "ms": cuda_ms(lambda: dec.decode_attention_kernel(*nxt())),
-        "plain_ms": cuda_ms(lambda: dec.decode_attention_plain(*nxt())),
-        "device_us_per_launch": us, "device_us_by_kernel": by_kernel,
-        "bound_ms": max(t_bytes, 4 * H * D * live / FP32_FLOPS_PER_S * 1e3)}
+    rows[-1]["fp32"] = fp32_timing(
+        cases, dec.decode_attention_kernel, dec.decode_attention_plain, check_contig_decode,
+        bytes_, esz, live, KV, B, H, D, L,
+        "contig_decode_split_kernel + decode_combine_kernel (CUDA cores)")
 
     cases = [contig_prefill_case(gen, T, H, KV, D, S, base, clens, dt)
              for _ in range(L)]
@@ -1085,6 +1134,24 @@ def phase_timing(cfg, launches, shapes):
     redesigned(rows[-1], sum(split.values()), split)
     emit({"phase": "timing", "ok": True, "rows": rows})
     return rows
+
+
+def fp32_timing(cases, kernel, plain, check, bytes_, esz, live, KV, B, H, D, L, body):
+    """A decode's timing-shape call in fp32 (its CUDA-core body): the bf16
+    ``cases`` cast, held to the plain version, timed by CUDA events and by
+    device time per call, with its bound (``bytes_`` of the bf16 call at
+    4 bytes an element)."""
+    cases = [tuple(t.float() if t.is_floating_point() else t for t in a) for a in cases]
+    err = max(check(a)[0] for a in cases[:2])
+    if err > TOL[torch.float32]:
+        raise AssertionError(f"fp32 {kernel.__name__} disagrees at the timing shape: {err}")
+    nxt = rotate(cases)
+    us, by_kernel = device_us_per_call(lambda: kernel(*nxt()), reps=2 * L)
+    t_bytes = (bytes_ + 2 * (live * KV + B * H) * D * (4 - esz)) / HBM_BYTES_PER_S * 1e3
+    return {"body": body, "max_abs_err": err, "tol": TOL[torch.float32],
+            "ms": cuda_ms(lambda: kernel(*nxt())), "plain_ms": cuda_ms(lambda: plain(*nxt())),
+            "device_us_per_launch": us, "device_us_by_kernel": by_kernel,
+            "bound_ms": max(t_bytes, 4 * H * D * live / FP32_FLOPS_PER_S * 1e3)}
 
 
 def redesigned(row, device_us, split=None, design="wgmma", header="attn_tc.cuh"):
@@ -1143,8 +1210,8 @@ def phase_profile(cfg, params, layout, n: int = 8):
             ours[name] = {"ms": ms, "launches": launches,
                           "us_per_launch": 1e3 * ms / launches}
     combine = sum(v[1] for k, v in by_name.items() if "decode_combine_kernel" in k)
-    if layout == "contiguous" and combine:
-        raise AssertionError(f"the contiguous decode ran {combine} combine passes at "
+    if combine:
+        raise AssertionError(f"the {layout} decode ran {combine} combine passes at "
                              f"S {MAX_LEN}: it must be one launch")
     stats = eng.stats()
     steps = stats["decode_steps"] + stats["prefill_chunks"]
@@ -1212,8 +1279,7 @@ def compare_kernels(cfg, shapes):
     the public wrappers, so another checkout's package runs it too: CUDA
     events per call and the device us per call by kernel name (every
     device kernel the call launches, under torch.profiler).  The bf16
-    serving calls, and the contiguous decode in fp32 (its CUDA-core
-    body)."""
+    serving calls, and both decodes in fp32 (their CUDA-core bodies)."""
     H, KV, D, L, B = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers, 8
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     S, mb = MAX_LEN, shapes["decode_mb"]
@@ -1228,8 +1294,10 @@ def compare_kernels(cfg, shapes):
     calls["prefill_attention"] = (pf.prefill_attention_kernel, [
         contig_prefill_case(gen, T, H, KV, D, S, base, clens, dt) for _ in range(L)])
     lens = [min(n, mb * PAGE) for n in shapes["lens"]]
-    calls["decode_attention_paged"] = (dec.decode_attention_paged_kernel, [
-        decode_case(gen, H, KV, D, mb, lens, dt) for _ in range(L)])
+    for dt in (torch.bfloat16, torch.float32):
+        calls[f"decode_attention_paged {dt}"] = (dec.decode_attention_paged_kernel, [
+            decode_case(gen, H, KV, D, mb, lens, dt) for _ in range(L)])
+    dt = torch.bfloat16
     calls["prefill_attention_paged"] = (pf.prefill_attention_paged_kernel, [
         prefill_case(gen, T, H, KV, D, mbp, base, clens, dt) for _ in range(L)])
     out = {}

@@ -50,9 +50,10 @@ SIGNATURES = {
     # dtype, q, k_new, v_new, k_cache, v_cache, base, chunk_lens, out,
     # B, T, S, H, KV, D, scale, stream
     "prefill_attention": [_I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
-    # dtype, q, k_pages, v_pages, block_table, cache_len, m, l, acc, out,
-    # B, H, KV, D, num_pages, page_size, max_pages, span, nsplit, scale, stream
-    "decode_attention_paged": [_I] + [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
+    # dtype, tensor_cores, q, k_pages, v_pages, block_table, cache_len, m, l,
+    # acc, out, B, H, KV, D, num_pages, page_size, max_pages, span, nsplit,
+    # window, scale, stream
+    "decode_attention_paged": [_I, _I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
     # dtype, q, k_pages, v_pages, block_table, base, chunk_lens, out,
     # B, T, H, KV, D, num_pages, page_size, max_pages, scale, stream
     "prefill_attention_paged": [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],

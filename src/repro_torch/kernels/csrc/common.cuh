@@ -1,7 +1,8 @@
 // Device code shared by the kernels: fp32/bf16 conversions (the attention
-// kernels and rmsnorm) and the split-K combine pass of the two decode
-// kernels.  Each kernel source includes this header and is built into its
-// own library, so everything here sits in an anonymous namespace.
+// kernels and rmsnorm), and the empty span and the split-K combine pass of
+// the two decode kernels.  Each kernel source includes this header and is
+// built into its own library, so everything here sits in an anonymous
+// namespace.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,27 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// A decode block whose span holds nothing live, with its THREADS threads:
+// zeros into the group's out rows [grp, grp + G*D) when a row is one span,
+// else a neutral partial (m = -1e30, l = 0, acc = 0) at partial `part`,
+// laid out as decode_combine_kernel reads it.
+template <typename T, int D, int THREADS>
+__device__ __forceinline__ void decode_empty_span(T* out, float* m_out, float* l_out,
+                                                  float* acc_out, size_t grp, size_t part,
+                                                  int G, int nsplit) {
+  for (int i = threadIdx.x; i < G * D; i += THREADS) {
+    if (nsplit == 1) {
+      out[grp + i] = from_f32<T>(0.f);
+    } else {
+      acc_out[part * G * D + i] = 0.f;
+      if (i < G) {
+        m_out[part * G + i] = kNegInf;
+        l_out[part * G + i] = 0.f;
+      }
+    }
+  }
 }
 
 // grid (B*KV), kCombineThreads threads: merge the nsplit fp32 partials of

@@ -92,17 +92,7 @@ __global__ void __launch_bounds__(kThreads) contig_decode_split_kernel(
   const size_t grp = ((size_t)b * H + (size_t)kv * G) * D;  // the group's q and out rows
 
   if (start >= end) {  // nothing live in this span: zeros, or a neutral partial
-    for (int i = tid; i < G * D; i += kThreads) {
-      if (nsplit == 1) {
-        out[grp + i] = from_f32<T>(0.f);
-      } else {
-        acc_out[part * G * D + i] = 0.f;
-        if (i < G) {
-          m_out[part * G + i] = kNegInf;
-          l_out[part * G + i] = 0.f;
-        }
-      }
-    }
+    decode_empty_span<T, D, kThreads>(out, m_out, l_out, acc_out, grp, part, G, nsplit);
     return;
   }
 
@@ -230,17 +220,8 @@ __global__ void __launch_bounds__(kDecThreads) contig_decode_mma_kernel(
   const size_t grp = ((size_t)b * H + (size_t)kv * G) * D;  // the group's q and out rows
   const size_t part = (size_t)bkv * nsplit + split;
   if (start >= end) {  // nothing live in this span
-    for (int i = threadIdx.x; i < G * D; i += kDecThreads) {
-      if (nsplit == 1) {
-        out[grp + i] = __float2bfloat16(0.f);
-      } else {
-        acc_out[part * G * D + i] = 0.f;
-        if (i < G) {
-          m_out[part * G + i] = kNegInf;
-          l_out[part * G + i] = 0.f;
-        }
-      }
-    }
+    decode_empty_span<__nv_bfloat16, D, kDecThreads>(out, m_out, l_out, acc_out, grp, part,
+                                                      G, nsplit);
     return;  // uniform over the block
   }
   DecAcc<D, MT> acc;

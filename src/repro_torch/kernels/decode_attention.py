@@ -15,12 +15,15 @@ Two layouts, as in JAX:
   tensors that are not 16-byte aligned) keeps split-K spans that leave
   ~``_TARGET_BLOCKS`` blocks (``contiguous_split_span``).  A row of one
   span is written by its block; longer rows write fp32 ``(m, l, acc)``
-  partials (``contiguous_partials``) that a combine pass merges;
+  partials (``decode_partials``) that a combine pass merges;
 * ``decode_attention_paged``: the shared page pool ``[num_pages,
-  page_size, KV, D]`` read through the row's block table
-  (``csrc/decode_attention_paged.cu``): spans of pages sized so the grid
-  holds ~``_TARGET_BLOCKS`` blocks, always through the partials and the
-  combine pass.
+  page_size, KV, D]`` read through the row's block table, with the same
+  static ``window`` (``csrc/decode_attention_paged.cu``).  One plan again
+  (``paged_plan``): the bf16 tensor-core body walks spans of whole pages
+  covering up to ``_TC_SPAN`` positions, so a row of up to 512 positions
+  is one block and one launch; the CUDA-core body keeps spans of pages
+  that leave ~``_TARGET_BLOCKS`` blocks (``split_span``).  Split rows
+  write the partials (``decode_partials``) that the combine pass merges.
 
 Rows with nothing live (``cache_len == 0``) return zeros.
 
@@ -47,9 +50,10 @@ decode_attention_paged_plain = _ref.decode_attention_paged_ref
 _TARGET_BLOCKS = 264
 # positions the contiguous CUDA-core body stages per step (kTile in the .cu)
 _TILE = 32
-# cache positions a block of the contiguous tensor-core body walks at most:
-# a row of the serving max_len (512) is one block, so one launch; spans
-# are whole 16-key tiles (kDecKeys in csrc/decode_tc.cuh)
+# cache positions a block of either tensor-core body walks at most: a row
+# of the serving max_len (512) is one block, so one launch; contiguous
+# spans are whole 16-key tiles (kDecKeys in csrc/decode_tc.cuh), paged
+# spans whole pages (at most kMaxSpanPages entries in the .cu)
 _TC_SPAN = 512
 _TC_TILE = 16
 
@@ -89,10 +93,25 @@ def contiguous_plan(dtype: torch.dtype, aligned: bool, B: int, KV: int, S: int):
     return tensor_cores, span, -(-S // span)
 
 
-def contiguous_partials(nsplit: int, B: int, KV: int, G: int, D: int, device):
+def paged_plan(dtype: torch.dtype, aligned: bool, B: int, KV: int, max_pages: int,
+               page_size: int):
+    """The one decision of which paged decode body runs, and how it cuts a
+    row into spans of whole logical pages: ``(tensor_cores, span_pages,
+    nsplit)``.  The tensor-core body takes bf16 tensors that are all
+    16-byte aligned, and walks at most ``_TC_SPAN`` positions a block (one
+    page when a page is longer), so a row of ``max_pages * page_size`` <=
+    512 is one span; anything else runs on the CUDA cores with
+    ``split_span``'s ~``_TARGET_BLOCKS``-block split."""
+    tensor_cores = dtype == torch.bfloat16 and aligned
+    span = (min(max(1, _TC_SPAN // page_size), max_pages) if tensor_cores
+            else split_span(B, KV, max_pages))
+    return tensor_cores, span, -(-max_pages // span)
+
+
+def decode_partials(nsplit: int, B: int, KV: int, G: int, D: int, device):
     """The fp32 ``(m, l, acc)`` partials of a split row, for the combine
     pass; ``(None, None, None)`` when a row is one span, whose block
-    writes ``out`` itself (on either body)."""
+    writes ``out`` itself (on any body of either layout)."""
     if nsplit == 1:
         return None, None, None
     m = torch.empty((B * KV, nsplit, G), dtype=torch.float32, device=device)
@@ -137,7 +156,7 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
                          "and window >= 0")
     tc, span, nsplit = contiguous_plan(
         q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)), B, KV, S)
-    parts = contiguous_partials(nsplit, B, KV, G, D, q.device)
+    parts = decode_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
     err = build.load("decode_attention").decode_attention(
         build.DTYPE_CODE[q.dtype], int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -161,9 +180,10 @@ def decode_attention(q, k, v, cache_len, *, window: int = 0) -> torch.Tensor:
     return decode_attention_kernel(q, k, v, cache_len, window=window)
 
 
-def decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
-                                  cache_len) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only, raises otherwise)."""
+def decode_attention_paged_kernel(q, k_pages, v_pages, block_table, cache_len, *,
+                                  window: int = 0) -> torch.Tensor:
+    """Launch the paged CUDA kernel (CUDA tensors only, raises
+    otherwise)."""
     B, H, D = q.shape
     cache_len = _ref.rows_i32(cache_len, B, q.device)
     _check(q, k_pages, v_pages, cache_len)
@@ -174,20 +194,20 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
     num_pages, page_size, KV, _ = k_pages.shape
     max_pages = block_table.shape[1]
     G = H // KV
-    span = split_span(B, KV, max_pages)
-    nsplit = -(-max_pages // span)
-    # fp32 split-K partials (scratch for the combine pass)
-    m_p = torch.empty((B * KV, nsplit, G), dtype=torch.float32, device=q.device)
-    l_p = torch.empty_like(m_p)
-    acc_p = torch.empty((B * KV, nsplit, G, D), dtype=torch.float32,
-                        device=q.device)
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    tc, span, nsplit = paged_plan(
+        q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)), B, KV,
+        max_pages, page_size)
+    if tc and G > 32:
+        raise ValueError("the tensor-core body takes H/KV <= 32")
+    parts = decode_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
-    lib = build.load("decode_attention_paged")
-    err = lib.decode_attention_paged(
-        build.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+    err = build.load("decode_attention_paged").decode_attention_paged(
+        build.DTYPE_CODE[q.dtype], int(tc), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), cache_len.data_ptr(),
-        m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(), out.data_ptr(),
-        B, H, KV, D, num_pages, page_size, max_pages, span, nsplit,
+        *(None if t is None else t.data_ptr() for t in parts), out.data_ptr(),
+        B, H, KV, D, num_pages, page_size, max_pages, span, nsplit, int(window),
         ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("decode_attention_paged", err)
     decode_attention_paged_kernel.launches += 1
@@ -197,14 +217,14 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
 decode_attention_paged_kernel.launches = 0
 
 
-def decode_attention_paged(q, k_pages, v_pages, block_table,
-                           cache_len) -> torch.Tensor:
+def decode_attention_paged(q, k_pages, v_pages, block_table, cache_len, *,
+                           window: int = 0) -> torch.Tensor:
     """q [B,H,D]; pools [num_pages,page_size,KV,D]; block_table
     [B,max_pages] int32 (sentinel >= num_pages = unallocated); cache_len
-    [] or [B] -> [B,H,D].  CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    [] or [B]; static ``window`` (0 = full attention) -> [B,H,D].  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     if q.device.type == "cpu":
         return decode_attention_paged_plain(q, k_pages, v_pages, block_table,
-                                            cache_len)
+                                            cache_len, window=window)
     return decode_attention_paged_kernel(q, k_pages, v_pages, block_table,
-                                         cache_len)
+                                         cache_len, window=window)

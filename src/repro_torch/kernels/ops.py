@@ -52,18 +52,17 @@ def decode_attention(q, k, v, cache_len, *, window: int = 0,
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_table, cache_len, *,
-                           impl: str = "auto"):
+                           window: int = 0, impl: str = "auto"):
     """q [B,H,D]; pools [num_pages,page_size,KV,D]; block_table [B,max_pages]
-    int32 (sentinel >= num_pages = unallocated); cache_len [B] -> [B,H,D]."""
+    int32 (sentinel >= num_pages = unallocated); cache_len [B]; static
+    ``window`` (0 = full attention) -> [B,H,D]."""
     _check_impl(impl)
+    args = (q, k_pages, v_pages, block_table, cache_len)
     if impl == "auto":
-        return _dec.decode_attention_paged(q, k_pages, v_pages, block_table,
-                                           cache_len)
+        return _dec.decode_attention_paged(*args, window=window)
     if impl == "cuda":
-        return _dec.decode_attention_paged_kernel(q, k_pages, v_pages,
-                                                  block_table, cache_len)
-    return _dec.decode_attention_paged_plain(q, k_pages, v_pages, block_table,
-                                             cache_len)
+        return _dec.decode_attention_paged_kernel(*args, window=window)
+    return _dec.decode_attention_paged_plain(*args, window=window)
 
 
 def prefill_attention(q, k_new, v_new, k_cache, v_cache, base, chunk_lens,

@@ -77,12 +77,14 @@ def decode_attention_ref(q, k, v, cache_len, *, window: int = 0) -> torch.Tensor
     return out.to(q.dtype)
 
 
-def decode_attention_paged_ref(q, k_pages, v_pages, block_table,
-                               cache_len) -> torch.Tensor:
+def decode_attention_paged_ref(q, k_pages, v_pages, block_table, cache_len, *,
+                               window: int = 0) -> torch.Tensor:
     """Paged oracle: gather each row's pages through its block table into
-    a contiguous view, then run the masked reference."""
+    a contiguous view, then run the masked reference (``window`` as
+    there)."""
     return decode_attention_ref(q, _gather_pages(k_pages, block_table),
-                                _gather_pages(v_pages, block_table), cache_len)
+                                _gather_pages(v_pages, block_table), cache_len,
+                                window=window)
 
 
 def prefill_attention_ref(q, k_new, v_new, k_cache, v_cache, base,

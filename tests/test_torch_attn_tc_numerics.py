@@ -21,7 +21,10 @@ another tiling: 16-key tiles dealt round-robin to the four warps of a
 block, each warp with its own online softmax in base 2 (``exp2(s *
 scale * log2e - m * scale * log2e)``), the warps' ``(m, l, O)`` merged
 in the block, and rows longer than 512 positions split into blocks whose
-fp32 partials a combine pass merges in natural exponents."""
+fp32 partials a combine pass merges in natural exponents.  The paged
+decode (``csrc/decode_attention_paged.cu``) runs the same routine on K/V
+gathered through the clamped block table, its blocks spanning whole
+pages (``paged_plan``)."""
 import math
 
 import pytest
@@ -31,6 +34,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.decode_attention import paged_plan  # noqa: E402
 from repro_torch.kernels.prefill_attention import write_chunk, write_chunk_paged  # noqa: E402
 
 TILE = 64     # keys per K/V tile, as the kernels walk them
@@ -127,15 +131,16 @@ def _warp_walk(q, k, v, tiles, scale_log2):
     return m, l, o
 
 
-def decode_emulated(q, k, v, lens, window=0):
+def decode_emulated(q, k, v, lens, window=0, span=None):
     """The contiguous decode: q [B, H, D], caches [B, S, KV, D] bf16 ->
-    [B, H, D] fp32 in the kernel's order of operations."""
+    [B, H, D] fp32 in the kernel's order of operations; ``span``: the
+    positions a block walks (the contiguous body's by default)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     scale_log2 = scale * LOG2E
-    span = min(-(-S // DEC_TILE) * DEC_TILE, DEC_SPLIT)
+    span = span or min(-(-S // DEC_TILE) * DEC_TILE, DEC_SPLIT)
     nsplit = -(-S // span)
     out = torch.zeros((B, H, D))
     for b in range(B):
@@ -257,3 +262,35 @@ def test_decode_emulation_within_half_the_card_tolerance(G, D, S, window):
     want = ref.decode_attention_ref(q, k, v, lens, window=window)
     assert (got[0] == 0).all()
     _check(f"decode G{G} D{D} S{S} window {window}", got, want32, want)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("S,window", [(512, 0), (1104, 0), (1104, 100)])
+def test_paged_decode_emulation_within_half_the_card_tolerance(page, G, D, S, window):
+    """The paged decode: K/V gathered through a permuted block table whose
+    entries past each row's pages are sentinels (clamped before the
+    gather, as the kernel clamps them), blocks of whole pages as
+    ``paged_plan`` cuts them: one a row at S 512, three and the combine
+    pass at S 1104.  Rows with nothing live are exact zeros."""
+    rng = np.random.default_rng(page + G + D + S + window)
+    KV, max_pages = 2, S // page
+    lens = torch.tensor(DEC_LENS, dtype=torch.int32)
+    B = len(DEC_LENS)
+    num_pages = B * max_pages + 3
+    bt = rng.permutation(num_pages)[:B * max_pages].reshape(B, max_pages).astype(np.int32)
+    for b, n in enumerate(DEC_LENS):
+        bt[b, -(-n // page):] = num_pages + b  # sentinels past each row's pages
+    bt = torch.from_numpy(bt)
+    q = _bf16(rng, (B, KV * G, D))
+    kp, vp = _bf16(rng, (num_pages, page, KV, D)), _bf16(rng, (num_pages, page, KV, D))
+    tc, span, nsplit = paged_plan(torch.bfloat16, True, B, KV, max_pages, page)
+    assert tc and nsplit == -(-S // 512)
+    got = decode_emulated(q, ref._gather_pages(kp, bt), ref._gather_pages(vp, bt), lens,
+                          window, span * page)
+    want32 = ref.decode_attention_paged_ref(q.float(), kp.float(), vp.float(), bt, lens,
+                                            window=window)
+    want = ref.decode_attention_paged_ref(q, kp, vp, bt, lens, window=window)
+    assert (got[0] == 0).all()
+    _check(f"paged decode page {page} G{G} D{D} S{S} window {window}", got, want32, want)

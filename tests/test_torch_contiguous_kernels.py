@@ -147,7 +147,7 @@ def test_contiguous_plan_and_partials_agree(dtype, aligned, B, KV, G, S):
     assert nsplit == -(-S // span)
     if tc and S <= 512:
         assert nsplit == 1  # one launch
-    m, l, acc = tda.contiguous_partials(nsplit, B, KV, G, D, "cpu")
+    m, l, acc = tda.decode_partials(nsplit, B, KV, G, D, "cpu")
     if nsplit == 1:
         assert m is None and l is None and acc is None
     else:

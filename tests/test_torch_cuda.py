@@ -41,7 +41,8 @@ def _randn(rng, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
 def test_decode_kernel_matches_plain(dtype, tol):
-    """Full tinyllama widths; an empty row, page edges and sentinels."""
+    """Full tinyllama widths; an empty row, page edges and sentinels;
+    without a window and with windows of 1 and 100 positions."""
     _card()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(7)
@@ -54,11 +55,12 @@ def test_decode_kernel_matches_plain(dtype, tol):
     args = (_randn(rng, (B, H, D), dt), _randn(rng, (num_pages, page, KV, D), dt),
             _randn(rng, (num_pages, page, KV, D), dt), torch.from_numpy(bt).cuda(),
             torch.from_numpy(lens).cuda())
-    got = tda.decode_attention_paged_kernel(*args)
-    want = tda.decode_attention_paged_plain(*args)
-    torch.cuda.synchronize()
-    assert (got.float() - want.float()).abs().max().item() <= tol
-    assert (got[0] == 0).all()
+    for window in (0, 1, 100):
+        got = tda.decode_attention_paged_kernel(*args, window=window)
+        want = tda.decode_attention_paged_plain(*args, window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= tol, window
+        assert (got[0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -305,6 +307,93 @@ def test_contiguous_decode_unaligned_bf16_runs_on_the_cuda_cores(S):
         assert (got[0] == 0).all()
 
 
+def _paged_decode_case(rng, dt, lens, H, KV, D, page, max_pages):
+    """q, pools with spare pages and a permuted table giving each row the
+    pages its length needs (capped at max_pages), every other entry a
+    sentinel up to 1000 * row past num_pages; ``lens`` a list (a row
+    each) or an int (three rows sharing one scalar length).  The values
+    come from a card generator seeded from ``rng`` (pools of 4096
+    positions a row are slow to draw on the host)."""
+    rows = lens if isinstance(lens, list) else [lens] * 3
+    need = [min(-(-max(n, 0) // page), max_pages) for n in rows]
+    num_pages = sum(need) + 2
+    ids = rng.permutation(num_pages)
+    bt = np.full((len(rows), max_pages), num_pages, np.int32)
+    for b, n in enumerate(need):
+        bt[b, :n], ids = ids[:n], ids[n:]
+        bt[b, n:] += 1000 * b
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 31)))
+    q, kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                 for shape in ((len(rows), H, D), (num_pages, page, KV, D),
+                               (num_pages, page, KV, D)))
+    return q, kp, vp, torch.from_numpy(bt).cuda(), torch.tensor(lens, dtype=torch.int32).cuda()
+
+
+# the paged decode's sweep: pages smaller than, equal to and larger than
+# the 16-key tile; rows of one page, of 512 positions (one block a row on
+# the tensor cores) and of 4096 (the combine pass)
+PAGED_SWEEP_PAGES = (8, 16, 64, 128)
+PAGED_SWEEP_S = (None, 512, 4096)  # None: one page a row
+
+
+def _paged_decode_lens(S, page):
+    """An empty row, one token, the 16-key tile edges, the page edges, S-1,
+    S and a length past S."""
+    return [0, 1, 15, 16, 17, page - 1, page, page + 1, 2 * page + 1, S - 1, S, S + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_decode_kernel_sweep(dtype, tol, D):
+    """Pages 8, 16, 64 and 128; G 1, 4, 8, 16 and 32; rows of one page, of
+    512 positions and of 4096; sentinels in every table; [B] lengths with
+    windows 0, 1, 100 and past every length, and a scalar length; empty
+    rows exactly zero."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(80 + D)
+    KV = 2
+    for page in PAGED_SWEEP_PAGES:
+        for S in PAGED_SWEEP_S:
+            S = S or page
+            lens = _paged_decode_lens(S, page)
+            for G in (1, 4, 8, 16, 32):
+                q, kp, vp, bt, cl = _paged_decode_case(rng, dt, lens, KV * G, KV, D, page,
+                                                       S // page)
+                for c, window in ((cl, 0), (cl, 1), (cl, 100), (cl, S + 5),
+                                  (torch.tensor(S // 2 + 3, dtype=torch.int32).cuda(), 0)):
+                    got = tda.decode_attention_paged_kernel(q, kp, vp, bt, c, window=window)
+                    want = tda.decode_attention_paged_plain(q, kp, vp, bt, c, window=window)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    assert err <= tol, (page, S, G, window, err)
+                    assert got.dtype == dt and (got[c.expand(len(lens)) == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,max_pages", [(16, 32), (64, 1)])
+def test_paged_decode_unaligned_bf16_runs_on_the_cuda_cores(page, max_pages):
+    """bf16 tensors off the 16-byte boundary take the CUDA-core body: split
+    with the combine pass at 32 pages of 16, one block a row (it writes out
+    itself) at one page of 64; windows 0 and 8; empty rows zero."""
+    _card()
+    rng = np.random.default_rng(85 + page)
+    H, KV, D, S = 32, 4, 64, page * max_pages
+    lens = [0, 1, 17, S - 1, S, S + 5]
+    q, kp, vp, bt, cl = _paged_decode_case(rng, torch.bfloat16, lens, H, KV, D, page,
+                                           max_pages)
+    q, kp, vp = (_unaligned(t) for t in (q, kp, vp))
+    assert all(t.data_ptr() % 16 for t in (q, kp, vp))
+    assert not tda.paged_plan(torch.bfloat16, False, len(lens), KV, max_pages, page)[0]
+    for window in (0, 8):
+        got = tda.decode_attention_paged_kernel(q, kp, vp, bt, cl, window=window)
+        want = tda.decode_attention_paged_plain(q, kp, vp, bt, cl, window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+        assert (got[0] == 0).all()
+
+
 # the serve engine's settings in chip_smoke.py (SERVE): slots, max_len,
 # prefill chunk, page
 SERVE_B, SERVE_S, SERVE_T, SERVE_PAGE = 8, 512, 64, 16
@@ -520,9 +609,9 @@ def test_paged_scatter_kernel_bitwise(case, dtype):
 
 @pytest.mark.cuda
 def test_paged_paths_make_no_host_sync():
-    """The paged prefill wrapper (scatter + attention) and the decode
-    append on the kernel run under sync-debug "error": a host sync would
-    raise.  The append equals the plain one bitwise."""
+    """The paged prefill wrapper (scatter + attention), the decode append
+    and the paged decode on the kernel run under sync-debug "error": a
+    host sync would raise.  The append equals the plain one bitwise."""
     _card()
     rng = np.random.default_rng(60)
     q, kn, vn, kp, vp, bt, bs, cl = _paged_case(
@@ -531,12 +620,14 @@ def test_paged_paths_make_no_host_sync():
     kr, vr = (_randn(rng, (4, 4, 64), torch.bfloat16) for _ in range(2))
     wk, wv = tops.paged_append(kp.clone(), vp.clone(), bt, idx, kr, vr, impl="ref")
     gk, gv = kp.clone(), vp.clone()
+    qd = _randn(rng, (4, 32, 64), torch.bfloat16)
     torch.cuda.synchronize()
     launches = tpa.write_chunk_paged_kernel.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         tpa.prefill_attention_paged_kernel(q, kn, vn, kp, vp, bt, bs, cl)
         tops.paged_append(gk, gv, bt, idx, kr, vr)
+        tda.decode_attention_paged_kernel(qd, gk, gv, bt, cl, window=16)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()

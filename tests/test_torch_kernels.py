@@ -99,6 +99,76 @@ def test_decode_sentinels_ignored():
     np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
 
 
+def _paged_windowed(rng, B, H, KV, S, D, page, lens):
+    """q, scrambled pools and a table whose entries past each row's pages
+    are sentinels (some far past num_pages), for the given lengths."""
+    q, kp, vp, bt, _ = _paged(rng, B, H, KV, S, D, page, sentinel_tail=False)
+    lens = np.asarray(lens, np.int32)
+    for b, n in enumerate(lens):
+        bt[b, -(-n // page):] = kp.shape[0] + 100 * b
+    return q, kp, vp, bt, lens
+
+
+@pytest.mark.parametrize("window", [1, 8, 17, 64, 100, 1000])
+@pytest.mark.parametrize("B,H,KV,S,D,page,lens", [
+    (4, 8, 2, 256, 32, 16, None),                # [S, S // 2, window + 1, 3]
+    (5, 32, 4, 128, 64, 8, [1, 9, 17, 100, 128]),  # tinyllama's heads, page 8
+])
+def test_paged_decode_plain_windowed_matches_pallas(window, B, H, KV, S, D, page, lens):
+    """The paged mirror of test_decode_plain_windowed_matches_pallas: the
+    static window masks positions before cache_len - window, with
+    sentinels in the table; lengths across the page and 16-key tile
+    edges; 1000 reaches back past every length."""
+    rng = np.random.default_rng(window + D)
+    args = _paged_windowed(rng, B, H, KV, S, D, page, lens or [S, S // 2, window + 1, 3])
+    want = jda.decode_attention_paged(*(jnp.asarray(a) for a in args), window=window,
+                                      interpret=True)
+    got = tda.decode_attention_paged_plain(*(torch.from_numpy(a) for a in args),
+                                           window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    oracle = jref.decode_attention_paged_ref(*(jnp.asarray(a) for a in args), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("B,KV,max_pages,page", [
+    (8, 4, 32, 16),    # the serving shape: 512 positions
+    (8, 32, 32, 16),   # phi3-mini's serving shape
+    (3, 2, 64, 8),     # 512 positions of 8
+    (3, 2, 4, 128),
+    (2, 2, 1, 64),     # one page a row
+    (2, 2, 256, 16),   # 4096 positions: the combine pass
+    (2, 2, 33, 16),    # one page past 512
+    (4, 1, 600, 1),
+    (264, 1, 8, 64),
+])
+def test_paged_plan_and_partials_agree(dtype, aligned, B, KV, max_pages, page):
+    """One decision of the paged body (bf16 and 16-byte aligned: the
+    tensor cores, spans of whole pages covering at most 512 positions;
+    anything else: the CUDA cores with split_span's ~264-block split);
+    spans cover max_pages; one span and no partials on the tensor cores
+    exactly when a row holds at most 512 positions, fp32 partials shaped
+    as the combine pass reads them otherwise."""
+    G, D = 8, 64
+    tc, span, nsplit = tda.paged_plan(dtype, aligned, B, KV, max_pages, page)
+    assert tc == (dtype == torch.bfloat16 and aligned)
+    assert nsplit == -(-max_pages // span) and 1 <= span <= max_pages
+    assert nsplit * span >= max_pages > (nsplit - 1) * span
+    if tc:
+        assert span * page <= 512
+        assert (nsplit == 1) == (max_pages * page <= 512)
+    else:
+        assert span == tda.split_span(B, KV, max_pages)
+    m, l, acc = tda.decode_partials(nsplit, B, KV, G, D, "cpu")
+    if nsplit == 1:
+        assert m is None and l is None and acc is None
+    else:
+        assert m.shape == l.shape == (B * KV, nsplit, G)
+        assert acc.shape == (B * KV, nsplit, G, D)
+        assert m.dtype == l.dtype == acc.dtype == torch.float32
+
+
 def test_decode_empty_row_is_zero():
     """cache_len == 0 gives zeros, as the Pallas kernel does (the jnp
     oracle returns the mean of V instead); the port follows the kernel."""
@@ -257,9 +327,10 @@ def test_ops_auto_on_cpu_takes_plain_and_launches_nothing():
     dec0 = tda.decode_attention_paged_kernel.launches
     pf0 = tpa.prefill_attention_paged_kernel.launches
     args = _small_decode()
-    np.testing.assert_array_equal(
-        ops.decode_attention_paged(*args, impl="auto").numpy(),
-        ops.decode_attention_paged(*args, impl="ref").numpy())
+    for window in (0, 3):
+        np.testing.assert_array_equal(
+            ops.decode_attention_paged(*args, window=window, impl="auto").numpy(),
+            ops.decode_attention_paged(*args, window=window, impl="ref").numpy())
     pa = _small_prefill()
     pb = [a.clone() for a in pa]
     got = ops.prefill_attention_paged(*pa, impl="auto")
@@ -268,6 +339,14 @@ def test_ops_auto_on_cpu_takes_plain_and_launches_nothing():
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     assert tda.decode_attention_paged_kernel.launches == dec0 == 0
     assert tpa.prefill_attention_paged_kernel.launches == pf0 == 0
+
+
+@pytest.mark.parametrize("window", [0, 1, 17, 100])
+def test_ops_paged_decode_ref_with_window_is_the_plain_version(window):
+    args = _small_decode()
+    got = ops.decode_attention_paged(*args, window=window, impl="ref")
+    want = tda.decode_attention_paged_plain(*args, window=window)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def _small_append():
