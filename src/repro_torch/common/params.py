@@ -43,15 +43,22 @@ def is_param(x: Any) -> bool:
 
 
 def map_tree(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
-    """Apply ``fn`` to every leaf of a nested-dict tree (dict order kept)."""
+    """Apply ``fn`` to every leaf of a tree of nested dicts and lists
+    (dict and list order kept)."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree: PyTree) -> list:
+    """The leaves of a tree of nested dicts and lists, in :func:`map_tree`
+    order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -90,10 +97,11 @@ def init_params(generator: torch.Generator, specs: PyTree,
 
 
 def from_jax_params(tree: PyTree, device, dtype=None) -> PyTree:
-    """Carry a JAX tree across: a nested dict of numpy arrays (e.g.
-    ``jax.tree.map(np.asarray, params)``, or a whole train state with its
-    optimizer state and 0-d int32 step) becomes the same nested dict of
-    tensors on ``device``, key for key, shape for shape and dtype for
+    """Carry a JAX tree across: nested dicts and lists of numpy arrays
+    (e.g. ``jax.tree.map(np.asarray, params)``, a whole train state with
+    its optimizer state and 0-d int32 step, or a forecasting model's list
+    of blocks) become the same nested dicts and lists of tensors on
+    ``device``, key for key, shape for shape and dtype for
     dtype, cast to ``dtype`` when given.  bf16 arrays pass through fp32,
     which is exact."""
     def one(a):
@@ -108,9 +116,9 @@ def from_jax_params(tree: PyTree, device, dtype=None) -> PyTree:
 
 
 def to_numpy(tree: PyTree) -> PyTree:
-    """The reverse of :func:`from_jax_params`: every tensor of a nested
-    dict as a host numpy array, key for key; bf16 (which numpy lacks)
-    becomes fp32, which is exact."""
+    """The reverse of :func:`from_jax_params`: every tensor of nested
+    dicts and lists as a host numpy array, key for key; bf16 (which numpy
+    lacks) becomes fp32, which is exact."""
     def one(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -7,7 +7,7 @@ tables keep shard ``i`` in rows ``[i*per, (i+1)*per)`` of each column, and
 whose collectives are tensor operations on that layout
 (``repro_torch.dataframe.ops_dist``).  JAX's production and multi-pod
 meshes, and meshes over several processes, come with the runtime slice
-(ROADMAP.md queue 1, item 11).
+(ROADMAP.md queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> Mesh:
     if len(shape) != 1 or len(axes) != 1:
         raise NotImplementedError(
             "the port's meshes are 1-D; multi-axis meshes come with the "
-            "runtime slice (ROADMAP.md queue 1, item 11)")
+            "runtime slice (ROADMAP.md queue 1, item 6)")
     if shape[0] < 1:
         raise ValueError(f"a mesh needs at least one shard, got {shape[0]}")
     return Mesh({axes[0]: int(shape[0])}, resolve_device(device))

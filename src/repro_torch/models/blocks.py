@@ -304,10 +304,10 @@ def attn_apply(
     if window:
         raise NotImplementedError(
             "windowed attention (ring caches) is a later slice of the port "
-            "(ROADMAP.md queue 1, item 6)")
+            "(ROADMAP.md queue 1, item 5)")
     if cfg.mrope_sections:
         raise NotImplementedError(
-            "M-RoPE is a later slice of the port (ROADMAP.md queue 1, item 9)")
+            "M-RoPE is a later slice of the port (ROADMAP.md queue 1, item 5)")
     cdt = cfg.compute_dtype
     h = rmsnorm_apply(params["norm"], x, cfg.norm_eps).to(cdt)
     q = torch.einsum("bsd,dhk->bshk", h, params["wq"].to(cdt))

@@ -30,10 +30,13 @@ def _check_kinds(cfg: ModelConfig) -> None:
     head, unit, _, tail = block_pattern(cfg)
     kinds = set((*head, *unit, *tail))
     if not kinds <= set(_PORTED_KINDS):
+        mla_moe = any(k in ("mla", "moe") for kind in kinds for k in kind)
+        what, item = (("MLA and MoE", 3) if mla_moe
+                      else ("windowed and recurrent", 5))
         raise NotImplementedError(
             f"the port runs dense GQA blocks only, got {sorted(kinds, key=str)} "
-            f"for {cfg.name}: MLA, MoE, windowed and recurrent blocks are "
-            f"later slices (ROADMAP.md queue 1, items 6 and 9)")
+            f"for {cfg.name}: {what} blocks are a later slice (ROADMAP.md "
+            f"queue 1, item {item})")
 
 
 def _temporal_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
@@ -160,11 +163,13 @@ def lm_apply(
     if (cache is None) != (cache_len is None):
         raise ValueError("cache and cache_len go together")
     if inputs.ndim != 2:
-        raise NotImplementedError("embedding inputs are a later slice")
+        raise NotImplementedError(
+            "embedding inputs (whisper, qwen2-vl) are a later slice "
+            "(ROADMAP.md queue 1, item 5)")
     if remat and cache is None and cfg.remat_policy == "save_block_outputs":
         raise NotImplementedError(
             "remat_policy='save_block_outputs' only matters under sharding: "
-            "the distributed slice (ROADMAP.md queue 1, item 11)")
+            "the distributed slice (ROADMAP.md queue 1, item 6)")
     head, unit, reps, tail = block_pattern(cfg)
     x = params["embed"][inputs].to(cfg.compute_dtype)
     Bsz, S = inputs.shape

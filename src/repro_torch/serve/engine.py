@@ -24,11 +24,16 @@ Differences from the JAX engine:
   contiguous decode step gives the rows that must not decode length -1,
   so their appends drop and they read nothing (JAX writes them and
   restores the old rows with a ``where`` over the whole cache);
-* prefill-only engines and KV handoffs, ``run_service`` and fault
-  injection are later slices and raise ``NotImplementedError``
-  (ROADMAP.md queue 1, items 7 and 11);
+* prefill-only engines and KV handoffs raise ``NotImplementedError``;
+  they and the fault-injection hook come with the fleet (ROADMAP.md
+  queue 1, item 4);
 * only greedy decoding is served: ``temperature > 0`` raises at
-  ``submit`` (seeded streams need threefry, ROADMAP.md queue 3).
+  ``submit`` (seeded streams need threefry, ROADMAP.md queue 1, item 3).
+
+``run_service`` is the body of a ``service=True`` stage of the port's
+runtime (``repro_torch.core``): it pulls requests from the stage's
+``ServiceControl`` and steps the engine until told to stop or drain, and
+yields its devices through ``ServicePreempted``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 
 from repro_torch.common.params import init_params, map_tree, tree_bytes
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.task import ServiceControl, ServicePreempted
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.lm import lm_cache_specs, lm_paged_cache_specs
 from repro_torch.serve.request import Request, RequestState
@@ -65,12 +71,13 @@ def _bucket(n: int, lo: int = 2) -> int:
 class ServeEngine:
     """Continuous-batching engine for dense GQA token LMs over a paged or
     contiguous KV cache, driven directly (``submit`` + ``step`` /
-    ``run_until_drained``)."""
+    ``run_until_drained``) or as a service stage (``run_service``)."""
 
     def __init__(self, cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
                  *, max_slots: int = 4, max_len: int = 128,
                  params: Any = None, seed: int = 0,
-                 continuous: bool = True, kv_layout: str = "paged",
+                 continuous: bool = True, idle_wait_s: float = 0.005,
+                 kv_layout: str = "paged",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  decode_impl: Optional[str] = None,
                  prefill_chunk_tokens: Optional[int] = 64,
@@ -91,7 +98,7 @@ class ServeEngine:
         if prefill_only:
             raise NotImplementedError(
                 "prefill-only engines and KV handoffs are the fleet slice "
-                "(ROADMAP.md queue 1, item 7)")
+                "(ROADMAP.md queue 1, item 4)")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1 (or None "
                              "for whole-prompt prefill)")
@@ -104,6 +111,8 @@ class ServeEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.continuous = continuous
+        # a service with nothing to do sleeps on its control this long
+        self.idle_wait_s = idle_wait_s
         self.paged = kv_layout == "paged"
         self.page_size = page_size
         self.max_pages = -(-max_len // page_size)
@@ -238,7 +247,7 @@ class ServeEngine:
         if request.temperature > 0:
             raise NotImplementedError(
                 "the port serves greedy requests only: seeded sampling "
-                "needs threefry ported (ROADMAP.md queue 3)")
+                "needs threefry ported (ROADMAP.md queue 1, item 3)")
         with self._lock:
             self.queue.append(request)
         return request
@@ -349,6 +358,20 @@ class ServeEngine:
             self._free_slot_pages(i)
         req._finish(state, error)
         self._bump("completed" if state is RequestState.DONE else "failed")
+
+    def _fail_outstanding(self, error: str) -> None:
+        """Terminate every accepted-but-unfinished request (hard stop):
+        waiters block on Request.wait(), so abandoning them silently would
+        hang clients forever."""
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self._finish_slot(i, RequestState.FAILED, error)
+        with self._lock:
+            queued, self.queue = list(self.queue), collections.deque()
+        for req in queued:  # _finish runs callbacks: outside the lock
+            req._finish(RequestState.FAILED, error)
+        if queued:
+            self._bump("failed", len(queued))
 
     def _should_stop(self, req: Request, tok: int, length: int) -> bool:
         return (len(req.tokens) >= req.max_new_tokens
@@ -553,10 +576,48 @@ class ServeEngine:
             if steps > max_steps:
                 raise RuntimeError(f"engine did not drain in {max_steps} steps")
 
-    def run_service(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_service needs the runtime's ServiceControl, a later slice "
-            "(ROADMAP.md queue 1, item 11)")
+    # -- service-stage body --------------------------------------------------
+
+    def run_service(self, control: Optional[ServiceControl] = None,
+                    resume_state: Any = None) -> Dict[str, Any]:
+        """Long-running service loop (the body of a ``service=True`` stage).
+
+        Pulls requests from the control inbox, steps the engine, and
+        cooperates with the runtime: ``stop()`` exits immediately,
+        ``drain()`` exits once every accepted request finished, and a
+        preemption request checkpoints + yields via ServicePreempted.
+        """
+        if resume_state is not None:
+            self.restore(resume_state)
+            self._bump("resumes")
+        if self.cache is None:
+            self._init_state()
+        while True:
+            if control is not None:
+                for req in control.take_requests():
+                    self.submit(req)
+                if control.stop_requested():
+                    # hard stop: sweep any request that raced in after the
+                    # take above, then fail everything outstanding so
+                    # Request.wait() callers are released, not hung
+                    for req in control.take_requests():
+                        self.submit(req)
+                    self._fail_outstanding("service stopped before completion")
+                    break
+                if control.preempt_requested():
+                    self._bump("preemptions")  # before the snapshot
+                    # so the count survives restore()
+                    state = self.checkpoint()
+                    self._release_state()
+                    raise ServicePreempted(state)
+            if not self.step():
+                if control is None:
+                    break
+                if (control.drain_requested()
+                        and control.pending_requests() == 0):
+                    break
+                control.wait_for_work(self.idle_wait_s)
+        return self.stats()
 
     # -- reporting -----------------------------------------------------------
 

@@ -4,7 +4,7 @@
 Greedy decoding (the default) is the argmax the step factories already
 return.  Seeded temperature / top-k sampling is not ported: bitwise-equal
 streams need JAX's threefry2x32 with its ``split`` and ``gumbel`` bit
-conversions (ROADMAP.md queue 3), so the engine refuses
+conversions (ROADMAP.md queue 1, item 3), so the engine refuses
 ``temperature > 0`` at ``submit``.  The per-slot keys are still built and
 checkpointed, so the engine state keeps the JAX engine's layout.
 """

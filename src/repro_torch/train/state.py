@@ -16,7 +16,7 @@ def model_specs(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder models are a later slice (ROADMAP.md queue 1, "
-            "item 9)")
+            "item 5)")
     return lm_specs(cfg)
 
 
@@ -25,7 +25,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder caches are a later slice (ROADMAP.md queue 1, "
-            "item 9)")
+            "item 5)")
     return lm_cache_specs(cfg, batch, max_len)
 
 

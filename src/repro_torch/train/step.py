@@ -38,7 +38,7 @@ def make_loss_fn(cfg: ModelConfig, run_cfg: RunConfig):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder training is a later slice (ROADMAP.md queue 1, "
-            "item 9)")
+            "item 5)")
     remat = run_cfg.remat != "none"
 
     def loss_fn(params, batch):
@@ -80,7 +80,7 @@ def make_train_step(cfg: ModelConfig, run_cfg: RunConfig):
     if run_cfg.grad_compression == "int8":
         raise NotImplementedError(
             "int8 gradient compression rides on the data-parallel "
-            "all-reduce: the distributed slice (ROADMAP.md queue 1, item 11)")
+            "all-reduce: the distributed slice (ROADMAP.md queue 1, item 6)")
     loss_fn = make_loss_fn(cfg, run_cfg)
     n_micro = run_cfg.num_microbatches
 
@@ -149,7 +149,7 @@ def make_prefill_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "encoder-decoder prefill is a later slice (ROADMAP.md queue "
-                "1, item 9)")
+                "1, item 5)")
 
         def last_logits_step(params, batch):
             inputs = batch.get("tokens", batch.get("embeds"))
@@ -215,7 +215,7 @@ def make_decode_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None):
     if cfg.is_encoder_decoder or cfg.mrope_sections:
         raise NotImplementedError(
             "encoder-decoder and M-RoPE decode are later slices (ROADMAP.md "
-            "queue 1, item 9)")
+            "queue 1, item 5)")
 
     def decode_step(params, tokens, cache, cache_len, block_table=None):
         logits, new_cache, _ = lm_apply(cfg, params, tokens, None, cache,

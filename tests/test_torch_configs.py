@@ -100,9 +100,17 @@ def test_served_configs_fit_the_attention_kernels(arch):
     assert H % KV == 0 and H // KV <= 32, (arch, H, KV)
 
 
+# the ROADMAP.md queue 1 item that lands each unported architecture: MLA
+# and MoE (item 3), recurrent and windowed blocks and encoder-decoders
+# (item 5)
+UNPORTED_ITEM = {"minicpm3-4b": 3, "moonshot-v1-16b-a3b": 3, "arctic-480b": 3,
+                 "xlstm-125m": 5, "recurrentgemma-9b": 5, "whisper-medium": 5}
+
+
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE_GQA)))
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1, item {UNPORTED_ITEM[arch]}\\)"):
         model_specs(tcfg.get_config(arch, smoke=True))
 
 
@@ -131,3 +139,40 @@ def test_port_imports_no_jax_and_no_repro():
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
     assert not bad, bad
+
+
+def _deferred_refusals():
+    """Each refusal of a piece the port defers, and the ROADMAP.md queue 1
+    item that lands it."""
+    import torch
+
+    from repro_torch.core.communicator import build_communicator
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks as tblocks
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+
+    tiny = tcfg.get_config("tinyllama-1.1b", smoke=True)
+    whisper = tcfg.get_config("whisper-medium", smoke=True)
+    qwen = tcfg.get_config("qwen2-vl-72b", smoke=True)
+    run = tcfg.RunConfig()
+    return {
+        "window": (5, lambda: tblocks.attn_apply(tiny, None, None, None, window=4)),
+        "mrope": (5, lambda: tblocks.attn_apply(qwen, None, None, None)),
+        "embedding_inputs": (5, lambda: tlm.lm_apply(tiny, None, torch.zeros((1, 4, 8)))),
+        "encdec_loss": (5, lambda: tstep.make_loss_fn(whisper, run)),
+        "encdec_prefill": (5, lambda: tstep.make_prefill_step(whisper, run)),
+        "encdec_decode": (5, lambda: tstep.make_decode_step(whisper, run)),
+        "encdec_cache": (5, lambda: tstate.cache_specs(whisper, 1, 8)),
+        "multi_axis_mesh": (6, lambda: make_mesh((2, 2), ("data", "model"), device="cpu")),
+        "communicator_across_cards": (6, lambda: build_communicator(
+            [torch.device("cuda", 0), torch.device("cuda", 1)])),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_deferred_refusals()))
+def test_every_deferred_refusal_names_its_item(case):
+    item, call = _deferred_refusals()[case]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1, item {item}\\)"):
+        call()

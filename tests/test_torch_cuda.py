@@ -771,3 +771,76 @@ def test_rmsnorm_ops_entry_point_launches_the_kernel():
     tops.rmsnorm(x, w)
     tops.rmsnorm(x, w, impl="ref")
     assert trn.rmsnorm_kernel.launches == 1
+
+
+def _counts():
+    return {"flash": tfa.flash_attention_kernel.launches,
+            "paged_decode": tda.decode_attention_paged_kernel.launches,
+            "paged_prefill": tpa.prefill_attention_paged_kernel.launches,
+            "scatter": tpa.write_chunk_paged_kernel.launches,
+            "decode": tda.decode_attention_kernel.launches,
+            "prefill": tpa.prefill_attention_kernel.launches}
+
+
+def _zero_counts():
+    for fn in (tfa.flash_attention_kernel, tda.decode_attention_paged_kernel,
+               tpa.prefill_attention_paged_kernel, tpa.write_chunk_paged_kernel,
+               tda.decode_attention_kernel, tpa.prefill_attention_kernel):
+        fn.launches = 0
+
+
+@pytest.mark.cuda
+def test_runtime_entry_points_launch_their_kernels(tmp_path):
+    """The training entry point's stage graph and a service stage, on the card
+    at the tinyllama smoke config through the port's Session: flash
+    attention launches 2 x layers per step and nothing else does; the
+    service launches the paged kernels alone (the scatter once per
+    prefill call and decode append), with the streams the direct engine
+    gives."""
+    _card()
+    from repro_torch.common.params import init_params
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import Session, stage
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.serve import Request, RequestState, ServeEngine
+    from repro_torch.train.state import model_specs
+
+    steps = 3
+    args = tlaunch.build_parser().parse_args(
+        ["--arch", "tinyllama-1.1b", "--smoke", "--steps", str(steps), "--batch", "2",
+         "--seq", "64", "--ckpt-dir", str(tmp_path / "ckpt")])
+    _zero_counts()
+    res = tlaunch.run(args)
+    torch.cuda.synchronize()
+    layers = get_config("tinyllama-1.1b", smoke=True).num_layers
+    assert _counts() == {"flash": 2 * layers * steps, "paged_decode": 0,
+                         "paged_prefill": 0, "scatter": 0, "decode": 0, "prefill": 0}
+    assert res["steps"] == steps and np.isfinite(res["last_loss"])
+
+    cfg = get_config("tinyllama-1.1b", smoke=True).with_overrides(
+        compute_dtype=torch.float32)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         model_specs(cfg), "cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 9)]
+    direct = ServeEngine(cfg, RunConfig(), params=params, max_slots=2, max_len=64)
+    want = [direct.submit(p, max_new_tokens=8) for p in prompts]
+    direct.run_until_drained()
+    eng = ServeEngine(cfg, RunConfig(), params=params, max_slots=2, max_len=64)
+
+    @stage(kind="inference", service=True)
+    def engine(ctx):
+        return eng.run_service(ctx.control, resume_state=ctx.resume_state)
+
+    _zero_counts()
+    with Session() as session:
+        handle = session.serve(engine, name="serve")
+        reqs = [handle.submit_request(Request(p, max_new_tokens=8)) for p in prompts]
+        assert handle.stop(drain=True, timeout=120)
+    torch.cuda.synchronize()
+    c = _counts()
+    assert all(r.state is RequestState.DONE for r in reqs)
+    assert [r.tokens for r in reqs] == [w.tokens for w in want]
+    assert c["paged_decode"] > 0 and c["paged_prefill"] > 0
+    assert c["scatter"] == c["paged_decode"] + c["paged_prefill"]
+    assert c["flash"] == c["decode"] == c["prefill"] == 0
