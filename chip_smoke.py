@@ -52,7 +52,11 @@ non-zero:
             bf16 off the 16-byte boundary.  The paged cache scatter bitwise against the plain one
             on tests/paged_scatter_cases.py; both prefill wrappers, both
             decodes and the decode append once under sync-debug "error" (a
-            host sync fails the phase).  Then torch.profiler's device time
+            host sync fails the phase).  Last, on draws after all the
+            others (theirs stay the parent commit's), the contiguous decode
+            at head dim 24 (minicpm3's smoke MLA decode) at its serving
+            shapes and over the contiguous sweep's S, G, lengths and
+            windows.  Then torch.profiler's device time
             per launch of rmsnorm and the hash at their paths' shapes
             (taken here: windows opened late in the run came back without
             device events).
@@ -81,6 +85,16 @@ non-zero:
 6. stream   the same engines in fp32: on each layout the kernel path and
             the plain path, and the two layouts' kernel paths, must emit
             token-identical greedy streams.
+   sampling seeded sampling on full-width tinyllama-1.1b: the threefry
+            split keys, random bits and uniforms of 64 seeds (half >= 2^32)
+            over the vocabulary, computed on the card, bitwise against a
+            numpy threefry written in this script; on an fp32 paged engine
+            one seed twice gives one stream, another seed another, top_k=1
+            equals greedy, and a stream checkpointed, released and restored
+            mid-decode resumes the uninterrupted one; then the serve
+            phase's 16 requests greedy and sampled (temperature 1), their
+            tokens/s side by side, and a profile of a window of
+            PROFILE_WINDOW decode steps of each (the profile phase's line).
    phi3     phi3-mini-3.8b at its published widths (32 layers, d_model
             3072, 32 heads, 32 KV heads, head_dim 96, d_ff 8192, vocab
             32064): first both decodes and both prefills against their
@@ -91,6 +105,27 @@ non-zero:
             it serves 4 greedy requests of the mixed workload on each KV
             layout, on the serve phase's engine settings; counters as in
             the serve phase: the layout's kernels launched, no other.
+   mla_moe  minicpm3-4b (MLA) at its published widths (62 layers,
+            d_model 2560, 40 heads padded to 48, q_lora 768, kv_lora 256,
+            nope 64, rope 32, v 64, vocab 73448; fp32 parameters, 4.40 B)
+            and then moonshot-v1-16b-a3b (MoE) at its (48 layers, d_model
+            2048, 16 heads, head_dim 128, 64 experts top-6, d_ff 1408, the
+            first layer dense with d_ff 11264, vocab 163840; bf16
+            parameters, 27.57 B, 55.1 GB), each freed before the next
+            loads: the kernels its serving path reaches held against their
+            plain versions at the shapes the path gives them, fp32 and
+            bf16 (serving_shape_cases: MLA the contiguous decode alone at
+            H 48, KV 48, D 96; moonshot all four at H 16, KV 16, D 128);
+            4 greedy requests per layout, counters zeroed just before and
+            read just after each run: the path's kernels launched and no
+            other (MLA: the contiguous decode alone, on either layout);
+            minicpm3's fp32 streams, kernel path against plain path, token
+            for token (the stream phase's checks); a profile of a window of
+            PROFILE_WINDOW paged decode steps each (the profile phase's
+            line).  Then kernel 2 timed at
+            the MLA serving shape and kernels 3 and 5 at moonshot's, in the
+            timing rows' format with SDPA beside (each row's
+            ``at_other_shapes``).
 7. train    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, fp32 parameters, bf16 compute, the default
             RunConfig: AdamW, remat per layer, clip 1.0, lr 3e-4) takes 20
@@ -195,7 +230,7 @@ sys.path.insert(0, str(ROOT / "tests"))  # the scatter's edge cases
 
 from repro_torch.bridge.loader import HostPrefetcher  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
-from repro_torch.common.params import init_params, map_tree, tree_leaves  # noqa: E402
+from repro_torch.common.params import Param, init_params, map_tree, tree_leaves  # noqa: E402
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.dataframe import ops_dist as dfo  # noqa: E402
 from repro_torch.dataframe.ops_local import filter_rows  # noqa: E402
@@ -223,6 +258,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ARCH = "tinyllama-1.1b"
 # the second dense config, at full width: head dim 96, G 1
 PHI3, PHI3_REQUESTS = "phi3-mini-3.8b", 4
+# the MLA and the MoE config, at full width, and the requests each serves
+# per layout; moonshot's parameters are bf16 (fp32 would be 110 GB)
+MLA, MOE, MLA_MOE_REQUESTS = "minicpm3-4b", "moonshot-v1-16b-a3b", 4
+MOE_PARAM_DTYPE = torch.bfloat16
+# the sampling phase: seeds of the threefry check (64, half >= 2^32), and
+# the temperature of the sampled serving run
+SAMPLE_SEEDS, SAMPLE_TEMPERATURE = 64, 1.0
+# engine steps of the decode windows the sampling and mla_moe phases profile
+PROFILE_WINDOW = 4
 PAGE = 16
 MAX_LEN = 512
 # the serve engine's settings, for every served config; the kernels are
@@ -576,24 +620,55 @@ def phase_kernels():
                 raise AssertionError(f"hash kernel disagrees: {cases[-1]}")
     cases += scatter_cases(gen)
     cases.append(check_no_host_sync(gen))
+    cases += head_dim_24_cases(gen)
     emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
 
 
-def serving_shape_cases(gen, arch, dtype):
-    """Both decodes and both prefills at the shapes ``arch``'s serving path
-    gives them: H and KV (after padded_gqa) and D from get_config(arch),
-    B, S, T and the page from the serve engine's settings (SERVE).  The
-    decodes over batches of B rows whose lengths hold an empty row, the
-    16-key (tensor-core) and 32-position (CUDA-core) tile edges, the page
-    edges, the 64-key edge and a full row; the prefills with full,
-    partial, one-token and empty chunks, at base 0, inside a page, on the
-    64-key edge and across page edges, one ending on the row's last
-    position (the contiguous one also a partial chunk running past S: its
-    tail drops).
-    Caches bitwise, padding and empty rows exactly zero."""
-    cfg = get_config(arch)
-    (H, KV), D = cfg.padded_gqa(), cfg.head_dim
+def head_dim_24_cases(gen):
+    """The contiguous decode at head dim 24, which it alone takes
+    (minicpm3's MLA decode at smoke width; the tensor-core body stages and
+    multiplies it padded to 32), fp32 and bf16: at the shapes that path
+    gives it (serving_shape_cases), and over the contiguous decode sweep's
+    S, G, lengths and windows.  Drawn after every other case of the
+    phase, whose inputs stay those of the parent commit."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        out += serving_shape_cases(gen, MLA, dtype, smoke=True)
+        worst, n = 0.0, 0
+        for S, G in itertools.product((32, MAX_LEN, 4096), (1, 4, 8, 16, 32)):
+            lens = [0, 1, 7, 8, 15, 16, 17, 63, 64, 65, S - 1, S, S + 5]
+            q, k, v, cl = contig_decode_case(gen, 2 * G, 2, 24, S, lens, dtype)
+            for c, window in ((cl, 0), (cl, 8), (cl, 64), (cl, 100), (i32(S // 2 + 3), 0)):
+                err, ok = check_contig_decode((q, k, v, c), window)
+                n, worst = n + 1, max(worst, err)
+                if not (err <= TOL[dtype] and ok):
+                    raise AssertionError(f"contiguous decode kernel disagrees at S {S} D 24 "
+                                         f"G {G} window {window} {dtype}: {err}, empty rows "
+                                         f"zero: {ok}")
+        out.append({"kernel": "decode_attention", "sweep": "S x G x lengths x window at D 24",
+                    "cases": n, "dtype": str(dtype), "max_abs_err": worst,
+                    "tol": TOL[dtype], "empty_rows_zero": True})
+    return out
+
+
+def serving_shape_cases(gen, arch, dtype, smoke: bool = False):
+    """The attention kernels ``arch``'s serving path reaches, at the shapes
+    it gives them (``serving_attention_shapes``: H and KV after padded_gqa
+    and the head dim per kernel, from get_config(arch); B, S, T and the
+    page from the serve engine's settings, SERVE): a GQA stack's both
+    decodes and both prefills, an MLA stack's contiguous decode alone
+    (its latents expanded per head: KV = H, D = nope + rope).  The decodes
+    over batches of B rows whose lengths hold an empty row, the 16-key
+    (tensor-core) and 32-position (CUDA-core) tile edges, the page edges,
+    the 64-key edge and a full row; the prefills with full, partial,
+    one-token and empty chunks, at base 0, inside a page, on the 64-key
+    edge and across page edges, one ending on the row's last position
+    (the contiguous one also a partial chunk running past S: its tail
+    drops).  Caches bitwise, padding and empty rows exactly zero."""
+    from repro_torch.models.lm import serving_attention_shapes
+
+    shapes = serving_attention_shapes(get_config(arch, smoke=smoke))
     B, S, T, page = (SERVE[k] for k in ("max_slots", "max_len", "prefill_chunk_tokens",
                                         "page_size"))
     mp = S // page
@@ -602,24 +677,35 @@ def serving_shape_cases(gen, arch, dtype):
     checks = []
     for i in range(0, len(edges), B):
         lens = edges[i:i + B]
-        checks.append(("decode_attention", lens, *check_contig_decode(
-            contig_decode_case(gen, H, KV, D, S, lens, dtype))))
-        checks.append(("decode_attention_paged", lens, *check_decode(
-            decode_case(gen, H, KV, D, mp, lens, dtype))))
+        if "decode_attention" in shapes:
+            checks.append(("decode_attention", lens, *check_contig_decode(
+                contig_decode_case(gen, *shapes["decode_attention"], S, lens, dtype))))
+        if "decode_attention_paged" in shapes:
+            checks.append(("decode_attention_paged", lens, *check_decode(
+                decode_case(gen, *shapes["decode_attention_paged"], mp, lens, dtype))))
     base = ([0, 5, 64, 200, S - T, 13, 100, 3] * B)[:B]
     clens = ([T, 3, T, 0, T, 1, T // 2 + 8, T] * B)[:B]
-    checks.append(("prefill_attention_paged", list(zip(base, clens)), *check_prefill(
-        prefill_case(gen, T, H, KV, D, mp, base, clens, dtype))))
+    if "prefill_attention_paged" in shapes:
+        checks.append(("prefill_attention_paged", list(zip(base, clens)), *check_prefill(
+            prefill_case(gen, T, *shapes["prefill_attention_paged"], mp, base, clens,
+                         dtype))))
     base[-2] = S - T // 2  # its last 8 tokens fall past S and drop
-    checks.append(("prefill_attention", list(zip(base, clens)), *check_contig_prefill(
-        contig_prefill_case(gen, T, H, KV, D, S, base, clens, dtype))))
-    out = [{"kernel": kernel, "shape": f"{arch} serving", "B": B, "H": H, "KV": KV,
-            "head_dim": D, "S": S, "T": T, "page": page, "rows": rows, "dtype": str(dtype),
-            "max_abs_err": err, "tol": TOL[dtype], "ok": ok}
+    if "prefill_attention" in shapes:
+        checks.append(("prefill_attention", list(zip(base, clens)), *check_contig_prefill(
+            contig_prefill_case(gen, T, *shapes["prefill_attention"], S, base, clens,
+                                dtype))))
+    name = f"{arch}{' smoke' if smoke else ''} serving"
+    out = [{"kernel": kernel, "shape": name, "B": B, "H": shapes[kernel][0],
+            "KV": shapes[kernel][1], "head_dim": shapes[kernel][2], "S": S, "T": T,
+            "page": page, "rows": rows, "dtype": str(dtype), "max_abs_err": err,
+            "tol": TOL[dtype], "ok": ok}
            for kernel, rows, err, ok in checks]
+    if {c["kernel"] for c in out} != set(shapes):
+        raise AssertionError(f"{arch}: kernels checked {[c['kernel'] for c in out]}, "
+                             f"path reaches {sorted(shapes)}")
     for c in out:
         if not (c["max_abs_err"] <= TOL[dtype] and c["ok"]):
-            raise AssertionError(f"{c['kernel']} disagrees at {arch}'s serving shapes: {c}")
+            raise AssertionError(f"{c['kernel']} disagrees at {name} shapes: {c}")
     return out
 
 
@@ -884,10 +970,23 @@ def read_counts():
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
-def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
-    """The main path on one KV layout, ``n`` requests: every counter zeroed
-    just before the run and read just after."""
+def path_kernels(cfg, layout):
+    """The kernels the serving path of ``cfg`` launches on ``layout``: a
+    GQA stack the layout's decode and prefill (and, paged, the scatter);
+    an MLA stack the contiguous decode alone on either layout (its latent
+    writes and gathers are plain PyTorch, as JAX's are plain jnp)."""
+    if cfg.attention == "mla":
+        return ("decode_attention",)
+    return PATH_KERNELS[layout]
+
+
+def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0, temperature=0.0):
+    """The main path on one KV layout, ``n`` requests (sampled at
+    ``temperature`` when > 0, each from its own seed): every counter
+    zeroed just before the run and read just after."""
     work = mixed_requests(n, cfg.vocab_size, SEED)
+    path = path_kernels(cfg, layout)
+    sampling = dict(temperature=temperature) if temperature > 0 else {}
     warm = serve_engine(cfg, params, kv_layout=layout)  # cuBLAS, libraries
     for p, _ in work[:2]:
         warm.submit(p, max_new_tokens=4)
@@ -899,7 +998,8 @@ def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
+    reqs = [eng.submit(p, max_new_tokens=g, seed=SEED + i, **sampling)
+            for i, (p, g) in enumerate(work)]
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -909,14 +1009,15 @@ def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
            or not all(0 <= t < cfg.padded_vocab for t in r.tokens)]
     if bad:
         raise AssertionError(f"requests not served in full: {bad}")
-    dec_name, pf_name = PATH_KERNELS[layout][:2]
-    if min(launches[n] for n in PATH_KERNELS[layout]) <= 0:
+    dec_name, pf_name = (path + (None,))[:2]
+    if min(launches[n] for n in path) <= 0:
         raise AssertionError(f"a kernel never launched on the {layout} path: "
                              f"{launches}")
-    if layout == "paged" and launches["paged_scatter"] != launches[dec_name] + launches[pf_name]:
+    if "paged_scatter" in path and \
+            launches["paged_scatter"] != launches[dec_name] + launches[pf_name]:
         raise AssertionError(f"the paged scatter launched {launches['paged_scatter']} "
                              f"times, not once per prefill call and decode append")
-    others = {n: c for n, c in launches.items() if n not in PATH_KERNELS[layout]}
+    others = {n: c for n, c in launches.items() if n not in path}
     if any(others.values()):
         raise AssertionError(f"the {layout} path launched another layout's "
                              f"kernels: {others}")
@@ -927,7 +1028,7 @@ def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
     gaps = np.array([g for r in reqs for g in r.inter_token_s]) * 1e3
     tokens = sum(len(r.tokens) for r in reqs)
     out = {"phase": "serve", "ok": True, "kv_layout": layout, "round": round_,
-           "arch": cfg.name,
+           "arch": cfg.name, "temperature": temperature, "path_kernels": list(path),
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "compute_dtype": str(cfg.compute_dtype), "requests": len(reqs),
            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -942,7 +1043,8 @@ def phase_serve(cfg, params, layout, n: int = 16, round_: int = 0):
            "prefill_chunks": stats["prefill_chunks"],
            "launches": launches,
            "launches_per_decode_step": launches[dec_name] / stats["decode_steps"],
-           "launches_per_prefill_chunk": launches[pf_name] / stats["prefill_chunks"],
+           "launches_per_prefill_chunk": (launches[pf_name] / stats["prefill_chunks"]
+                                          if pf_name else None),
            "kv_cache_capacity_bytes": stats["kv_cache_capacity_bytes"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
@@ -1219,21 +1321,40 @@ def device_kernels(prof):
     return kernels, by_name
 
 
-def phase_profile(cfg, params, layout, n: int = 8):
+def phase_profile(cfg, params, layout, n: int = 8, temperature: float = 0.0,
+                  window=None):
     """Where a serving run's time goes on one layout: torch.profiler over
-    the first ``n`` requests of the workload (a separate, unmeasured run;
-    the profiler's own host cost inflates the wall time and the idle
-    share).  Returns the device time per launch of the layout's kernels."""
+    the first ``n`` requests of the workload, sampled at ``temperature``
+    when > 0 (a separate, unmeasured run; the profiler's own host cost
+    inflates the wall time and the idle share).  With ``window``, only
+    that many engine steps are profiled, once every prompt is in and all
+    ``n`` requests decode (the profiler over a 62-layer model's whole run
+    takes minutes).  Returns the device time per launch of the path's
+    kernels that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     work = mixed_requests(16, cfg.vocab_size, SEED)[:n]
+    path = path_kernels(cfg, layout)
+    sampling = dict(temperature=temperature) if temperature > 0 else {}
     eng = serve_engine(cfg, params, kv_layout=layout)
+    before = 0
+    if window:
+        for i, (p, g) in enumerate(work):
+            eng.submit(p, max_new_tokens=g, seed=SEED + i, **sampling)
+        while eng.queue or (eng.prefill_pos >= 0).any():
+            eng.step()
+        stats = eng.stats()
+        before = stats.get("decode_steps", 0) + stats.get("prefill_chunks", 0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for p, g in work:
-            eng.submit(p, max_new_tokens=g)
-        eng.run_until_drained()
+        if window:
+            for _ in range(window):
+                eng.step()
+        else:
+            for i, (p, g) in enumerate(work):
+                eng.submit(p, max_new_tokens=g, seed=SEED + i, **sampling)
+            eng.run_until_drained()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, by_name = device_kernels(prof)
@@ -1241,8 +1362,10 @@ def phase_profile(cfg, params, layout, n: int = 8):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     # the port's own kernels: device time per launch, free of the host
     # cost that the CUDA-event timing of back-to-back wrapper calls carries
+    # a decode window runs no prefill chunk
+    ran = [k for k in path if not (window and k.startswith("prefill"))]
     ours = {}
-    for kernel in PATH_KERNELS[layout]:
+    for kernel in ran:
         for name in SYMBOLS[kernel]:
             hits = [v for k, v in by_name.items() if f"::{name}<" in k]
             ms, launches = sum(v[0] for v in hits), sum(v[1] for v in hits)
@@ -1255,11 +1378,14 @@ def phase_profile(cfg, params, layout, n: int = 8):
         raise AssertionError(f"the {layout} decode ran {combine} combine passes at "
                              f"S {MAX_LEN}: it must be one launch")
     stats = eng.stats()
-    steps = stats["decode_steps"] + stats["prefill_chunks"]
+    steps = stats["decode_steps"] + stats["prefill_chunks"] - before
+    if window:
+        eng.run_until_drained()
     cpu_ops = sum(1 for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.name.startswith("aten::") and e.cpu_parent is None)
-    emit({"phase": "profile", "ok": True, "kv_layout": layout, "requests": n,
+    emit({"phase": "profile", "ok": True, "arch": cfg.name, "kv_layout": layout,
+          "requests": n, "temperature": temperature, "window_steps": window,
           "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -1270,7 +1396,7 @@ def phase_profile(cfg, params, layout, n: int = 8):
           "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
                           for k, v in top]})
     return {kernel: sum(ours[name]["us_per_launch"] for name in SYMBOLS[kernel])
-            for kernel in PATH_KERNELS[layout]}
+            for kernel in ran}
 
 
 def top2_gap(cfg, params, prompt, prefix):
@@ -1395,7 +1521,8 @@ def phase_stream(cfg, params, n: int = 4):
                       "plain_top2_logit_gap": top2_gap(cfg32, params, work[i][0],
                                                        streams["paged", "ref"][i][:step])})
                 raise AssertionError(f"greedy streams {x} and {y} diverge")
-    emit({"phase": "stream", "ok": True, "requests": n,
+    emit({"phase": "stream", "ok": True, "arch": cfg.name, "requests": n,
+          "path_kernels": {layout: list(path_kernels(cfg, layout)) for layout in LAYOUTS},
           "tokens": sum(len(s) for s in streams["paged", "auto"]),
           "compute_dtype": str(cfg32.compute_dtype),
           "identical": ["paged kernel == paged plain",
@@ -1421,6 +1548,245 @@ def phase_phi3():
         phase_serve(cfg, params, layout, n=PHI3_REQUESTS)
     del params
     torch.cuda.empty_cache()
+
+
+# -- seeded sampling ------------------------------------------------------------
+
+
+def threefry_np(k1, k2, x1, x2):
+    """threefry2x32 in numpy uint32 (wrapping) arithmetic, written from the
+    cipher's definition (Salmon et al. 2011, 20 rounds): the reference the
+    port's int64 torch version is held to on the card."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x1 = x1 + x2
+            x2 = ((x2 << np.uint32(r)) | (x2 >> np.uint32(32 - r))) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x1, x2
+
+
+def threefry_reference(seeds, n):
+    """numpy split keys [len(seeds), 2, 2], random bits [len(seeds), n] and
+    the uniforms in [tiny, 1) of the bits, as jax.random computes them with
+    partitionable threefry: counter i is (i >> 32, i & 0xffffffff)."""
+    keys = np.stack([np.array([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF], np.uint32)
+                     for s in seeds])
+    k1, k2 = keys[:, :1], keys[:, 1:]
+    w1, w2 = threefry_np(k1, k2, np.zeros((1, 2), np.uint32),
+                         np.arange(2, dtype=np.uint32)[None])
+    split = np.stack([w1, w2], axis=-1)
+    w1, w2 = threefry_np(k1, k2, np.zeros((1, n), np.uint32),
+                         np.arange(n, dtype=np.uint32)[None])
+    bits = w1 ^ w2
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    tiny = np.finfo(np.float32).tiny
+    uniform = np.maximum(np.float32(tiny),
+                         floats * (np.float32(1) - np.float32(tiny)) + np.float32(tiny))
+    return keys, split, bits, uniform
+
+
+def phase_sampling(cfg, params):
+    """Seeded sampling on the card (tinyllama-1.1b at full width): the
+    threefry split keys, random bits and uniforms of SAMPLE_SEEDS seeds
+    (half >= 2^32) over the vocabulary bitwise against numpy; on an fp32
+    paged engine the same seed twice gives one stream and another seed
+    another, top_k=1 is greedy, and a stream checkpointed, released and
+    restored mid-decode goes on as the uninterrupted one; then the serve
+    phase's 16 requests in bf16, greedy and sampled, with tokens/s each."""
+    from repro_torch.serve import sampling
+
+    rng = np.random.default_rng(SEED)
+    half = SAMPLE_SEEDS // 2
+    seeds = ([0, 1, 2**31, 2**32 - 1] + [int(x) for x in rng.integers(0, 2**32, half - 4)]
+             + [2**32, 2**63 - 1] + [int(x) for x in rng.integers(2**32, 2**63 - 1, half - 2,
+                                                                   dtype=np.int64)])
+    V = cfg.padded_vocab
+    keys, want_split, want_bits, want_u = threefry_reference(seeds, V)
+    tkeys = torch.from_numpy(keys.astype(np.int64)).cuda()
+    got_split = sampling.split(tkeys, 2).cpu().numpy().astype(np.uint32)
+    got_bits = sampling.random_bits(tkeys, V).cpu().numpy().astype(np.uint32)
+    tiny = float(np.finfo(np.float32).tiny)
+    got_u = sampling.uniform(tkeys, V, tiny, 1.0).cpu().numpy()
+    bitwise = {"split": bool(np.array_equal(got_split, want_split)),
+               "bits": bool(np.array_equal(got_bits, want_bits)),
+               "uniform": bool(np.array_equal(got_u.view(np.uint32), want_u.view(np.uint32)))}
+    if not all(bitwise.values()):
+        raise AssertionError(f"threefry on the card differs from numpy: {bitwise}")
+
+    cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
+    prompt = mixed_requests(1, cfg.vocab_size, SEED + 4)[0][0]
+
+    def engine():
+        return serve_engine(cfg32, params, kv_layout="paged")
+
+    eng = engine()
+    a, b, c = (eng.submit(prompt, max_new_tokens=16, temperature=SAMPLE_TEMPERATURE, seed=s)
+               for s in (123, 123, 2**32 + 123))
+    greedy = eng.submit(prompt, max_new_tokens=16)
+    top1 = eng.submit(prompt, max_new_tokens=16, temperature=3.0, top_k=1, seed=7)
+    eng.run_until_drained()
+    checks = {"same_seed_same_stream": a.tokens == b.tokens,
+              "other_seed_other_stream": a.tokens != c.tokens,
+              "top_k_1_is_greedy": top1.tokens == greedy.tokens}
+    eng = engine()
+    resumed = eng.submit(prompt, max_new_tokens=16, temperature=SAMPLE_TEMPERATURE, seed=123)
+    for _ in range(6):
+        eng.step()
+    state = eng.checkpoint()
+    eng._release_state()
+    eng.restore(state)
+    eng.run_until_drained()
+    checks["restored_stream_resumes"] = resumed.tokens == a.tokens
+    del eng, state
+    if not all(checks.values()):
+        raise AssertionError(f"seeded sampling on the card: {checks}")
+    runs = {name: phase_serve(cfg, params, "paged", temperature=t)[0]
+            for name, t in (("greedy", 0.0), ("sampled", SAMPLE_TEMPERATURE))}
+    for t in (0.0, SAMPLE_TEMPERATURE):  # one decode window each, side by side
+        phase_profile(cfg, params, "paged", temperature=t, window=PROFILE_WINDOW)
+    emit({"phase": "sampling", "ok": True, "arch": cfg.name, "seeds": len(seeds),
+          "seeds_at_or_above_2^32": sum(x >= 2**32 for x in seeds), "vocab": V,
+          "bitwise": bitwise, "checks": checks, "compute_dtype_checks": "float32",
+          "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+          "step_ms_p50": {k: r["step_ms_p50"] for k, r in runs.items()},
+          "sampled_over_greedy_tokens_per_s":
+              runs["sampled"]["tokens_per_s"] / runs["greedy"]["tokens_per_s"]})
+
+
+# -- MLA and MoE serving at full width -----------------------------------------------
+
+
+def serve_family(arch, param_dtype=torch.float32, stream=False):
+    """``arch`` at its published widths (random weights from a seeded
+    torch.Generator, stored in ``param_dtype``): its path's kernels held
+    against their plain versions at the shapes its serving path gives
+    them (fp32 and bf16); MLA_MOE_REQUESTS greedy requests per layout,
+    the layout's path kernels launched and no other (phase_serve); with
+    ``stream``, the fp32 streams of the kernel and plain paths token for
+    token (phase_stream).  Returns each layout's launches and the paged
+    run's shapes; the parameters are freed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cases = [c for dtype in (torch.float32, torch.bfloat16)
+             for c in serving_shape_cases(gen, arch, dtype)]
+    cfg = get_config(arch).with_overrides(param_dtype=param_dtype)
+    specs = map_tree(lambda p: Param(p.shape, p.axes, param_dtype, p.init, p.scale),
+                     model_specs(cfg))
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), specs, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    launches, shapes = {}, {}
+    for layout in LAYOUTS:
+        out, layout_shapes = phase_serve(cfg, params, layout, n=MLA_MOE_REQUESTS)
+        launches[layout] = out["launches"]
+        shapes[layout] = layout_shapes
+    phase_profile(cfg, params, "paged", n=MLA_MOE_REQUESTS, window=PROFILE_WINDOW)
+    emit({"phase": f"{arch}_kernels", "ok": True, "arch": arch, "params": n_params,
+          "param_dtype": str(param_dtype), "param_gb": n_params * (torch.finfo(
+              param_dtype).bits // 8) / 1e9, "layers": cfg.num_layers,
+          "path_kernels": {layout: list(path_kernels(cfg, layout)) for layout in LAYOUTS},
+          "cases": cases})
+    if stream:
+        phase_stream(cfg, params, n=MLA_MOE_REQUESTS)
+    del params
+    torch.cuda.empty_cache()
+    return cfg, launches, shapes
+
+
+def shape_rows(cfg, launches, shapes, kernels):
+    """Rows of the kernel table's format for ``kernels`` at the serving
+    shapes ``cfg``'s path gives them (the timing phase's inputs: B 8, the
+    run's lengths and page buckets, one input set per layer), with SDPA
+    beside: these are further launch shapes of rows already in the
+    table."""
+    from repro_torch.models.lm import serving_attention_shapes
+
+    dt = cfg.compute_dtype
+    esz = torch.finfo(dt).bits // 8
+    L, B = cfg.num_layers, 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    at_shape = serving_attention_shapes(cfg)
+    out = []
+    for kernel in kernels:
+        H, KV, D = at_shape[kernel]
+        # the run's requests in the first slots, the other slots empty (as
+        # the decode step gives them: length 0, nothing read)
+        run_lens = (shapes["contiguous"]["lens"] + [0] * B)[:B]
+        if kernel == "decode_attention":
+            S = MAX_LEN
+            lens = [min(n, S) for n in run_lens]
+            cases = [contig_decode_case(gen, H, KV, D, S, lens, dt) for _ in range(L)]
+            err = max(check_contig_decode(a)[0] for a in cases[:2])
+            fn, plain = dec.decode_attention_kernel, dec.decode_attention_plain
+            lib = [contig_sdpa_inputs(
+                q[:, :, None], k, v,
+                (torch.arange(S, device="cuda")[None, :] < cl[:, None])[:, None, None, :],
+                H, KV) for q, k, v, cl in cases]
+            live = sum(lens)
+            bytes_ = 2 * live * KV * D * esz + 2 * B * H * D * esz + 4 * B
+            flops, note, replaces = 4 * H * D * live, CONTIG_SDPA, "decode_attention.py:114"
+            at = {"B": B, "H": H, "KV": KV, "D": D, "S": S, "cache_len": lens}
+        elif kernel == "decode_attention_paged":
+            mb = shapes["paged"]["decode_mb"]
+            lens = [min(n, mb * PAGE) for n in run_lens]
+            cases = [decode_case(gen, H, KV, D, mb, lens, dt) for _ in range(L)]
+            err = max(check_decode(a)[0] for a in cases[:2])
+            fn, plain = dec.decode_attention_paged_kernel, dec.decode_attention_paged_plain
+            lib = [sdpa_inputs(q[:, :, None], kp, vp, bt,
+                               (torch.arange(mb * PAGE, device="cuda")[None, :]
+                                < cl[:, None])[:, None, None, :], H, KV)
+                   for q, kp, vp, bt, cl in cases]
+            live = sum(lens)
+            bytes_ = 2 * live * KV * D * esz + 2 * B * H * D * esz + 4 * B * (mb + 1)
+            flops, note, replaces = 4 * H * D * live, PAGED_SDPA, "decode_attention.py:199"
+            at = {"B": B, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mb,
+                  "cache_len": lens}
+        else:  # prefill_attention_paged: a 64-token chunk at base 64, the rest inert
+            T, mbp = shapes["paged"]["prefill_T_mb"]
+            base, clens = [64] + [0] * (B - 1), [T] + [0] * (B - 1)
+            cases = [prefill_case(gen, T, H, KV, D, mbp, base, clens, dt) for _ in range(L)]
+            err = max(check_prefill(a)[0] for a in cases[:2])
+            fn, plain = pf.prefill_attention_paged_kernel, pf.prefill_attention_paged_plain
+            lib = [sdpa_inputs(q.transpose(1, 2).contiguous(), kp, vp, bt,
+                               causal_mask(bs, T, mbp * PAGE), H, KV)
+                   for q, kn, vn, kp, vp, bt, bs, cl in cases]
+            bytes_ = prefill_bytes(base, clens, T, B, H, KV, D, esz, 4 * B * (mbp + 2))
+            flops = prefill_flops(base, clens, H, D)
+            note, replaces = PAGED_SDPA, "prefill_attention.py:222"
+            at = {"B": B, "T": T, "H": H, "KV": KV, "D": D, "page": PAGE, "max_pages": mbp,
+                  "base": base, "chunk_lens": clens}
+        nxt, lib_nxt = rotate(cases), rotate(lib)
+        row = kernel_row(
+            kernel, f"src/repro/kernels/{replaces}", launches, err,
+            cuda_ms(lambda: fn(*nxt())), cuda_ms(lambda: plain(*nxt())), bytes_, flops,
+            cuda_ms(lambda: sdpa(*lib_nxt())), note,
+            {**at, "arch": cfg.name, "dtype": str(dt)},
+            lib_us=device_us_per_call(lambda: sdpa(*lib_nxt()))[0])
+        row["device_us_per_launch"] = device_us_per_call(lambda: fn(*nxt()), reps=2 * L)[0]
+        out.append(row)
+        del cases, lib
+    emit({"phase": "timing", "ok": True, "arch": cfg.name, "rows": out})
+    return out
+
+
+def phase_mla_moe():
+    """minicpm3-4b (MLA, fp32 parameters, fp32 streams held kernel path
+    to plain path) and moonshot-v1-16b-a3b (MoE, bf16 parameters) served
+    at their published widths, one after the other (serve_family); then
+    kernel 2 timed at the MLA serving shape and kernels 3 and 5 at
+    moonshot's (shape_rows).  Returns each phase's launches per kernel
+    and the rows."""
+    cfg, launches, shapes = serve_family(MLA, stream=True)
+    mla_launches = {k: sum(launches[layout][k] for layout in LAYOUTS) for k in COUNTED}
+    rows = shape_rows(cfg, mla_launches, shapes, ("decode_attention",))
+    cfg, launches, shapes = serve_family(MOE, param_dtype=MOE_PARAM_DTYPE)
+    moe_launches = {k: sum(launches[layout][k] for layout in LAYOUTS) for k in COUNTED}
+    rows += shape_rows(cfg, moe_launches, shapes,
+                       ("decode_attention_paged", "prefill_attention_paged"))
+    torch.cuda.empty_cache()
+    return {"mla": mla_launches, "moe": moe_launches}, rows
 
 
 def corpus_batches(cfg, steps: int):
@@ -2265,11 +2631,15 @@ def main() -> int:
         row.setdefault("device_us_per_launch", device_us[row["name"]])
     lap("profile")
     phase_stream(cfg, params)
+    lap("stream")
+    phase_sampling(cfg, params)
     del params
     torch.cuda.empty_cache()
-    lap("stream")
+    lap("sampling")
     phase_phi3()
     lap("phi3")
+    family_launches, family_rows = phase_mla_moe()
+    lap("mla_moe")
     flash_launches, flash_us = phase_train(cfg)
     torch.cuda.empty_cache()
     lap("train")
@@ -2277,12 +2647,16 @@ def main() -> int:
     lap("train_parity")
     rt_train, rt_serve = phase_runtime(cfg)
     lap("runtime")
-    # rows 1, 3 and 5 count the runtime phase's launches too
+    # the serving rows count the launches of every main path that runs
+    # them: the runtime phase's service stage, the MLA and MoE phases; and
+    # carry their timings at the MLA and MoE serving shapes
     for row in rows:
-        if row["name"] in rt_serve and rt_serve[row["name"]]:
-            row["launches_by_phase"] = {"serve": row["launches"],
-                                        "runtime": rt_serve[row["name"]]}
-            row["launches"] += rt_serve[row["name"]]
+        by_phase = {"serve": row["launches"], "runtime": rt_serve.get(row["name"], 0),
+                    **{k: v[row["name"]] for k, v in family_launches.items()}}
+        if any(v for k, v in by_phase.items() if k != "serve"):
+            row["launches_by_phase"] = by_phase
+            row["launches"] = sum(by_phase.values())
+        row["at_other_shapes"] = [r for r in family_rows if r["name"] == row["name"]]
     rows.append(flash_row(cfg, {"flash_attention": flash_launches
                                 + rt_train["flash_attention"]}, flash_us,
                           new_us["flash_attention_library"]))

@@ -81,9 +81,19 @@ def _init_one(generator: torch.Generator, p: Param, device) -> torch.Tensor:
         std = p.scale if p.scale is not None else 1.0 / math.sqrt(max(_fan_in(p.shape), 1))
     else:
         raise ValueError(f"unknown init {p.init}")
-    x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(p.dtype)
+    if p.dtype == torch.float32 or len(p.shape) < 2:
+        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * std).to(p.dtype)
+    # a low-precision tensor is drawn slice by slice along its first dim:
+    # the fp32 draws of a whole stacked expert tensor would be twice its
+    # size again, and then some (moonshot's in bf16: 17 GB, 35 GB of draws)
+    out = torch.empty(p.shape, dtype=p.dtype, device=device)
+    for i in range(p.shape[0]):
+        x = torch.randn(p.shape[1:], generator=generator, dtype=torch.float32,
+                        device=device)
+        out[i] = (x * std).to(p.dtype)
+    return out
 
 
 def init_params(generator: torch.Generator, specs: PyTree,

@@ -28,15 +28,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# dtype codes of the C interface; head dims the attention kernels are
+# dtype codes of the C interface; head dims every attention kernel is
 # instantiated for (every `case` of their dispatch tables)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DTYPES = tuple(DTYPE_CODE)
 HEAD_DIMS = (16, 32, 64, 96, 128)
+# further head dims of one kernel: the only path that needs each, and the
+# config it serves (no served config reaches another kernel there)
+EXTRA_HEAD_DIMS = {
+    "decode_attention": {24: "minicpm3's expanded MLA decode at smoke width"},
+}
 # head dims of the repo's configs that no kernel takes yet, and the
 # ROADMAP.md item whose port adds each
 PENDING_HEAD_DIMS = {
-    24: "ROADMAP.md queue 1 item 3 (minicpm3's expanded MLA decode at smoke width)",
     256: "ROADMAP.md queue 1 item 5 (recurrentgemma)",
 }
 
@@ -74,14 +78,27 @@ EXTRA_ENTRIES = {
 }
 
 
-def check_head_dim(D: int) -> None:
-    """Raise ValueError when no attention kernel is instantiated for head
-    dim ``D``, naming the item that will add it where one does."""
-    if D in HEAD_DIMS:
+def head_dims(kernel: str) -> tuple:
+    """The head dims attention kernel ``kernel`` is instantiated for."""
+    return tuple(sorted((*HEAD_DIMS, *EXTRA_HEAD_DIMS.get(kernel, ()))))
+
+
+def check_head_dim(kernel: str, D: int) -> None:
+    """Raise ValueError when attention kernel ``kernel`` is not
+    instantiated for head dim ``D``, naming the item that will add it where
+    one does, or the one kernel that takes it."""
+    dims = head_dims(kernel)
+    if D in dims:
         return
+    msg = f"{kernel}: head dim {D} not in {dims}"
     todo = PENDING_HEAD_DIMS.get(D)
-    raise ValueError(f"head dim {D} not in {HEAD_DIMS}"
-                     + (f"; {todo} adds it" if todo else ""))
+    owners = [(k, extra[D]) for k, extra in EXTRA_HEAD_DIMS.items() if D in extra]
+    if todo:
+        msg += f"; {todo} adds it"
+    elif owners:
+        msg += "".join(f"; only {k} takes it ({why}): no served config reaches "
+                       f"{kernel} at head dim {D}" for k, why in owners)
+    raise ValueError(msg)
 
 
 def _nvcc() -> str:

@@ -23,6 +23,11 @@
 // combine launch) took 33.3-35.7 us at that shape on an NVIDIA H100 80GB
 // HBM3 at 700 W (8.3-8.7 of it in the combine; PERF.md).
 //
+// Head dims: 16, 24, 32, 64, 96 and 128.  24 is minicpm3's expanded MLA
+// decode at smoke width (nope 16 + rope 8); the bf16 body stages and
+// multiplies it padded to 32 with zeros (decode_tc.cuh), the fp32 body
+// takes it as it is.
+//
 // Which body runs is the wrapper's choice (kernels/decode_attention.py),
 // passed in as `tensor_cores`; this file checks that the inputs allow it
 // and sizes nothing itself.
@@ -314,6 +319,7 @@ cudaError_t dispatch_dim(int D, bool tc, const void* q, const void* k, const voi
                          int nsplit, int window, float scale, cudaStream_t s) {
   switch (D) {
     case 16: return launch<T, 16>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
+    case 24: return launch<T, 24>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     case 32: return launch<T, 32>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     case 64: return launch<T, 64>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     case 96: return launch<T, 96>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);

@@ -39,14 +39,22 @@ constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecKeys = 16;         // keys of a warp's tile: one k16 step of P V
 constexpr int kDecStages = 3;        // tiles a warp keeps in flight
 
+// A head dim that is not a multiple of 16 (24: minicpm3's expanded MLA
+// decode at smoke width) is staged and multiplied at DP, the next multiple
+// of 16: the chunks of a K or V row past D are zero-filled by cp.async and
+// Q's columns past D are zeros, so the pad adds exact zeros to S = Q K^T
+// and fills columns of O that are never written out.
 template <int D>
 struct DecShape {
-  static constexpr int kRow = D + 8;                    // a staged row, elements
+  static_assert(D % 8 == 0, "rows are staged in 16-byte chunks");
+  static constexpr int kDP = (D + 15) / 16 * 16;        // the padded head dim
+  static constexpr int kRow = kDP + 8;                  // a staged row, elements
   static constexpr int kTileBytes = kDecKeys * kRow * 2;  // a K or V tile
   static constexpr int kWarpBytes = kDecStages * 2 * kTileBytes;  // a warp's ring
-  static constexpr int kChunks = D / 8;                 // 16 B chunks of a row
-  static constexpr int kSteps = D / 16;                 // k16 steps of Q K^T
-  static constexpr int kCols = D / 8;                   // n8 tiles of P V
+  static constexpr int kChunks = kDP / 8;               // 16 B chunks of a staged row
+  static constexpr int kLiveChunks = D / 8;             // of them, those read from memory
+  static constexpr int kSteps = kDP / 16;               // k16 steps of Q K^T
+  static constexpr int kCols = kDP / 8;                 // n8 tiles of P V
 };
 
 // A warp's running state: O for rows r0 = lane/4 and r0 + 8 (index h) of
@@ -105,7 +113,7 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
       const int c = lane + 32 * it;
       const int r = c / Sh::kChunks;
       const int ch = c % Sh::kChunks;
-      const bool live = p0 + r < end;
+      const bool live = p0 + r < end && ch < Sh::kLiveChunks;
       const size_t off = live ? key_off(p0 + r) + ch * 8 : 0;
       const uint32_t o = (uint32_t)(r * Sh::kRow + ch * 8) * 2;
       cp_async16(dst + o, k + off, live ? 16 : 0);
@@ -128,7 +136,7 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
 #pragma unroll
       for (int x = 0; x < 4; ++x) {  // rows r0, r0 + 8; columns c2, 8 + c2
         const int r = 16 * mt + r0 + 8 * (x & 1);
-        qa[mt][ks][x] = r < G ? __ldg(reinterpret_cast<const unsigned int*>(
+        qa[mt][ks][x] = r < G && 16 * ks + 8 * (x >> 1) < D ? __ldg(reinterpret_cast<const unsigned int*>(
                                     q + r * D + 16 * ks + 8 * (x >> 1) + c2))
                               : 0u;
       }
@@ -268,7 +276,7 @@ __device__ __forceinline__ void dec_merge(const DecAcc<D, MT>& acc, int G, unsig
         l_s[warp * 16 * MT + r] = acc.l[mt][h];
       }
 #pragma unroll
-      for (int n = 0; n < DecShape<D>::kCols; ++n)
+      for (int n = 0; n < D / 8; ++n)  // the pad columns past D are dropped
         *reinterpret_cast<float2*>(o_s + ((size_t)warp * G + r) * D + 8 * n + 2 * (lane % 4)) =
             make_float2(acc.o[mt][n][2 * h], acc.o[mt][n][2 * h + 1]);
     }

@@ -119,7 +119,7 @@ def decode_partials(nsplit: int, B: int, KV: int, G: int, D: int, device):
                                                device=device)
 
 
-def _check(q, k, v, cache_len):
+def _check(kernel, q, k, v, cache_len):
     """Checks both kernels share; ``k``, ``v`` are the caches or pools."""
     B, H, D = q.shape
     KV, Dk = k.shape[2], k.shape[3]
@@ -134,7 +134,7 @@ def _check(q, k, v, cache_len):
         raise ValueError("caches must have q's dtype")
     if Dk != D or v.shape != k.shape:
         raise ValueError(f"caches {tuple(k.shape)} do not match q's head dim {D}")
-    build.check_head_dim(D)
+    build.check_head_dim(kernel, D)
     if H % KV or cache_len.shape != (B,):
         raise ValueError("shape mismatch: q [B,H,D], cache_len [B], "
                          "H % KV == 0")
@@ -148,7 +148,7 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
     otherwise)."""
     B, H, D = q.shape
     cache_len = _ref.rows_i32(cache_len, B, q.device)
-    _check(q, k, v, cache_len)
+    _check("decode_attention", q, k, v, cache_len)
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     if k.shape[0] != B or G > 32 or S < 1 or window < 0:
@@ -186,7 +186,7 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table, cache_len, *
     otherwise)."""
     B, H, D = q.shape
     cache_len = _ref.rows_i32(cache_len, B, q.device)
-    _check(q, k_pages, v_pages, cache_len)
+    _check("decode_attention_paged", q, k_pages, v_pages, cache_len)
     if block_table.device != q.device or block_table.dtype != torch.int32 \
             or block_table.shape[0] != B or not block_table.is_contiguous():
         raise ValueError("block_table must be a contiguous int32 [B, "

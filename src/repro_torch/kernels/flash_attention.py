@@ -46,7 +46,7 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
     B, H, S, D = q.shape
     KV = k.shape[1]
-    build.check_head_dim(D)
+    build.check_head_dim("flash_attention", D)
     if k.shape != (B, KV, S, D) or v.shape != k.shape or H % KV \
             or H // KV > 128 or B * KV > 65535:
         raise ValueError("shape mismatch: q [B,H,S,D], k/v [B,KV,S,D], "

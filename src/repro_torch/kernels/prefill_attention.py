@@ -43,27 +43,46 @@ prefill_attention_plain = _ref.prefill_attention_ref
 prefill_attention_paged_plain = _ref.prefill_attention_paged_ref
 
 
+def _put_rows(flat: torch.Tensor, tgt: torch.Tensor, vals: torch.Tensor,
+              keep: torch.Tensor) -> None:
+    """``flat[tgt[i]] = vals[i]`` for every ``i`` with ``keep[i]``, in
+    place, with no host sync (a boolean-mask index would sync the card's
+    host).  A dropped row writes the first kept row's value to that row's
+    target again, so a duplicate target carries one value and the order
+    of the writes does not matter; with no kept row every row writes
+    ``flat[0]`` back onto itself.  flat [N, W]; tgt [M] int64; vals
+    [M, W]; keep [M] bool."""
+    # index_select, not tgt[first]: a 0-d tensor index is read on the host
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
+    live = keep.any()
+    vals = vals.to(flat.dtype)
+    fb_t = torch.where(live, tgt.index_select(0, first), 0)
+    fb_v = torch.where(live, vals.index_select(0, first), flat[:1])
+    flat.index_copy_(0, torch.where(keep, tgt, fb_t), torch.where(keep[:, None], vals, fb_v))
+
+
 def write_chunk(cache: torch.Tensor, new: torch.Tensor, base,
                 chunk_lens) -> torch.Tensor:
     """Scatter ``new [B, T, ...]`` into ``cache [B, S, ...]`` at per-row
-    offsets ``base``, in place; positions at or past ``chunk_lens[b]``
-    drop, and so do positions outside ``[0, S)``."""
+    offsets ``base``, in place and without a host sync; positions at or
+    past ``chunk_lens[b]`` drop, and so do positions outside ``[0, S)``."""
     B, T, S = new.shape[0], new.shape[1], cache.shape[1]
     dev = cache.device
     j = torch.arange(T, device=dev)[None, :]
     pos = _ref.as_rows(base, B, dev)[:, None] + j
     keep = (j < _ref.as_rows(chunk_lens, B, dev)[:, None]) & (pos >= 0) & (pos < S)
-    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
-    cache[rows[keep], pos[keep]] = new[keep].to(cache.dtype)
+    tgt = torch.arange(B, device=dev)[:, None] * S + pos
+    _put_rows(cache.view(B * S, -1), tgt.reshape(-1), new.reshape(B * T, -1),
+              keep.reshape(-1))
     return cache
 
 
 def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
                       new: torch.Tensor, base, chunk_lens) -> torch.Tensor:
     """Scatter ``new [B, T, ...]`` through per-row block tables into the
-    shared page pool, in place.  Unallocated logical pages hit the
-    sentinel (>= num_pages) and the write drops, as do padding positions
-    (``j >= chunk_lens[b]``)."""
+    shared page pool, in place and without a host sync.  Unallocated
+    logical pages hit the sentinel (>= num_pages) and the write drops, as
+    do padding positions (``j >= chunk_lens[b]``)."""
     num_pages, page_size = pages.shape[0], pages.shape[1]
     B, T = new.shape[0], new.shape[1]
     max_pages = block_table.shape[1]
@@ -79,28 +98,22 @@ def write_chunk_paged(pages: torch.Tensor, block_table: torch.Tensor,
         block_table.to(torch.int64)[rows, lp.clamp(max=max_pages - 1)],
         num_pages)
     keep = (phys >= 0) & (phys < num_pages)
-    pages[phys[keep], (pos % page_size)[keep]] = new[keep].to(pages.dtype)
+    _put_rows(pages.view(num_pages * page_size, -1),
+              (phys * page_size + pos % page_size).reshape(-1), new.reshape(B * T, -1),
+              keep.reshape(-1))
     return pages
 
 
 def paged_append_plain(pages: torch.Tensor, block_table: torch.Tensor,
                        idx: torch.Tensor, row_vals: torch.Tensor) -> torch.Tensor:
     """Scatter one new position per row into the shared page pool, in
-    place.  ``idx`` [B] is each row's append position; unallocated /
-    out-of-range logical pages hit the sentinel (>= num_pages) and the
-    write drops."""
-    num_pages, page_size = pages.shape[0], pages.shape[1]
-    max_pages = block_table.shape[1]
-    idx = idx.to(torch.int64)
-    rows = torch.arange(block_table.shape[0], device=pages.device)
-    lp = idx // page_size
-    phys = torch.where(
-        lp < max_pages,
-        block_table.to(torch.int64)[rows, lp.clamp(max=max_pages - 1)],
-        num_pages)
-    keep = (phys >= 0) & (phys < num_pages)
-    pages[phys[keep], (idx % page_size)[keep]] = row_vals[keep].to(pages.dtype)
-    return pages
+    place: ``write_chunk_paged`` of one token at ``idx`` [B] (or a
+    scalar); unallocated / out-of-range logical pages hit the sentinel
+    (>= num_pages) and the write drops."""
+    # the chunk length made on the device: a Python 1 would be copied from
+    # the host, a synchronous copy
+    ones = torch.ones(row_vals.shape[0], dtype=torch.int32, device=pages.device)
+    return write_chunk_paged(pages, block_table, row_vals[:, None], idx, ones)
 
 
 def write_chunk_paged_kernel(k_pages, v_pages, block_table, k_new, v_new,
@@ -174,7 +187,7 @@ def paged_append(k_pages, v_pages, block_table, idx, k_row, v_row):
     return paged_append_kernel(k_pages, v_pages, block_table, idx, k_row, v_row)
 
 
-def _check_chunk(q, k_new, v_new, k_cache, v_cache):
+def _check_chunk(kernel, q, k_new, v_new, k_cache, v_cache):
     """Device, dtype, head-dim and contiguity checks the two kernels share
     (caches: the contiguous rows or the page pools)."""
     B, T, H, D = q.shape
@@ -191,7 +204,7 @@ def _check_chunk(q, k_new, v_new, k_cache, v_cache):
     KV, Dk = k_cache.shape[2], k_cache.shape[3]
     if Dk != D or v_cache.shape != k_cache.shape:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match q's head dim {D}")
-    build.check_head_dim(D)
+    build.check_head_dim(kernel, D)
     if H % KV or H // KV > 128 or k_new.shape != (B, T, KV, D) \
             or v_new.shape != k_new.shape:
         raise ValueError("shape mismatch: q [B,T,H,D], k/v_new [B,T,KV,D], "
@@ -206,7 +219,7 @@ def prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
     """Launch the CUDA kernels (CUDA tensors only, raises otherwise): the
     chunk scatter into the caches, in place, then the attention.  Returns
     ``(out [B, T, H, D], k_cache, v_cache)``."""
-    _check_chunk(q, k_new, v_new, k_cache, v_cache)
+    _check_chunk("prefill_attention", q, k_new, v_new, k_cache, v_cache)
     B, T, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != B:
@@ -244,7 +257,7 @@ def prefill_attention(q, k_new, v_new, k_cache, v_cache, base, chunk_lens):
 
 
 def _check_paged(q, k_new, v_new, k_pages, v_pages, block_table):
-    _check_chunk(q, k_new, v_new, k_pages, v_pages)
+    _check_chunk("prefill_attention_paged", q, k_new, v_new, k_pages, v_pages)
     if block_table.device != q.device:
         raise ValueError(f"block_table on {block_table.device}, q on {q.device}")
     if block_table.dtype != torch.int32:

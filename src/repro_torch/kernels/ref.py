@@ -31,13 +31,14 @@ def rows_i32(x, B: int, device) -> torch.Tensor:
 
 
 def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
-    """[num_pages, page, KV, D] pool through a [B, max_pages] table ->
-    contiguous [B, max_pages*page, KV, D]; sentinel entries are clamped,
-    they only address positions past a row's live prefix."""
-    num_pages, page_size, KV, D = pages.shape
+    """[num_pages, page, ...] pool (K/V, or MLA latents) through a
+    [B, max_pages] table -> contiguous [B, max_pages*page, ...]; sentinel
+    entries are clamped, they only address positions past a row's live
+    prefix."""
+    num_pages, page_size = pages.shape[:2]
     B, max_pages = block_table.shape
     bt = block_table.to(torch.int64).clamp(0, num_pages - 1)
-    return pages[bt].reshape(B, max_pages * page_size, KV, D)
+    return pages[bt].reshape(B, max_pages * page_size, *pages.shape[2:])
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:

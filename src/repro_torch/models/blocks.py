@@ -1,7 +1,8 @@
-"""Transformer building blocks (mirror of the GQA subset of
-``repro.models.blocks``): RMSNorm, RoPE, chunked flash-style attention,
-GQA attention without a cache (training) and over a KV cache (paged and
-contiguous serving), and the SwiGLU/GeGLU/GELU MLP.
+"""Transformer building blocks (mirror of ``repro.models.blocks`` but for
+windows and M-RoPE): RMSNorm, RoPE, chunked flash-style attention, GQA
+and MLA attention without a cache (training) and over a KV cache (paged
+and contiguous serving), the SwiGLU/GeGLU/GELU MLP, and the GShard
+capacity-based top-k MoE (einsum and gather dispatch).
 
 Every block is a pair of functions: ``<kind>_specs(cfg)`` declares the
 parameters, ``<kind>_apply(cfg, params, x, ...)`` runs the forward.
@@ -21,6 +22,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.params import Param
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.prefill_attention import (paged_append_plain, write_chunk,
+                                                   write_chunk_paged)
+from repro_torch.kernels.ref import _gather_pages, as_rows, prefill_attend_ref
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -324,6 +328,181 @@ def attn_apply(
 
 
 # ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    H, _ = cfg.padded_gqa()
+    specs: Dict[str, Any] = {
+        "norm": rmsnorm_specs(d),
+        "wkv_a": Param((d, kvr + rd), ("embed", None)),
+        "kv_norm": rmsnorm_specs(kvr),
+        "wk_b": Param((kvr, H, nd), ("kv_lora", "heads", None)),
+        "wv_b": Param((kvr, H, vd), ("kv_lora", "heads", None)),
+        "wo": Param((H, vd, d), ("heads", None, "embed")),
+    }
+    if qr > 0:
+        specs["wq_a"] = Param((d, qr), ("embed", "q_lora"))
+        specs["q_norm"] = rmsnorm_specs(qr)
+        specs["wq_b"] = Param((qr, H, nd + rd), ("q_lora", "heads", None))
+    else:
+        specs["wq"] = Param((d, H, nd + rd), ("embed", "heads", None))
+    return specs
+
+
+def mla_apply(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+    *,
+    chunk_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head latent attention over a latent cache: contiguous
+    ``{"c_kv" [B,S,kv_lora], "k_pe" [B,S,rope], "len"}`` or paged
+    ``{"ckv_pages", "kpe_pages", "block_table", "len"}``.  The branches of
+    ``attn_apply``: the ragged chunked prefill (``chunk_lens``, either
+    layout), the batched prefill into an empty contiguous cache, the
+    paged decode, the per-slot ([B] ``len``) and scalar decode, and the
+    no-cache full attention.  The latents are written by the plain,
+    sync-free cache scatters (``write_chunk``, ``write_chunk_paged``,
+    ``paged_append_plain``: plain jnp in JAX too).  The decodes expand the
+    cached latents to per-head K and V (KV == H, so the group is 1) and
+    attend through the contiguous decode op on either layout; the
+    prefills attend through the plain masked or chunked attention, as JAX
+    does.  Caches are written in place."""
+    cdt = cfg.compute_dtype
+    B, S, _ = x.shape
+    nd, kvr = cfg.nope_head_dim, cfg.kv_lora_rank
+    h = rmsnorm_apply(params["norm"], x, cfg.norm_eps).to(cdt)
+    if cfg.q_lora_rank > 0:
+        ql = torch.einsum("bsd,dr->bsr", h, params["wq_a"].to(cdt))
+        ql = rmsnorm_apply(params["q_norm"], ql, cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", ql, params["wq_b"].to(cdt))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", h, params["wq"].to(cdt))
+    q_nope = q[..., :nd]
+    q_pe = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    kv = torch.einsum("bsd,dr->bsr", h, params["wkv_a"].to(cdt))
+    c_kv = rmsnorm_apply(params["kv_norm"], kv[..., :kvr], cfg.norm_eps)
+    k_pe = apply_rope(kv[..., kvr:][:, :, None, :], positions, cfg.rope_theta)  # [B,S,1,rd]
+
+    new_cache = None
+    if cache is not None and S > 1 and chunk_lens is not None:
+        # ragged chunked prefill: append the latent chunk at each row's
+        # own base offset (either layout), then attend the full cached
+        # latents with per-row causal masking
+        base = as_rows(cache["len"], B, x.device).to(torch.int32)
+        chunk_lens = chunk_lens.to(torch.int32)
+        if "ckv_pages" in cache:
+            bt = cache["block_table"]
+            ckv_pages = write_chunk_paged(cache["ckv_pages"], bt, c_kv, base, chunk_lens)
+            kpe_pages = write_chunk_paged(cache["kpe_pages"], bt, k_pe[:, :, 0], base,
+                                          chunk_lens)
+            new_cache = {"ckv_pages": ckv_pages, "kpe_pages": kpe_pages,
+                         "block_table": bt, "len": base + chunk_lens}
+            ckv_c, kpe_c = _gather_pages(ckv_pages, bt), _gather_pages(kpe_pages, bt)
+        else:
+            ckv_c = write_chunk(cache["c_kv"], c_kv, base, chunk_lens)
+            kpe_c = write_chunk(cache["k_pe"], k_pe[:, :, 0], base, chunk_lens)
+            new_cache = {"c_kv": ckv_c, "k_pe": kpe_c, "len": base + chunk_lens}
+        o = _mla_ragged_prefill_attn(cfg, params, q_nope, q_pe, ckv_c, kpe_c,
+                                     base, chunk_lens, cdt)
+    elif cache is not None and S > 1:
+        # batched prefill into an empty cache: write the whole prompt's
+        # latents, then the full-attention pass over the fresh latents
+        if "ckv_pages" in cache:
+            raise NotImplementedError(
+                "paged prefill without chunk_lens is not supported: pass "
+                "per-row chunk_lens to run the ragged prefill through the "
+                "block tables")
+        _check_prefill_base(cache["len"])
+        if S > cache["c_kv"].shape[1]:
+            raise ValueError(f"a {S}-token prefill does not fit a cache of "
+                             f"{cache['c_kv'].shape[1]} positions")
+        cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_pe"][:, :S] = k_pe[:, :, 0].to(cache["k_pe"].dtype)
+        new_cache = {"c_kv": cache["c_kv"], "k_pe": cache["k_pe"], "len": S}
+        o = _mla_full_attention(cfg, params, q_nope, q_pe, c_kv, k_pe, cdt)
+    elif cache is not None and "ckv_pages" in cache:
+        # paged decode: the latents append into the shared pools through
+        # the block table, then gather, expand per head and attend
+        idx = torch.as_tensor(cache["len"], device=x.device)
+        bt = cache["block_table"]
+        ckv_pages = paged_append_plain(cache["ckv_pages"], bt, idx, c_kv[:, 0])
+        kpe_pages = paged_append_plain(cache["kpe_pages"], bt, idx, k_pe[:, 0, 0])
+        new_cache = {"ckv_pages": ckv_pages, "kpe_pages": kpe_pages,
+                     "block_table": bt, "len": idx + 1}
+        o = _mla_expanded_decode(cfg, params, q_nope, q_pe, _gather_pages(ckv_pages, bt),
+                                 _gather_pages(kpe_pages, bt), idx + 1, cdt)
+    elif cache is not None:
+        idx = torch.as_tensor(cache["len"], device=x.device)
+        ckv_c, kpe_c = cache["c_kv"], cache["k_pe"]
+        if idx.ndim == 1:  # per-slot decode (continuous batching)
+            _slot_append(ckv_c, idx, c_kv[:, 0])
+            _slot_append(kpe_c, idx, k_pe[:, 0, 0])
+        else:  # one position for every row, clamped as dynamic_update_slice
+            pos = idx.to(torch.int64).clamp(0, ckv_c.shape[1] - 1).reshape(1)
+            ckv_c.index_copy_(1, pos, c_kv.to(ckv_c.dtype))
+            kpe_c.index_copy_(1, pos, k_pe[:, :, 0].to(kpe_c.dtype))
+        new_cache = {"c_kv": ckv_c, "k_pe": kpe_c, "len": idx + 1}
+        o = _mla_expanded_decode(cfg, params, q_nope, q_pe, ckv_c, kpe_c, idx + 1, cdt)
+    else:
+        o = _mla_full_attention(cfg, params, q_nope, q_pe, c_kv, k_pe, cdt)
+    y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
+    return x + y.to(x.dtype), new_cache
+
+
+def _mla_expand(cfg, params, q_nope, q_pe, ckv, kpe, cdt):
+    """Latents [B,S,kv_lora] and [B,S,1 or none,rope] -> per-head q, K and
+    V [..., H, nope + rope]; V is zero-padded from v_head_dim to the qk
+    head dim for the shared attention, and trimmed after it (the padded
+    columns come out exact zeros)."""
+    B, Sc = ckv.shape[0], ckv.shape[1]
+    H = q_nope.shape[2]
+    nd, rd, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv.to(cdt), params["wk_b"].to(cdt))
+    v_full = torch.einsum("bsr,rhk->bshk", ckv.to(cdt), params["wv_b"].to(cdt))
+    kpe = kpe.reshape(B, Sc, 1, rd).to(k_nope.dtype).expand(B, Sc, H, rd)
+    k_full = torch.cat([k_nope, kpe], dim=-1)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    v_pad = F.pad(v_full, (0, nd + rd - vd)) if vd < nd + rd else v_full
+    return q_full, k_full, v_pad
+
+
+def _mla_ragged_prefill_attn(cfg, params, q_nope, q_pe, ckv_c, kpe_c, base, clens, cdt):
+    """Ragged MLA prefill attention: the full cached latents expanded per
+    head, the [B,T] query chunk attending them at per-row offsets
+    (padding query rows exact zero) on the masked oracle the prefill
+    kernels share."""
+    q_full, k_full, v_pad = _mla_expand(cfg, params, q_nope, q_pe, ckv_c, kpe_c, cdt)
+    return prefill_attend_ref(q_full, k_full, v_pad, base, clens)[..., :cfg.v_head_dim]
+
+
+def _mla_expanded_decode(cfg, params, q_nope, q_pe, ckv_c, kpe_c, lens, cdt):
+    """MLA single-step decode: the cached latents expanded to full K/V per
+    head, through the contiguous decode op (KV == H after the expansion,
+    so the group is 1); V padded to the qk head dim, then trimmed."""
+    q_full, k_full, v_pad = _mla_expand(cfg, params, q_nope, q_pe, ckv_c, kpe_c, cdt)
+    o = ops.decode_attention(q_full[:, 0].contiguous(), k_full, v_pad, lens,
+                             impl=cfg.decode_impl)
+    return o[:, None].to(q_full.dtype)[..., :cfg.v_head_dim]
+
+
+def _mla_full_attention(cfg, params, q_nope, q_pe, c_kv, k_pe, cdt):
+    """Full causal MLA pass over the in-flight latents (the training
+    forward and the batched prefill), on the chunked attention."""
+    q_full, k_full, v_pad = _mla_expand(cfg, params, q_nope, q_pe, c_kv, k_pe, cdt)
+    return chunked_attention(q_full, k_full, v_pad, causal=True, q_chunk=cfg.q_chunk,
+                             kv_chunk=cfg.kv_chunk)[..., :cfg.v_head_dim]
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -358,3 +537,120 @@ def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         u = _act(cfg.mlp_act, u)
     y = u @ params["w2"].to(cdt)
     return x + y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard capacity-based top-k)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    specs: Dict[str, Any] = {
+        "norm": rmsnorm_specs(d),
+        "router": Param((d, E), ("embed", "experts"), init="normal", scale=0.02),
+        "w1": Param((E, d, ff), ("experts", "embed", "expert_mlp")),
+        "w2": Param((E, ff, d), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        specs["w3"] = Param((E, d, ff), ("experts", "embed", "expert_mlp"))
+    if cfg.moe_dense_residual:
+        specs["dense"] = mlp_specs(cfg, cfg.dense_ff or cfg.d_ff)
+    return specs
+
+
+def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    c = int(math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor
+                      / cfg.num_experts))
+    return max(c, 4)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last dim, in descending
+    order, a tie going to the lower index (a stable descending sort;
+    ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg, params, h):
+    """h [G,S,d] -> gates [G,S,k] (renormalised over the k), idx [G,S,k],
+    and the Switch-style load-balance aux loss."""
+    E = cfg.num_experts
+    logits = torch.einsum("gsd,de->gse", h, params["router"].to(h.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, idx = top_k(probs, cfg.top_k)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], E).float().sum(dim=-2).mean(dim=0) / probs.shape[1]
+    aux = (me * ce).sum() * E
+    return gates.to(h.dtype), idx, aux
+
+
+def _positions_in_expert(idx, E, S):
+    """idx [G,S,k] -> each choice's slot in its expert (priority by k,
+    then token order) [G,S,k], and the expert one-hots [G,S,k,E]."""
+    G, _, K = idx.shape
+    onehots = F.one_hot(idx, E).to(torch.int32)
+    flat = onehots.permute(0, 2, 1, 3).reshape(G, K * S, E)
+    pos_flat = ((torch.cumsum(flat, dim=1) - 1) * flat).sum(dim=-1)  # [G,k*S]
+    return pos_flat.reshape(G, K, S).permute(0, 2, 1), onehots
+
+
+def moe_apply(cfg: ModelConfig, params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y, aux_loss).  One routing group per batch row, each
+    expert taking at most ``_capacity(S)`` tokens of a group; choices past
+    it drop.  ``moe_impl="einsum"`` dispatches and combines by dense
+    one-hot einsums, ``"gather"`` by index gathers; both compute the same
+    function."""
+    cdt = cfg.compute_dtype
+    B, S, d = x.shape
+    E = cfg.num_experts
+    dev = x.device
+    h = rmsnorm_apply(params["norm"], x, cfg.norm_eps).to(cdt)
+    G = B  # one routing group per batch row
+    hg = h.reshape(G, S, d)
+    C = _capacity(S, cfg)
+    gates, idx, aux = _route(cfg, params, hg)
+    pos, onehots = _positions_in_expert(idx, E, S)
+    keep = ((pos < C) & (gates > 0)).to(cdt)
+
+    if cfg.moe_impl == "einsum":
+        # one_hot of a position past C is all zeros, as jax.nn.one_hot
+        pos_oh = (pos[..., None] == torch.arange(C, device=dev)).to(cdt)  # [G,S,k,C]
+        sel = onehots.to(cdt) * keep[..., None]
+        disp = torch.einsum("gske,gskc->gsec", sel, pos_oh)
+        expert_in = torch.einsum("gsec,gsd->gecd", disp, hg)
+        expert_out = _expert_ffn(cfg, params, expert_in)
+        # the combine is gate-weighted per k-choice
+        comb = torch.einsum("gske,gskc,gsk->gsec", sel, pos_oh, gates * keep)
+        y = torch.einsum("gsec,gecd->gsd", comb, expert_out).reshape(B, S, d)
+    else:
+        gi = torch.arange(G, device=dev)[:, None, None]
+        # token of each (expert, slot), sentinel S; choices past capacity
+        # land in a spill column C that is cut off (JAX drops them)
+        slot_token = torch.full((G, E, C + 1), S, dtype=torch.int64, device=dev)
+        tok = torch.arange(S, device=dev)[None, :, None].expand(idx.shape)
+        slot_token[gi.expand(idx.shape), idx, pos.clamp(max=C)] = tok
+        h_pad = torch.cat([hg, hg.new_zeros(G, 1, d)], dim=1)
+        expert_in = h_pad[gi, slot_token[:, :, :C]]                     # [G,E,C,d]
+        expert_out = _expert_ffn(cfg, params, expert_in)
+        slot_of_tok = (idx * C + pos.clamp(0, C - 1)).clamp(0, E * C - 1)  # [G,S,k]
+        picked = expert_out.reshape(G, E * C, d)[gi, slot_of_tok]       # [G,S,k,d]
+        y = (picked * (gates * keep)[..., None]).sum(dim=2).reshape(B, S, d)
+
+    if cfg.moe_dense_residual:
+        y = y + (mlp_apply(cfg, params["dense"], x) - x)
+    return x + y.to(x.dtype), aux
+
+
+def _expert_ffn(cfg, params, expert_in):
+    """expert_in [G,E,C,d] -> [G,E,C,d]."""
+    cdt = cfg.compute_dtype
+    u = torch.einsum("gecd,edf->gecf", expert_in, params["w1"].to(cdt))
+    if "w3" in params:
+        u = _act(cfg.mlp_act, u) * torch.einsum("gecd,edf->gecf", expert_in,
+                                                params["w3"].to(cdt))
+    else:
+        u = _act(cfg.mlp_act, u)
+    return torch.einsum("gecf,efd->gecd", u, params["w2"].to(cdt))

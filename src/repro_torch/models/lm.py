@@ -1,16 +1,19 @@
-"""Decoder-only token LM (mirror of the dense GQA subset of
-``repro.models.lm``): the no-cache forward that training differentiates,
-and the serving forward over a KV cache.
+"""Decoder-only token LM (mirror of ``repro.models.lm`` for the dense,
+MLA and MoE families): the no-cache forward that training
+differentiates, and the serving forward over a KV cache.
 
 Layers follow ``configs.base.block_pattern``: head layers, then a unit
 repeated ``reps`` times whose parameters (and caches) are stacked on a
 leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail layers.
-Where JAX scans the unit, ``lm_apply`` loops over that dim (under
-``remat``, each repetition is checkpointed, as JAX checkpoints the scan
-body); the per-layer cache slices are views, so the in-place cache
-writes land in the stacked tensors.  Two cache layouts, as in JAX: the
-contiguous slot cache (``lm_cache_specs``, ``[batch, max_len, KV, D]``
-per layer) and the shared page pool (``lm_paged_cache_specs``).
+Each layer is a temporal block (GQA ``attn`` or ``mla``) and a channel
+block (``mlp``, or ``moe`` whose auxiliary load-balance losses are summed
+over the layers).  Where JAX scans the unit, ``lm_apply`` loops over that
+dim (under ``remat``, each repetition is checkpointed, as JAX checkpoints
+the scan body); the per-layer cache slices are views, so the in-place
+cache writes land in the stacked tensors.  Two cache layouts, as in JAX:
+the contiguous slot cache (``lm_cache_specs``: ``[batch, max_len, KV,
+D]`` K/V per GQA layer, ``[batch, max_len, rank]`` latents per MLA layer)
+and the shared page pool (``lm_paged_cache_specs``).
 """
 from __future__ import annotations
 
@@ -23,26 +26,41 @@ from repro_torch.common.params import Param, map_tree
 from repro_torch.configs.base import ModelConfig, block_pattern
 from repro_torch.models import blocks as B
 
-_PORTED_KINDS = (("attn", "mlp"),)
+_PORTED_TEMPORAL = ("attn", "mla")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
     head, unit, _, tail = block_pattern(cfg)
     kinds = set((*head, *unit, *tail))
-    if not kinds <= set(_PORTED_KINDS):
-        mla_moe = any(k in ("mla", "moe") for kind in kinds for k in kind)
-        what, item = (("MLA and MoE", 3) if mla_moe
-                      else ("windowed and recurrent", 5))
+    if not {tk for tk, _ in kinds} <= set(_PORTED_TEMPORAL):
         raise NotImplementedError(
-            f"the port runs dense GQA blocks only, got {sorted(kinds, key=str)} "
-            f"for {cfg.name}: {what} blocks are a later slice (ROADMAP.md "
-            f"queue 1, item {item})")
+            f"the port runs GQA and MLA blocks only, got {sorted(kinds, key=str)} "
+            f"for {cfg.name}: windowed and recurrent blocks are a later slice "
+            f"(ROADMAP.md queue 1, item 5)")
 
 
-def _temporal_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
-    """One contiguous ``[batch, max_len, KV, D]`` row pair per layer."""
-    _, KV = cfg.padded_gqa()
+def _layer_specs(cfg: ModelConfig, tk: str, ck: Optional[str]) -> Dict[str, Any]:
+    specs = {"t": B.mla_specs(cfg) if tk == "mla" else B.attn_specs(cfg)}
+    if ck == "mlp":
+        # in MoE stacks the dense head/tail layers use dense_ff if set
+        ff = cfg.dense_ff if (cfg.num_experts > 0 and cfg.dense_ff) else None
+        specs["c"] = B.mlp_specs(cfg, ff)
+    elif ck == "moe":
+        specs["c"] = B.moe_specs(cfg)
+    return specs
+
+
+def _temporal_cache_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int):
+    """A GQA layer's contiguous ``[batch, max_len, KV, D]`` K/V rows, or an
+    MLA layer's ``[batch, max_len, rank]`` latent rows."""
     cdt = cfg.compute_dtype
+    if kind == "mla":
+        axes = ("cache_batch", "cache_seq", None)
+        return {
+            "c_kv": Param((batch, max_len, cfg.kv_lora_rank), axes, dtype=cdt, init="zeros"),
+            "k_pe": Param((batch, max_len, cfg.rope_head_dim), axes, dtype=cdt, init="zeros"),
+        }
+    _, KV = cfg.padded_gqa()
     axes = ("cache_batch", "cache_seq", "cache_heads", None)
     return {
         "k": Param((batch, max_len, KV, cfg.qk_head_dim), axes, dtype=cdt,
@@ -52,12 +70,21 @@ def _temporal_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     }
 
 
-def _temporal_paged_cache_specs(cfg: ModelConfig, num_pages: int,
+def _temporal_paged_cache_specs(cfg: ModelConfig, kind: str, num_pages: int,
                                 page_size: int):
-    """One shared page pool per layer; the block table lives outside the
-    cache tree (every layer appends at the same positions)."""
-    _, KV = cfg.padded_gqa()
+    """One shared page pool per layer (K/V, or the MLA latents); the block
+    table lives outside the cache tree (every layer appends at the same
+    positions)."""
     cdt = cfg.compute_dtype
+    if kind == "mla":
+        axes = ("cache_seq", None, None)
+        return {
+            "ckv_pages": Param((num_pages, page_size, cfg.kv_lora_rank), axes,
+                               dtype=cdt, init="zeros"),
+            "kpe_pages": Param((num_pages, page_size, cfg.rope_head_dim), axes,
+                               dtype=cdt, init="zeros"),
+        }
+    _, KV = cfg.padded_gqa()
     return {
         "k_pages": Param((num_pages, page_size, KV, cfg.qk_head_dim),
                          ("cache_seq", None, "cache_heads", None),
@@ -93,8 +120,7 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = Param((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
-    layers = _layer_tree(
-        cfg, lambda tk, ck: {"t": B.attn_specs(cfg), "c": B.mlp_specs(cfg)})
+    layers = _layer_tree(cfg, lambda tk, ck: _layer_specs(cfg, tk, ck))
     specs.update(head_layers=layers["head_layers"], unit=layers["unit"],
                  tail_layers=layers["tail_layers"])
     return specs
@@ -103,30 +129,55 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
     _check_kinds(cfg)
     return _layer_tree(
-        cfg, lambda tk, ck: _temporal_cache_specs(cfg, batch, max_len))
+        cfg, lambda tk, ck: _temporal_cache_specs(cfg, tk, batch, max_len))
 
 
 def lm_paged_cache_specs(cfg: ModelConfig, num_pages: int,
                          page_size: int) -> Dict[str, Any]:
     _check_kinds(cfg)
     return _layer_tree(
-        cfg, lambda tk, ck: _temporal_paged_cache_specs(cfg, num_pages, page_size))
+        cfg, lambda tk, ck: _temporal_paged_cache_specs(cfg, tk, num_pages, page_size))
+
+
+def serving_attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int, int]]:
+    """The attention kernels the serving path of ``cfg`` reaches, each
+    with the ``(H, KV, D)`` it gives them: a GQA stack runs both decodes
+    and both prefills at (padded H, padded KV, head dim); an MLA stack
+    only the contiguous decode, on either layout, at (padded H, padded H,
+    nope + rope): its latents are expanded per head, so the group is 1."""
+    _check_kinds(cfg)
+    H, KV = cfg.padded_gqa()
+    if cfg.attention == "mla":
+        return {"decode_attention": (H, H, cfg.qk_head_dim)}
+    return {kernel: (H, KV, cfg.head_dim) for kernel in (
+        "decode_attention", "decode_attention_paged", "prefill_attention",
+        "prefill_attention_paged")}
+
+
+# each layout's cache tensors, by the first one's name (GQA K/V, MLA
+# latents; contiguous rows or page pools)
+_CACHE_KEYS = {"k": ("k", "v"), "k_pages": ("k_pages", "v_pages"),
+               "c_kv": ("c_kv", "k_pe"), "ckv_pages": ("ckv_pages", "kpe_pages")}
+
+
+def _cache_keys(cache: Dict) -> Tuple[str, str]:
+    return next(keys for first, keys in _CACHE_KEYS.items() if first in cache)
 
 
 def _pack_cache(raw: Dict, length, block_table) -> Dict:
     """Join a layer's cache tensors with the runtime lengths (and, for
-    the page pools, the shared block table) into the structure
-    ``attn_apply`` expects."""
-    if "k_pages" in raw:
-        return {"k_pages": raw["k_pages"], "v_pages": raw["v_pages"],
-                "block_table": block_table, "len": length}
-    return {"k": raw["k"], "v": raw["v"], "len": length}
+    the page pools, the shared block table) into the structure the
+    temporal block expects."""
+    keys = _cache_keys(raw)
+    packed = {key: raw[key] for key in keys}
+    if keys[0].endswith("_pages"):
+        packed["block_table"] = block_table
+    packed["len"] = length
+    return packed
 
 
 def _unpack_cache(cache: Dict) -> Dict:
-    if "k_pages" in cache:
-        return {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
-    return {"k": cache["k"], "v": cache["v"]}
+    return {key: cache[key] for key in _cache_keys(cache)}
 
 
 def lm_apply(
@@ -185,38 +236,47 @@ def lm_apply(
         else:
             positions = cache_len.reshape(-1).expand(Bsz)[:, None]
 
-    def run_layer(ck, p, x, c):
+    def run_layer(tk, ck, p, x, c):
         cc = _pack_cache(c, cache_len, block_table) if c is not None else None
-        x, nc = B.attn_apply(cfg, p["t"], x, positions, cc,
-                             chunk_lens=chunk_lens)
+        temporal = B.mla_apply if tk == "mla" else B.attn_apply
+        x, nc = temporal(cfg, p["t"], x, positions, cc, chunk_lens=chunk_lens)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         if ck == "mlp":
             x = B.mlp_apply(cfg, p["c"], x)
-        return x, (_unpack_cache(nc) if nc is not None else None)
+        elif ck == "moe":
+            x, aux = B.moe_apply(cfg, p["c"], x)
+        return x, (_unpack_cache(nc) if nc is not None else None), aux
 
     def run_unit(x, p_r, c_r):
-        for j, (_, ck) in enumerate(unit):
-            x, _ = run_layer(ck, p_r[f"b{j}"], x,
-                             c_r[f"b{j}"] if c_r is not None else None)
-        return x
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for j, (tk, ck) in enumerate(unit):
+            x, _, a = run_layer(tk, ck, p_r[f"b{j}"], x,
+                                c_r[f"b{j}"] if c_r is not None else None)
+            aux = aux + a
+        return x, aux
 
     def layer_cache(group, key):
         return cache[group][key] if cache is not None else None
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_cache: Dict[str, Any] = {"head_layers": {}, "tail_layers": {}}
-    for i, (_, ck) in enumerate(head):
-        x, new_cache["head_layers"][f"h{i}"] = run_layer(
-            ck, params["head_layers"][f"h{i}"], x, layer_cache("head_layers", f"h{i}"))
+    for i, (tk, ck) in enumerate(head):
+        x, new_cache["head_layers"][f"h{i}"], aux = run_layer(
+            tk, ck, params["head_layers"][f"h{i}"], x, layer_cache("head_layers", f"h{i}"))
+        aux_total = aux_total + aux
     for r in range(reps):
         p_r = map_tree(lambda t: t[r], params["unit"])
         if cache is not None:  # views: caches written in place
-            x = run_unit(x, p_r, map_tree(lambda t: t[r], cache["unit"]))
+            x, aux = run_unit(x, p_r, map_tree(lambda t: t[r], cache["unit"]))
         elif remat:
-            x = checkpoint(run_unit, x, p_r, None, use_reentrant=False)
+            x, aux = checkpoint(run_unit, x, p_r, None, use_reentrant=False)
         else:
-            x = run_unit(x, p_r, None)
-    for i, (_, ck) in enumerate(tail):
-        x, new_cache["tail_layers"][f"t{i}"] = run_layer(
-            ck, params["tail_layers"][f"t{i}"], x, layer_cache("tail_layers", f"t{i}"))
+            x, aux = run_unit(x, p_r, None)
+        aux_total = aux_total + aux
+    for i, (tk, ck) in enumerate(tail):
+        x, new_cache["tail_layers"][f"t{i}"], aux = run_layer(
+            tk, ck, params["tail_layers"][f"t{i}"], x, layer_cache("tail_layers", f"t{i}"))
+        aux_total = aux_total + aux
 
     if last_only:
         x = x[:, -1:]
@@ -224,8 +284,7 @@ def lm_apply(
     head_w = (params["embed"].T if cfg.tie_embeddings
               else params["lm_head"]).to(cfg.compute_dtype)
     logits = x.to(cfg.compute_dtype) @ head_w
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if cache is None:
-        return logits, None, aux
+        return logits, None, aux_total
     new_cache["unit"] = cache["unit"]
-    return logits, new_cache, aux
+    return logits, new_cache, aux_total

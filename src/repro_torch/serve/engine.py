@@ -1,5 +1,6 @@
-"""ServeEngine: continuous-batching greedy inference over a KV cache
-(mirror of ``repro.serve.engine``, direct mode).
+"""ServeEngine: continuous-batching inference over a KV cache (mirror of
+``repro.serve.engine``, direct mode), for the dense GQA, MLA and MoE
+token LMs.
 
 With ``kv_layout="paged"`` (the default) the engine owns a shared **page
 pool** per layer (``[num_pages, page_size, KV, D]``) plus a per-slot
@@ -8,8 +9,9 @@ sequence's KV lives in whatever physical pages its table points at, and
 admission reserves a prompt's pages from a free list that
 ``_finish_slot`` refills.  With ``kv_layout="contiguous"`` every slot owns
 one ``[max_len, KV, D]`` row per layer (the JAX engine's benchmark
-baseline).  Each ``step()`` spends at most ``prefill_chunk_tokens``
-prompt tokens across the prefilling slots in one ragged chunk forward
+baseline); an MLA layer's pool and rows hold its latents instead.  Each
+``step()`` spends at most ``prefill_chunk_tokens`` prompt tokens across
+the prefilling slots in one ragged chunk forward
 (the prefill kernel writes every row's chunk at its own offset, straight
 into the cache), then runs one fused decode over the slots whose prefill
 already finished.  Chunk widths and block-table widths are bucketed to
@@ -26,9 +28,11 @@ Differences from the JAX engine:
   restores the old rows with a ``where`` over the whole cache);
 * prefill-only engines and KV handoffs raise ``NotImplementedError``;
   they and the fault-injection hook come with the fleet (ROADMAP.md
-  queue 1, item 4);
-* only greedy decoding is served: ``temperature > 0`` raises at
-  ``submit`` (seeded streams need threefry, ROADMAP.md queue 1, item 3).
+  queue 1, item 4).
+
+Sampling is per slot (temperature, top-k and a seeded threefry stream,
+``serve/sampling.py``), bit for bit the JAX engine's: greedy is the
+argmax, and a step calls the sampler only when a live slot samples.
 
 ``run_service`` is the body of a ``service=True`` stage of the port's
 runtime (``repro_torch.core``): it pulls requests from the stage's
@@ -52,7 +56,7 @@ from repro_torch.core.task import ServiceControl, ServicePreempted
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.lm import lm_cache_specs, lm_paged_cache_specs
 from repro_torch.serve.request import Request, RequestState
-from repro_torch.serve.sampling import make_slot_key
+from repro_torch.serve.sampling import make_slot_key, sample_tokens
 from repro_torch.train.state import model_specs
 from repro_torch.train.step import make_decode_step, make_prefill_chunk_step
 
@@ -69,7 +73,7 @@ def _bucket(n: int, lo: int = 2) -> int:
 
 
 class ServeEngine:
-    """Continuous-batching engine for dense GQA token LMs over a paged or
+    """Continuous-batching engine for token LMs over a paged or
     contiguous KV cache, driven directly (``submit`` + ``step`` /
     ``run_until_drained``) or as a service stage (``run_service``)."""
 
@@ -244,10 +248,6 @@ class ServeEngine:
         """Queue a request (a :class:`Request` or a raw prompt array)."""
         if not isinstance(request, Request):
             request = Request(np.asarray(request, np.int32), **kw)
-        if request.temperature > 0:
-            raise NotImplementedError(
-                "the port serves greedy requests only: seeded sampling "
-                "needs threefry ported (ROADMAP.md queue 1, item 3)")
         with self._lock:
             self.queue.append(request)
         return request
@@ -443,6 +443,15 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _sample(self, logits: torch.Tensor):
+        """Every slot's token from ``logits [max_slots, V]`` under its own
+        temperature, top-k and key -> (tokens, advanced keys), on the
+        host as int32 [max_slots] and uint32 [max_slots, 2]."""
+        toks, keys = sample_tokens(
+            logits, self._tensor(self.slot_keys.astype(np.int64)),
+            self._tensor(self.slot_temp), self._tensor(self.slot_topk))
+        return toks.cpu().numpy(), keys.cpu().numpy().astype(np.uint32)
+
     def _prefill_step(self) -> bool:
         """Spend up to ``prefill_chunk_tokens`` prompt tokens across the
         prefilling slots in ONE ragged chunk forward (rows not taking
@@ -480,7 +489,7 @@ class ServeEngine:
         else:
             self._count_retrace("prefill", (T,))
             bt = None
-        next_tok, _, self.cache = self._prefill_chunk(
+        next_tok, last_logits, self.cache = self._prefill_chunk(
             self._run_params, self._tensor(tokens), self._tensor(base),
             self._tensor(clens), self.cache, bt)
         done = [i for i, take in taking.items()
@@ -488,7 +497,15 @@ class ServeEngine:
         for i, take in taking.items():
             self.prefill_pos[i] += take
         if done:
-            toks = next_tok.cpu().numpy()
+            # the first token: each finished row's own sampling and stream
+            # (all-greedy rows keep the chunk step's argmax, no sampler)
+            if any(self.slot_temp[i] > 0 for i in done):
+                toks, new_keys = self._sample(last_logits)
+                for i in done:
+                    if self.slot_temp[i] > 0:
+                        self.slot_keys[i] = new_keys[i]
+            else:
+                toks = next_tok.cpu().numpy()
             now = time.time()
             for i in done:
                 req = self.slots[i]
@@ -519,28 +536,36 @@ class ServeEngine:
                            for i, r in enumerate(self.slots)])
         if not active.any():
             return progressed
+        # the sampler runs only when a live slot samples: greedy slots
+        # never read their keys, so skipping it changes no stream
+        sampling = bool((self.slot_temp[active] > 0).any())
         if self.paged:
             # bucket the block table (and with it the kernel grid) to the
             # pages actually in use
             mb = min(_bucket(max(len(p) for p in self.slot_pages), lo=1),
                      self.max_pages)
-            self._count_retrace("decode", (mb, False))
+            self._count_retrace("decode", (mb, sampling))
             # rows that must not decode (free or mid-prefill) see an
             # all-sentinel table, so their junk appends drop
             bt_step = self.block_table[:, :mb].copy()
             bt_step[~active] = self.num_pages
             lengths, bt = self.lengths, self._tensor(bt_step)
         else:
-            self._count_retrace("decode", (self.max_len, False))
+            self._count_retrace("decode", (self.max_len, sampling))
             # rows that must not decode (free, or mid-prefill with the
             # prompt already at position 0 on) get length -1: their append
             # drops, so their rows stay bitwise intact, and they attend
             # nothing, so the kernel reads none of their cache
             lengths, bt = np.where(active, self.lengths, -1), None
-        greedy, _, self.cache = self._decode(
+        greedy, logits, self.cache = self._decode(
             self._run_params, self._tensor(self.last_tok)[:, None], self.cache,
             self._tensor(lengths.astype(np.int32)), bt)
-        toks = np.where(active, greedy.cpu().numpy(), 0)
+        if sampling:
+            toks, new_keys = self._sample(logits[:, -1])
+            self.slot_keys = np.where(active[:, None], new_keys, self.slot_keys)
+        else:
+            toks = greedy.cpu().numpy()
+        toks = np.where(active, toks, 0)
         self.lengths = self.lengths + active.astype(np.int32)
         # paged holds only its allocated pages, contiguous always holds
         # the full [max_slots, max_len] rows
@@ -666,8 +691,14 @@ class ServeEngine:
         d = out.get("decode_steps", 0)
         out["slot_occupancy"] = (
             out.get("decode_slot_steps", 0) / (d * self.max_slots) if d else 0.0)
-        # mean cache bytes held per live token across decode steps
+        # mean cache bytes held per live token across decode steps (an MLA
+        # cache holds latents: its bytes are those of its pools or rows)
         out["kv_bytes_per_token"] = (
             out.get("kv_bytes_step_sum", 0)
             / max(out.get("kv_tokens_step_sum", 0), 1))
         return out
+
+    def reset_stats(self) -> None:
+        """Zero the counters (a benchmark's warm-up run does not count)."""
+        with self._lock:
+            self._stats = collections.defaultdict(int)

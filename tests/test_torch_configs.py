@@ -32,6 +32,9 @@ def _dense_gqa(arch):
 
 # decoder-only archs whose every layer is (attn, mlp): the port's slice
 DENSE_GQA = [a for a in ARCHS if _dense_gqa(a)]
+# the MLA and MoE archs, served since queue 1 item 3
+MLA_MOE = ["arctic-480b", "minicpm3-4b", "moonshot-v1-16b-a3b"]
+SERVED = sorted(DENSE_GQA + MLA_MOE)
 
 
 def _norm(v):
@@ -72,7 +75,7 @@ def _shapes(tree, is_leaf):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE_GQA)
+@pytest.mark.parametrize("arch", SERVED)
 def test_spec_trees_match(arch, smoke):
     j = jcfg.get_config(arch, smoke=smoke)
     t = tcfg.get_config(arch, smoke=smoke)
@@ -80,6 +83,8 @@ def test_spec_trees_match(arch, smoke):
         _shapes(jlm.lm_specs(j), j_is_param)
     assert _shapes(tlm.lm_paged_cache_specs(t, 12, 16), lambda x: True) == \
         _shapes(jlm.lm_paged_cache_specs(j, 12, 16), j_is_param)
+    assert _shapes(tlm.lm_cache_specs(t, 3, 20), lambda x: True) == \
+        _shapes(jlm.lm_cache_specs(j, 3, 20), j_is_param)
 
 
 def test_dense_gqa_subset_is_the_expected_one():
@@ -87,27 +92,35 @@ def test_dense_gqa_subset_is_the_expected_one():
                          "tinyllama-1.1b"]
 
 
-@pytest.mark.parametrize("arch", DENSE_GQA)
-def test_served_configs_fit_the_attention_kernels(arch):
-    """Every dense GQA config the port serves, at full width after
-    ``padded_gqa``, has a head dim that every attention kernel is
-    instantiated for and a group the decode kernels take (G <= 32): on
-    the card its attention never reaches a kernel that refuses it."""
-    cfg = tcfg.get_config(arch)
-    H, KV = cfg.padded_gqa()
-    assert cfg.head_dim in build.HEAD_DIMS, (arch, cfg.head_dim)
-    build.check_head_dim(cfg.head_dim)
-    assert H % KV == 0 and H // KV <= 32, (arch, H, KV)
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", SERVED)
+def test_served_configs_fit_the_attention_kernels(arch, smoke):
+    """Every config the port serves, after ``padded_gqa``: each attention
+    kernel its serving path reaches is instantiated for the head dim the
+    path gives it, at a group the decode kernels take (G <= 32), so on the
+    card its attention never reaches a kernel that refuses it.  A GQA
+    stack reaches both decodes and both prefills at its head dim; an MLA
+    stack only the contiguous decode, at nope + rope with G 1 (24 for
+    minicpm3's smoke width, 96 at full width)."""
+    cfg = tcfg.get_config(arch, smoke=smoke)
+    shapes = tlm.serving_attention_shapes(cfg)
+    if cfg.attention == "mla":
+        H, _ = cfg.padded_gqa()
+        assert shapes == {"decode_attention": (H, H, cfg.nope_head_dim + cfg.rope_head_dim)}
+    else:
+        assert len(shapes) == 4
+    for kernel, (H, KV, D) in shapes.items():
+        assert D in build.head_dims(kernel), (arch, kernel, D)
+        build.check_head_dim(kernel, D)
+        assert H % KV == 0 and H // KV <= 32, (arch, kernel, H, KV)
 
 
-# the ROADMAP.md queue 1 item that lands each unported architecture: MLA
-# and MoE (item 3), recurrent and windowed blocks and encoder-decoders
-# (item 5)
-UNPORTED_ITEM = {"minicpm3-4b": 3, "moonshot-v1-16b-a3b": 3, "arctic-480b": 3,
-                 "xlstm-125m": 5, "recurrentgemma-9b": 5, "whisper-medium": 5}
+# the ROADMAP.md queue 1 item that lands each unported architecture:
+# recurrent and windowed blocks and encoder-decoders (item 5)
+UNPORTED_ITEM = {"xlstm-125m": 5, "recurrentgemma-9b": 5, "whisper-medium": 5}
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE_GQA)))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(SERVED)))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, item {UNPORTED_ITEM[arch]}\\)"):

@@ -157,18 +157,28 @@ def test_contiguous_plan_and_partials_agree(dtype, aligned, B, KV, G, S):
 
 
 def test_head_dims_without_a_kernel_raise_naming_their_item():
-    """96 is instantiated; 24 (minicpm3's expanded MLA decode at smoke
-    width) and 256 (recurrentgemma) raise naming the queue item that adds
-    them; any other raises too."""
-    assert 96 in build.HEAD_DIMS
-    for D in build.HEAD_DIMS:
-        build.check_head_dim(D)
-    with pytest.raises(ValueError, match="queue 1 item 3"):
-        build.check_head_dim(24)
-    with pytest.raises(ValueError, match="queue 1 item 5"):
-        build.check_head_dim(256)
-    with pytest.raises(ValueError, match="head dim 80 not in"):
-        build.check_head_dim(80)
+    """96 is instantiated in every attention kernel; 24 (minicpm3's
+    expanded MLA decode at smoke width) in the contiguous decode alone,
+    and the other four raise at 24 saying no served config reaches them
+    there; 256 (recurrentgemma) raises naming the queue item that adds it;
+    any other raises too."""
+    kernels = ("flash_attention", "decode_attention", "decode_attention_paged",
+               "prefill_attention", "prefill_attention_paged")
+    assert 96 in build.HEAD_DIMS and 24 not in build.HEAD_DIMS
+    assert build.head_dims("decode_attention") == (16, 24, 32, 64, 96, 128)
+    assert 24 not in build.PENDING_HEAD_DIMS
+    for kernel in kernels:
+        for D in build.HEAD_DIMS:
+            build.check_head_dim(kernel, D)
+        with pytest.raises(ValueError, match="queue 1 item 5"):
+            build.check_head_dim(kernel, 256)
+        with pytest.raises(ValueError, match="head dim 80 not in"):
+            build.check_head_dim(kernel, 80)
+    build.check_head_dim("decode_attention", 24)
+    for kernel in kernels[2:] + kernels[:1]:
+        with pytest.raises(ValueError, match="no served config reaches "
+                                             f"{kernel} at head dim 24"):
+            build.check_head_dim(kernel, 24)
 
 
 # -- prefill -------------------------------------------------------------------

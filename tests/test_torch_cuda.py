@@ -2,7 +2,9 @@
 the paged cache scatter, flash attention, rmsnorm, the dataframe's
 hash-partition histogram) against their plain PyTorch versions, on the
 card, at every head dim the attention kernels take (16, 32, 64, 96,
-128).  Every test here needs an
+128; the contiguous decode also 24), and at the shapes each served
+config's path gives them; the smoke MLA and MoE engines and the threefry
+sampler on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -252,7 +254,7 @@ def _decode_lens(S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 96, 128])
 @pytest.mark.parametrize("dtype,tol", TOLS)
 def test_contiguous_decode_kernel_sweep(dtype, tol, D):
     """G 1, 4, 8, 16 and 32; S 32 (one block a row on both bodies: each
@@ -399,10 +401,12 @@ def test_paged_decode_unaligned_bf16_runs_on_the_cuda_cores(page, max_pages):
 SERVE_B, SERVE_S, SERVE_T, SERVE_PAGE = 8, 512, 64, 16
 
 
-def _serving_shape_checks(arch, dtype, tol, seed):
-    """Both decodes and both prefills at the shapes ``arch``'s serving path
-    gives them (H and KV after padded_gqa, D from get_config; the serve
-    engine's B, S, T and page), as chip_smoke.py's serving_shape_cases:
+def _serving_shape_checks(arch, dtype, tol, seed, smoke=False):
+    """The attention kernels ``arch``'s serving path reaches, at the shapes
+    it gives them (``serving_attention_shapes``: H and KV after
+    padded_gqa, the head dim per kernel; the serve engine's B, S, T and
+    page), as chip_smoke.py's serving_shape_cases: a GQA stack's both
+    decodes and both prefills, an MLA stack's contiguous decode alone;
     decode lengths over an empty row, the 16-key and 32-position tile
     edges, the page edges, the 64-key edge and a full row, in batches of
     B; full, partial, one-token and empty chunks (the contiguous one also
@@ -410,8 +414,9 @@ def _serving_shape_checks(arch, dtype, tol, seed):
     rows exactly zero."""
     _card()
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    (H, KV), D = cfg.padded_gqa(), cfg.head_dim
+    from repro_torch.models.lm import serving_attention_shapes
+    shapes = serving_attention_shapes(get_config(arch, smoke=smoke))
+    H, KV, D = shapes["decode_attention"]
     B, S, T, page = SERVE_B, SERVE_S, SERVE_T, SERVE_PAGE
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(seed)
@@ -424,6 +429,8 @@ def _serving_shape_checks(arch, dtype, tol, seed):
         want = tda.decode_attention_plain(q, k, v, cl)
         assert (got.float() - want.float()).abs().max().item() <= tol, (arch, cl)
         assert (got[cl == 0] == 0).all()
+        if "decode_attention_paged" not in shapes:  # MLA: the contiguous decode only
+            continue
         bt = torch.from_numpy(rng.permutation(B * S // page).astype(np.int32))
         bt = bt.cuda().reshape(B, S // page)
         kp, vp = (t.reshape(-1, page, KV, D) for t in (k, v))
@@ -431,6 +438,8 @@ def _serving_shape_checks(arch, dtype, tol, seed):
         want = tda.decode_attention_paged_plain(q, kp, vp, bt, cl)
         assert (got.float() - want.float()).abs().max().item() <= tol, (arch, cl)
         assert (got[cl == 0] == 0).all()
+    if "prefill_attention_paged" not in shapes:
+        return
     base, clens = [0, 5, 64, 200, S - T, 13, 100, 3], [T, 3, T, 0, T, 1, T // 2 + 8, T]
     q, kn, vn, kp, vp, bt, bs, cls = _paged_case(rng, dt, B, T, H, KV, D, page, S // page,
                                                  base, clens)
@@ -466,6 +475,86 @@ def test_serving_kernels_at_tinyllama_shapes(dtype, tol):
     """tinyllama-1.1b's serving path: B 8, H 32, KV 4, D 64, S 512, T 64,
     page 16."""
     _serving_shape_checks("tinyllama-1.1b", dtype, tol, seed=98)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_serving_kernels_at_minicpm3_shapes(dtype, tol, smoke):
+    """minicpm3-4b's MLA serving path: the contiguous decode alone, on
+    latents expanded per head: B 8, H 48, KV 48, D 96, S 512 (smoke: H 4,
+    KV 4, D 24, padded to 32 in the tensor-core body)."""
+    _serving_shape_checks("minicpm3-4b", dtype, tol, seed=99, smoke=smoke)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_serving_kernels_at_moonshot_shapes(dtype, tol):
+    """moonshot-v1-16b-a3b's serving path: B 8, H 16, KV 16, D 128, S 512,
+    T 64, page 16."""
+    _serving_shape_checks("moonshot-v1-16b-a3b", dtype, tol, seed=100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_mla_and_moe_engines_kernel_path_equals_plain_path(arch, layout):
+    """The smoke MLA and MoE engines on the card in fp32: the kernel path's
+    greedy streams equal the plain path's, token for token, and the path
+    launched its kernels (MLA: the contiguous decode alone, on either
+    layout)."""
+    _card()
+    from repro_torch.common.params import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.state import model_specs
+    cfg = get_config(arch, smoke=True).with_overrides(compute_dtype=torch.float32)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), model_specs(cfg),
+                         "cuda")
+    rng = np.random.default_rng(5)
+    work = [(rng.integers(1, 250, n).astype(np.int32), 12) for n in (5, 40, 9, 100)]
+    streams = {}
+    counters = (tda.decode_attention_kernel, tda.decode_attention_paged_kernel,
+                tpa.prefill_attention_kernel, tpa.prefill_attention_paged_kernel)
+    for impl in ("auto", "ref"):
+        for fn in counters:
+            fn.launches = 0
+        eng = ServeEngine(cfg, params=params, max_slots=4, max_len=256, kv_layout=layout,
+                          decode_impl=impl)
+        reqs = [eng.submit(p, max_new_tokens=g) for p, g in work]
+        eng.run_until_drained()
+        streams[impl] = [r.tokens for r in reqs]
+        launched = {fn.__name__ for fn in counters if fn.launches}
+        if impl == "ref":
+            assert not launched
+        elif cfg.attention == "mla":
+            assert launched == {"decode_attention_kernel"}
+        else:
+            assert launched == ({"decode_attention_paged_kernel",
+                                 "prefill_attention_paged_kernel"} if layout == "paged"
+                                else {"decode_attention_kernel", "prefill_attention_kernel"})
+    assert streams["auto"] == streams["ref"]
+
+
+@pytest.mark.cuda
+def test_sampling_on_the_card_matches_the_cpu():
+    """threefry's split keys, bits and uniforms on the card equal the CPU's
+    bitwise, seeds >= 2^32 among them, and so do sample_tokens' tokens."""
+    _card()
+    from repro_torch.serve import sampling as ts
+    seeds = [0, 1, 2**32 - 1, 2**32, 2**40 + 3, 2**63 - 1]
+    keys = torch.from_numpy(np.stack([ts.make_slot_key(s) for s in seeds]).astype(np.int64))
+    n = 32000
+    for fn in (lambda k: ts.split(k, 2), lambda k: ts.random_bits(k, n),
+               lambda k: ts.uniform(k, n, 1e-38, 1.0)):
+        assert torch.equal(fn(keys.cuda()).cpu(), fn(keys))
+    logits = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (len(seeds), n)).astype(np.float32))
+    temp = torch.tensor([0.0, 1.0, 0.5, 2.0, 1.0, 0.7])
+    topk = torch.tensor([0, 0, 5, 1, 50, 0], dtype=torch.int32)
+    got = ts.sample_tokens(logits.cuda(), keys.cuda(), temp.cuda(), topk.cuda())
+    want = ts.sample_tokens(logits, keys, temp, topk)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.cuda
@@ -633,6 +722,46 @@ def test_paged_paths_make_no_host_sync():
     torch.cuda.synchronize()
     assert tpa.write_chunk_paged_kernel.launches == launches + 2
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_mla_path_makes_no_host_sync(layout):
+    """minicpm3's smoke MLA block on the card under sync-debug "error": the
+    ragged prefill's latent writes and attention, the decode's latent
+    append, gather, expansion and kernel 2 (a host sync would raise)."""
+    _card()
+    from repro_torch.common.params import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as tb
+    cfg = get_config("minicpm3-4b", smoke=True)
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), tb.mla_specs(cfg), "cuda")
+    B, S, page = 4, 64, 16
+    if layout == "paged":
+        cache = {"ckv_pages": torch.zeros(B * S // page, page, cfg.kv_lora_rank),
+                 "kpe_pages": torch.zeros(B * S // page, page, cfg.rope_head_dim),
+                 "block_table": torch.arange(B * S // page, dtype=torch.int32).reshape(B, -1)}
+    else:
+        cache = {"c_kv": torch.zeros(B, S, cfg.kv_lora_rank),
+                 "k_pe": torch.zeros(B, S, cfg.rope_head_dim)}
+    cache = {k: v.cuda() if k == "block_table" else v.to("cuda", cfg.compute_dtype)
+             for k, v in cache.items()}
+    x = torch.randn(B, 8, cfg.d_model, device="cuda").to(cfg.compute_dtype)
+    base = torch.tensor([0, 3, 9, 0], dtype=torch.int32).cuda()
+    clens = torch.tensor([8, 0, 2, 5], dtype=torch.int32).cuda()
+    pos = base[:, None] + torch.arange(8, dtype=torch.int32, device="cuda")[None]
+    launches = tda.decode_attention_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = tb.mla_apply(cfg, p, x, pos, dict(cache, len=base), chunk_lens=clens)
+        lens = base + clens
+        y, _ = tb.mla_apply(cfg, p, x[:, :1], lens[:, None], dict(cache, len=lens))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tda.decode_attention_kernel.launches == launches + 1
+    assert bool(torch.isfinite(y.float()).all())
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ from repro.serve.engine import _bucket as j_bucket  # noqa: E402
 from repro.train.state import model_specs  # noqa: E402
 from repro_torch.common.params import from_jax_params  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.serve import Request, RequestState, ServeEngine  # noqa: E402
+from repro_torch.serve import RequestState, ServeEngine  # noqa: E402
 from repro_torch.serve.engine import _bucket  # noqa: E402
 
 JCFG = dataclasses.replace(jget("tinyllama-1.1b", smoke=True), compute_dtype=jnp.float32)
@@ -148,24 +148,10 @@ def test_checkpoint_restore_roundtrip(params):
     assert [r.tokens for r in reqs] == want
 
 
-def test_sampling_is_refused(params):
-    eng = _engine(params[1], cfg=CFG)
-    with pytest.raises(NotImplementedError, match="greedy.*queue 1, item 3"):
-        eng.submit(np.arange(1, 5, dtype=np.int32), temperature=0.7)
-    with pytest.raises(NotImplementedError, match="greedy.*queue 1, item 3"):
-        eng.submit(Request(np.arange(1, 5, dtype=np.int32), temperature=1.0))
-    assert not eng.has_work()
-
-
 @pytest.mark.parametrize("kw", [dict(prefill_only=True)])
 def test_later_slices_raise(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
         _engine(params[1], cfg=CFG, **kw)
-
-
-def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3"):
-        ServeEngine(tget("minicpm3-4b", smoke=True), device="cpu")
 
 
 def test_default_device_is_the_card():
