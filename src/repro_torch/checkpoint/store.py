@@ -49,8 +49,8 @@ _CLOSE_TIMEOUT_S = 600.0
 
 
 def _fault_injector():
-    # lazy lookup, not an import: the port's fault-injection module comes
-    # with its runtime; until something imports it, nothing is armed
+    # lazy lookup, not an import (the runtime package imports this store):
+    # a plan can only be armed once core.resilience.faults is loaded
     mod = sys.modules.get("repro_torch.core.resilience.faults")
     return mod.active() if mod is not None else None
 

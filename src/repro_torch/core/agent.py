@@ -23,8 +23,8 @@ Runnability features the brief requires at scale:
   ``DeviceFailure``) is contained in its Task; failed devices are removed
   from the pilot pool and the task retries on a re-carved (possibly
   smaller) mesh — elastic degradation.  With a FailurePolicy on the
-  description (the port's comes with core/resilience, ROADMAP.md queue 1,
-  item 4) the retry loop gains exponential backoff with deterministic
+  description (``repro_torch.core.resilience``) the retry loop gains
+  exponential backoff with deterministic
   jitter (retries park on ``Task.not_before``) and an end-to-end deadline
   across all attempts — a task that runs out of deadline fails
   *cleanly*: devices released, quotas balanced, callbacks fired;

@@ -149,9 +149,7 @@ class TaskDescription:
     # FailurePolicy: ``deadline_at``, ``allow_retry``, ``backoff_s``,
     # ``attempt_timeout_s``, ``deadline_s``) supersedes it and adds
     # exponential backoff between attempts and an end-to-end deadline
-    # across all attempts.  The port's FailurePolicy comes with
-    # core/resilience (ROADMAP.md queue 1, item 4); the agent honours any
-    # object with that interface.
+    # across all attempts (``repro_torch.core.resilience``).
     max_retries: int = 2
     policy: Any = None
     priority: int = 0

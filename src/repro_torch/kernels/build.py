@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -154,10 +155,29 @@ def build_all() -> Dict[str, str]:
             for name, s in started.items()}
 
 
-@functools.cache
+# engines of a fleet launch from threads of their own: the first use of a
+# library builds it once, and every launch counter stays exact
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use, with
-    its entry point ``name`` and those ``EXTRA_ENTRIES`` gives it typed."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (once,
+    whichever threads ask), with its entry point ``name`` and those
+    ``EXTRA_ENTRIES`` gives it typed."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count),
+    under a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     started = _start(name)
     if started is not None:
         _finish(name, started)

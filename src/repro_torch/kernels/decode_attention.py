@@ -164,7 +164,7 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
         out.data_ptr(), B, S, H, KV, D, span, nsplit, int(window),
         ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("decode_attention", err)
-    decode_attention_kernel.launches += 1
+    build.count_launch(decode_attention_kernel)
     return out
 
 
@@ -210,7 +210,7 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table, cache_len, *
         B, H, KV, D, num_pages, page_size, max_pages, span, nsplit, int(window),
         ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("decode_attention_paged", err)
-    decode_attention_paged_kernel.launches += 1
+    build.count_launch(decode_attention_paged_kernel)
     return out
 
 

@@ -70,7 +70,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True) -> torch.Tensor:
         out.data_ptr(), strides, B, S, H, k.shape[1], D, int(causal),
         ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("flash_attention", err)
-    flash_attention_kernel.launches += 1
+    build.count_launch(flash_attention_kernel)
     return out
 
 

@@ -75,7 +75,7 @@ def hash_partition_histogram_kernel(keys, *, num_buckets: int,
             keys.data_ptr(), out.data_ptr(), R, n, block, nb, num_buckets,
             torch.cuda.current_stream(keys.device).cuda_stream)
         build.raise_on_error("hash_partition", err)
-        hash_partition_histogram_kernel.launches += 1
+        build.count_launch(hash_partition_histogram_kernel)
     return out.reshape(*keys.shape[:-1], nb, num_buckets)
 
 

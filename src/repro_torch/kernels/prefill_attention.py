@@ -165,7 +165,7 @@ def _launch_scatter(k_pages, v_pages, block_table, k_new, v_new, base32, clens32
         k_new.shape[0], k_new.shape[1], row_elems, num_pages, page_size,
         block_table.shape[1], stream)
     build.raise_on_error("paged_scatter", err)
-    write_chunk_paged_kernel.launches += 1
+    build.count_launch(write_chunk_paged_kernel)
 
 
 def paged_append_kernel(k_pages, v_pages, block_table, idx, k_row, v_row):
@@ -237,7 +237,7 @@ def prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
         base32.data_ptr(), clens32.data_ptr(), out.data_ptr(), B, T, S, H, KV,
         D, ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
     build.raise_on_error("prefill_attention", err)
-    prefill_attention_kernel.launches += 1
+    build.count_launch(prefill_attention_kernel)
     return out, k_cache, v_cache
 
 
@@ -288,7 +288,7 @@ def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
         clens32.data_ptr(), out.data_ptr(), B, T, H, KV, D, num_pages,
         page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)), stream)
     build.raise_on_error("prefill_attention_paged", err)
-    prefill_attention_paged_kernel.launches += 1
+    build.count_launch(prefill_attention_paged_kernel)
     return out, k_pages, v_pages
 
 

@@ -45,7 +45,7 @@ def rmsnorm_kernel(x, w, *, eps: float = 1e-5) -> torch.Tensor:
             w.data_ptr(), out.data_ptr(), rows, d, ctypes.c_float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
         build.raise_on_error("rmsnorm", err)
-        rmsnorm_kernel.launches += 1
+        build.count_launch(rmsnorm_kernel)
     return out
 
 

@@ -12,10 +12,11 @@
 Everything runs on ``device`` (the card unless the caller asks for the
 CPU) under a ``PilotManager`` over that device.  Each function returns the
 results dict the JAX package writes to ``results/bench/<name>.json``.
-Batch starts come from a ``torch.Generator`` on the device, so the runs
-are not the JAX package's draw for draw; each SGD step takes its batch
-indices as an argument (``forecaster_step``, ``hydrology_step``), so a
-test can feed JAX's.  The parameters are updated in place under
+The data, the initial parameters and the batch indices are JAX's draws
+(threefry keys, ``common/prng.py``, split where the JAX package splits
+them), drawn on the host and the same on every device; each SGD step
+takes its batch indices as an argument (``forecaster_step``,
+``hydrology_step``).  The parameters are updated in place under
 ``torch.no_grad()``.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from repro_torch.common import prng
 from repro_torch.common.params import map_tree, tree_leaves
 from repro_torch.core.agent import RemoteAgent
 from repro_torch.core.bridge import cylon_stage, dl_stage
@@ -93,15 +95,15 @@ def _train_forecaster(name: str, steps: int, W=96, Hz=24, batch=128,
                       lr=1e-3, seed=0, device=None) -> Dict[str, float]:
     dev = resolve_device(device)
     init, apply = F.MODELS[name](W, Hz)
-    params = _trainable(init(torch.Generator(device=dev).manual_seed(seed), dev))
+    params = _trainable(init(prng.PRNGKey(seed), dev))
     series = F.make_ett_series(4096, seed=seed, device=dev)
     split = 3 * len(series) // 4
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    key = prng.PRNGKey(seed + 1)
     _sync(dev)
     t0 = time.time()
     for _ in range(steps):
-        starts = torch.randint(0, split - W - Hz, (batch,), generator=gen,
-                               device=dev)
+        key, sub = prng.split(key)
+        starts = prng.randint(sub, batch, 0, split - W - Hz).to(dev).long()
         loss = forecaster_step(apply, params, series, starts, W, Hz, lr)
     last = float(loss)  # waits for the device
     train_s = time.time() - t0
@@ -171,15 +173,16 @@ def bench_hydrology(full: bool = False, *, steps=None, device=None) -> Dict[str,
     x_all, y_all = Hy.window_dataset(feats, targets, window)
     n = x_all.shape[0]
     split = 3 * n // 4
-    params = Hy.lstm_init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = Hy.lstm_init(prng.PRNGKey(0), device=dev)
 
     def run_train(comm=None):
         p = _trainable(params)
-        gen = torch.Generator(device=dev).manual_seed(1)
+        key = prng.PRNGKey(1)
         _sync(dev)
         t0 = time.time()
         for _ in range(steps):
-            idx = torch.randint(0, split, (64,), generator=gen, device=dev)
+            key, sub = prng.split(key)
+            idx = prng.randint(sub, 64, 0, split).to(dev).long()
             loss = hydrology_step(p, x_all, y_all, idx)
         float(loss)  # waits for the device
         return p, time.time() - t0
@@ -244,7 +247,7 @@ def bench_multi_pipeline(full: bool = False, *, device=None) -> Dict[str, Any]:
     def infer_fn(comm, upstream, nm):
         # inference task: forward pass over a fresh batch, many repeats
         init, apply = F.MODELS[nm](96, 24)
-        params = init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = init(prng.PRNGKey(0), dev)
         x = torch.zeros((256, 96), device=dev)
         with torch.no_grad():
             apply(params, x)

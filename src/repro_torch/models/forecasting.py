@@ -5,15 +5,15 @@ forecasting at the JAX package's widths.
 Autoformer / DeepAR / NLinear / GRU / NBEATS / AutoNHITS / PatchTST / TFT /
 TimesNet / VanillaTransformer / TiDE.
 
-Each model is ``(init(generator, device) -> params, apply(params, x[B,W])
+Each model is ``(init(key, device) -> params, apply(params, x[B,W])
 -> y[B,Hz])``.  Parameters are nested dicts and lists of tensors, the JAX
 package's trees key for key (``common.params.from_jax_params`` carries a
-JAX tree across).  ``init`` draws from an explicit ``torch.Generator``
-that lives on ``device`` (the card unless the caller asks for the CPU),
-with the JAX package's scales, so the values differ from JAX's threefry
-draws.  No model reaches a kernel of its own: the matmuls, the GRU loop
-over time and the small dense attention run as PyTorch ops, as the JAX
-package computes them outside any Pallas kernel.
+JAX tree across).  ``init`` takes a threefry key (``common/prng.py``) and
+splits and folds it exactly where the JAX package's init does, so the
+parameters are JAX's draws, on ``device`` (the card unless the caller
+asks for the CPU).  No model reaches a kernel of its own: the matmuls,
+the GRU loop over time and the small dense attention run as PyTorch ops,
+as the JAX package computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import prng
 from repro_torch.launch.mesh import resolve_device
 
 Model = Tuple[Callable, Callable]
@@ -33,17 +34,19 @@ _D = 64  # shared hidden width at benchmark scale
 # -- helpers -----------------------------------------------------------------
 
 
-def _dense(gen, nin, nout, device):
-    w = torch.randn((nin, nout), generator=gen, device=device)
-    return {"w": w / math.sqrt(nin), "b": torch.zeros((nout,), device=device)}
+def _dense(key, nin, nout, device):
+    w = prng.normal(key, (nin, nout), device=device)
+    return {"w": w * (1.0 / math.sqrt(nin)),
+            "b": torch.zeros((nout,), device=device)}
 
 
 def _apply_dense(p, x):
     return x @ p["w"] + p["b"]
 
 
-def _mlp_init(gen, dims, device):
-    return [_dense(gen, dims[i], dims[i + 1], device) for i in range(len(dims) - 1)]
+def _mlp_init(key, dims, device):
+    ks = prng.split(key, len(dims) - 1)
+    return [_dense(k, dims[i], dims[i + 1], device) for i, k in enumerate(ks)]
 
 
 def _mlp_apply(ps, x, act=F.relu):
@@ -54,10 +57,11 @@ def _mlp_apply(ps, x, act=F.relu):
     return x
 
 
-def _gru_init(gen, nin, nh, device):
-    return {"wz": _dense(gen, nin + nh, nh, device),
-            "wr": _dense(gen, nin + nh, nh, device),
-            "wh": _dense(gen, nin + nh, nh, device)}
+def _gru_init(key, nin, nh, device):
+    k1, k2, k3 = prng.split(key, 3)
+    return {"wz": _dense(k1, nin + nh, nh, device),
+            "wr": _dense(k2, nin + nh, nh, device),
+            "wh": _dense(k3, nin + nh, nh, device)}
 
 
 def _gru_scan(p, xs, h0):
@@ -95,8 +99,8 @@ def _positions(x):
 
 
 def nlinear(W, Hz) -> Model:
-    def init(gen, device=None):
-        return {"head": _dense(gen, W, Hz, resolve_device(device))}
+    def init(key, device=None):
+        return {"head": _dense(key, W, Hz, resolve_device(device))}
 
     def apply(p, x):
         last = x[:, -1:]
@@ -106,9 +110,10 @@ def nlinear(W, Hz) -> Model:
 
 
 def gru(W, Hz) -> Model:
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"gru": _gru_init(gen, 1, _D, dev), "head": _dense(gen, _D, Hz, dev)}
+        k1, k2 = prng.split(key)
+        return {"gru": _gru_init(k1, 1, _D, dev), "head": _dense(k2, _D, Hz, dev)}
 
     def apply(p, x):
         h, _ = _gru_scan(p["gru"], x[..., None], x.new_zeros((x.shape[0], _D)))
@@ -121,9 +126,10 @@ def deepar(W, Hz) -> Model:
     """GRU backbone emitting (mu, sigma); point forecast = mu (NLL trained
     models reported by their mean in Table 3's point metrics)."""
 
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"gru": _gru_init(gen, 1, _D, dev), "head": _dense(gen, _D, 2 * Hz, dev)}
+        k1, k2 = prng.split(key)
+        return {"gru": _gru_init(k1, 1, _D, dev), "head": _dense(k2, _D, 2 * Hz, dev)}
 
     def apply(p, x):
         h, _ = _gru_scan(p["gru"], x[..., None], x.new_zeros((x.shape[0], _D)))
@@ -133,11 +139,12 @@ def deepar(W, Hz) -> Model:
 
 
 def nbeats(W, Hz, blocks=3) -> Model:
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return [{"mlp": _mlp_init(gen, [W, _D, _D], dev),
-                 "back": _dense(gen, _D, W, dev),
-                 "fore": _dense(gen, _D, Hz, dev)} for _ in range(blocks)]
+        return [{"mlp": _mlp_init(k, [W, _D, _D], dev),
+                 "back": _dense(prng.fold_in(k, 1), _D, W, dev),
+                 "fore": _dense(prng.fold_in(k, 2), _D, Hz, dev)}
+                for k in prng.split(key, blocks)]
 
     def apply(ps, x):
         residual = x
@@ -155,11 +162,12 @@ def autonhits(W, Hz, pools=(8, 4, 1)) -> Model:
     """NHITS: multi-rate pooling + hierarchical interpolation (pool sizes
     are closure values, not parameters)."""
 
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return [{"mlp": _mlp_init(gen, [W // pl, _D, _D], dev),
-                 "back": _dense(gen, _D, W, dev),
-                 "fore": _dense(gen, _D, max(Hz // pl, 1), dev)} for pl in pools]
+        return [{"mlp": _mlp_init(k, [W // pl, _D, _D], dev),
+                 "back": _dense(prng.fold_in(k, 1), _D, W, dev),
+                 "fore": _dense(prng.fold_in(k, 2), _D, max(Hz // pl, 1), dev)}
+                for k, pl in zip(prng.split(key, len(pools)), pools)]
 
     def apply(ps, x):
         residual = x
@@ -179,9 +187,11 @@ def autonhits(W, Hz, pools=(8, 4, 1)) -> Model:
     return init, apply
 
 
-def _attn_init(gen, dev):
-    return {"q": _dense(gen, _D, _D, dev), "k": _dense(gen, _D, _D, dev),
-            "v": _dense(gen, _D, _D, dev)}
+def _attn_init(key, dev):
+    """q from ``key``, k and v from its fold-ins 1 and 2 (JAX's tree)."""
+    return {"q": _dense(key, _D, _D, dev),
+            "k": _dense(prng.fold_in(key, 1), _D, _D, dev),
+            "v": _dense(prng.fold_in(key, 2), _D, _D, dev)}
 
 
 def _self_attn(p, h):
@@ -190,11 +200,12 @@ def _self_attn(p, h):
 
 
 def patchtst(W, Hz, patch=8) -> Model:
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"embed": _dense(gen, patch, _D, dev), **_attn_init(gen, dev),
-                "ff": _mlp_init(gen, [_D, 2 * _D, _D], dev),
-                "head": _dense(gen, (W // patch) * _D, Hz, dev)}
+        k1, k2, k3, k4 = prng.split(key, 4)
+        return {"embed": _dense(k1, patch, _D, dev), **_attn_init(k2, dev),
+                "ff": _mlp_init(k3, [_D, 2 * _D, _D], dev),
+                "head": _dense(k4, (W // patch) * _D, Hz, dev)}
 
     def apply(p, x):
         B = x.shape[0]
@@ -207,11 +218,12 @@ def patchtst(W, Hz, patch=8) -> Model:
 
 
 def vanilla_transformer(W, Hz) -> Model:
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"embed": _dense(gen, 1, _D, dev), **_attn_init(gen, dev),
-                "ff": _mlp_init(gen, [_D, 2 * _D, _D], dev),
-                "head": _dense(gen, _D, Hz, dev)}
+        k1, k2, k3, k4 = prng.split(key, 4)
+        return {"embed": _dense(k1, 1, _D, dev), **_attn_init(k2, dev),
+                "ff": _mlp_init(k3, [_D, 2 * _D, _D], dev),
+                "head": _dense(k4, _D, Hz, dev)}
 
     def apply(p, x):
         h = _apply_dense(p["embed"], x[..., None]) + _positions(x)
@@ -225,10 +237,11 @@ def vanilla_transformer(W, Hz) -> Model:
 def autoformer(W, Hz) -> Model:
     """Series decomposition + attention on the seasonal part + linear trend."""
 
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        base = vanilla_transformer(W, Hz)[0](gen, dev)
-        base["trend"] = _dense(gen, W, Hz, dev)
+        k1, k2 = prng.split(key)
+        base = vanilla_transformer(W, Hz)[0](k1, dev)
+        base["trend"] = _dense(k2, W, Hz, dev)
         return base
 
     def apply(p, x):
@@ -246,12 +259,13 @@ def autoformer(W, Hz) -> Model:
 def tft(W, Hz) -> Model:
     """Temporal fusion transformer, reduced: GRN gate + LSTM(GRU) + attn."""
 
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"grn": _mlp_init(gen, [1, _D, _D], dev),
-                "gate": _dense(gen, _D, _D, dev),
-                "gru": _gru_init(gen, _D, _D, dev), **_attn_init(gen, dev),
-                "head": _dense(gen, _D, Hz, dev)}
+        k1, k2, k3, k4 = prng.split(key, 4)
+        return {"grn": _mlp_init(k1, [1, _D, _D], dev),
+                "gate": _dense(prng.fold_in(k1, 1), _D, _D, dev),
+                "gru": _gru_init(k2, _D, _D, dev), **_attn_init(k3, dev),
+                "head": _dense(k4, _D, Hz, dev)}
 
     def apply(p, x):
         h = _mlp_apply(p["grn"], x[..., None], act=F.elu)
@@ -268,9 +282,10 @@ def timesnet(W, Hz, k_periods=2) -> Model:
     """Top-k FFT periods -> fold to 2D -> conv (depthwise via dense on
     period dim) -> unfold; reduced TimesBlock."""
 
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"mix": _mlp_init(gen, [W, _D, W], dev), "head": _dense(gen, W, Hz, dev)}
+        k1, k2 = prng.split(key)
+        return {"mix": _mlp_init(k1, [W, _D, W], dev), "head": _dense(k2, W, Hz, dev)}
 
     def apply(p, x):
         freq = torch.fft.rfft(x, dim=-1)
@@ -285,11 +300,12 @@ def timesnet(W, Hz, k_periods=2) -> Model:
 
 
 def tide(W, Hz) -> Model:
-    def init(gen, device=None):
+    def init(key, device=None):
         dev = resolve_device(device)
-        return {"enc": _mlp_init(gen, [W, _D, _D], dev),
-                "dec": _mlp_init(gen, [_D, _D, Hz], dev),
-                "skip": _dense(gen, W, Hz, dev)}
+        k1, k2, k3 = prng.split(key, 3)
+        return {"enc": _mlp_init(k1, [W, _D, _D], dev),
+                "dec": _mlp_init(k2, [_D, _D, Hz], dev),
+                "skip": _dense(k3, W, Hz, dev)}
 
     def apply(p, x):
         h = _mlp_apply(p["enc"], x)
@@ -315,18 +331,20 @@ MODELS: Dict[str, Callable[[int, int], Model]] = {
 
 def make_ett_series(n: int = 4096, seed: int = 0, device=None) -> torch.Tensor:
     """ETT-like synthetic series (oil-temperature style: daily + weekly
-    seasonality + slow trend + noise), standardized, on ``device``.  The
-    noise comes from a ``torch.Generator`` seeded with ``seed``, so the
-    series is not the JAX package's for the same seed."""
+    seasonality + slow trend + noise), standardized, on ``device``: the
+    JAX package's series for the same seed (its noise is JAX's threefry
+    normal draw).  It is built on the host and moved to the device once,
+    so it is the same series on every device (the card's division by a
+    scalar multiplies by the reciprocal, which moves the phase of the
+    seasonal terms by an ulp)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    t = torch.arange(n, dtype=torch.float32, device=dev)
+    t = torch.arange(n, dtype=torch.float32)
     series = (
         torch.sin(2 * math.pi * t / 24.0)
         + 0.5 * torch.sin(2 * math.pi * t / (24.0 * 7))
         + 0.3 * torch.sin(2 * math.pi * t / 96.0 + 1.0)
         + 0.0005 * t
-        + 0.2 * torch.randn((n,), generator=gen, device=dev)
+        + 0.2 * prng.normal(prng.PRNGKey(seed), (n,))
     )
     # jnp.std is the population std (ddof 0)
-    return (series - series.mean()) / series.std(correction=0)
+    return ((series - series.mean()) / series.std(correction=0)).to(dev)

@@ -5,9 +5,9 @@ Multivariate daily forcings -> LSTM -> per-target head, predicting
 precipitation / mean temperature / streamflow (QObs), with NNSE reporting
 as in Table 1.  ``make_camels_like`` generates a CAMELS-US-shaped synthetic
 basin (seasonal forcings, snow-melt-ish lag, baseflow recession) so the
-pipeline runs offline.  Its random draws come from a ``torch.Generator``,
-so its basin is not the JAX package's for the same seed; parity tests
-hand JAX's series to both packages through numpy.
+pipeline runs offline.  Its random draws are JAX's threefry draws
+(``common/prng.py``), split from the seed's key as the JAX package splits
+it, so the basin is the JAX package's for the same seed.
 """
 from __future__ import annotations
 
@@ -17,25 +17,28 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.common import prng
 from repro_torch.launch.mesh import resolve_device
 
 N_FEATURES = 5  # prcp, srad, tmax, tmin, vp  (CAMELS forcing set)
 TARGETS = ("precipitation", "mean_temperature", "streamflow")
 
 
-def lstm_init(gen: torch.Generator, n_in: int = N_FEATURES, nh: int = 64,
+def lstm_init(key: torch.Tensor, n_in: int = N_FEATURES, nh: int = 64,
               n_out: int = len(TARGETS), device=None) -> Dict:
     """Parameters on ``device`` (the card unless the caller asks for the
-    CPU), drawn from ``gen``, which lives there; forget-gate bias 1."""
+    CPU), drawn from the threefry ``key`` as the JAX package draws them
+    (its split in 5, the first three used); forget-gate bias 1."""
     dev = resolve_device(device)
+    k = prng.split(key, 5)
     s = 1.0 / math.sqrt(n_in + nh)
     b = torch.zeros((4 * nh,), device=dev)
     b[nh:2 * nh] = 1.0  # forget bias 1
     return {
-        "wx": torch.randn((n_in, 4 * nh), generator=gen, device=dev) * s,
-        "wh": torch.randn((nh, 4 * nh), generator=gen, device=dev) * s,
+        "wx": prng.normal(k[0], (n_in, 4 * nh), device=dev) * s,
+        "wh": prng.normal(k[1], (nh, 4 * nh), device=dev) * s,
         "b": b,
-        "head_w": torch.randn((nh, n_out), generator=gen, device=dev) / math.sqrt(nh),
+        "head_w": prng.normal(k[2], (nh, n_out), device=dev) * (1.0 / math.sqrt(nh)),
         "head_b": torch.zeros((n_out,), device=dev),
     }
 
@@ -88,26 +91,26 @@ def _standardize(y: torch.Tensor, dim=None) -> torch.Tensor:
 
 def make_camels_like(n_days: int = 5000, seed: int = 0, device=None):
     """Synthetic CAMELS-US-like basin: returns (forcings [T,F],
-    targets {name: [T]}), standardized, on ``device``.  It is built on the
-    host (the bucket recursion is sequential over the days) and moved to
-    the device once."""
-    gen = torch.Generator().manual_seed(seed)
+    targets {name: [T]}), standardized, on ``device``: the JAX package's
+    basin for the same seed.  It is built on the host (the bucket
+    recursion is sequential over the days) and moved to the device once."""
+    ks = prng.split(prng.PRNGKey(seed), 6)
 
-    def noise():
-        return torch.randn((n_days,), generator=gen)
+    def noise(i):
+        return prng.normal(ks[i], (n_days,))
 
     t = torch.arange(n_days, dtype=torch.float32)
     season = torch.sin(2 * math.pi * t / 365.25)
     # forcings
-    prcp = torch.relu(0.6 * season + 0.8 * noise() + 0.3)
-    tmax = 15 + 12 * season + 2 * noise()
-    tmin = tmax - 8 - noise().abs()
-    srad = 200 + 150 * season + 20 * noise()
-    vp = 8 + 5 * season + noise()
+    prcp = torch.relu(0.6 * season + 0.8 * noise(0) + 0.3)
+    tmax = 15 + 12 * season + 2 * noise(1)
+    tmin = tmax - 8 - noise(2).abs()
+    srad = 200 + 150 * season + 20 * noise(3)
+    vp = 8 + 5 * season + noise(4)
     # streamflow: routed precipitation with recession (simple bucket model)
     melt = torch.relu(tmin / 20.0) * 0.2
     q = torch.from_numpy(bucket_flow(prcp.numpy(), melt.numpy()))
-    q = q + 0.05 * noise()
+    q = q + 0.05 * noise(5)
 
     feats = _standardize(torch.stack([prcp, srad, tmax, tmin, vp], dim=-1), dim=0)
     mean_temp = (tmax + tmin) / 2

@@ -26,9 +26,10 @@ Differences from the JAX engine:
   contiguous decode step gives the rows that must not decode length -1,
   so their appends drop and they read nothing (JAX writes them and
   restores the old rows with a ``where`` over the whole cache);
-* prefill-only engines and KV handoffs raise ``NotImplementedError``;
-  they and the fault-injection hook come with the fleet (ROADMAP.md
-  queue 1, item 4).
+* a KV handoff's page blocks are host tensors: the export gathers the
+  slot's pages with ``index_select`` and copies them to the host (as
+  JAX's ``np.asarray`` does), the import writes them into the pool with
+  ``index_copy_``.
 
 Sampling is per slot (temperature, top-k and a seeded threefry stream,
 ``serve/sampling.py``), bit for bit the JAX engine's: greedy is the
@@ -38,6 +39,15 @@ argmax, and a step calls the sampler only when a live slot samples.
 runtime (``repro_torch.core``): it pulls requests from the stage's
 ``ServiceControl`` and steps the engine until told to stop or drain, and
 yields its devices through ``ServicePreempted``.
+
+The fleet side (``serve/router.py``): a ``prefill_only`` engine exports
+each finished prompt as a :class:`~repro_torch.serve.handoff.KVHandoff`
+(the request plus exactly its own page blocks) into an outbox that the
+router drains with ``take_handoffs``; a decode engine takes a handoff
+through ``submit`` and imports it into fresh pages of its own pool.
+``steal_queued`` and ``recover_outstanding`` hand unbound and crashed
+work back to the router, and ``step()`` is the ``engine.step`` fault site
+(``core/resilience``), fired only when the engine has work.
 """
 from __future__ import annotations
 
@@ -52,15 +62,23 @@ import torch
 
 from repro_torch.common.params import init_params, map_tree, tree_bytes
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.resilience import faults as rfaults
 from repro_torch.core.task import ServiceControl, ServicePreempted
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.lm import lm_cache_specs, lm_paged_cache_specs
+from repro_torch.serve.handoff import KVHandoff
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import make_slot_key, sample_tokens
 from repro_torch.train.state import model_specs
 from repro_torch.train.step import make_decode_step, make_prefill_chunk_step
 
 _engine_uid = itertools.count()
+
+
+def _entry_submitted_at(entry) -> float:
+    """Submission time of a queue entry (a Request or a KVHandoff)."""
+    return (entry.request.submitted_at if isinstance(entry, KVHandoff)
+            else entry.submitted_at)
 
 
 def _bucket(n: int, lo: int = 2) -> int:
@@ -70,6 +88,19 @@ def _bucket(n: int, lo: int = 2) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _map_cache(fn_b0, fn_b1, *trees):
+    """Map over LM cache trees, layer axis aware: ``head_layers`` /
+    ``tail_layers`` leaves are ``[pages, ...]`` (``fn_b0``) and the
+    stacked ``unit`` leaves ``[layers, pages, ...]`` (``fn_b1``)."""
+    def walk(fn, *nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk(fn, *(n[k] for n in nodes)) for k in nodes[0]}
+        return fn(*nodes)
+
+    return {k: walk(fn_b1 if k == "unit" else fn_b0, *(t[k] for t in trees))
+            for k in trees[0]}
 
 
 class ServeEngine:
@@ -99,10 +130,6 @@ class ServeEngine:
         if prefill_only and kv_layout != "paged":
             raise ValueError("prefill_only engines require kv_layout="
                              "'paged' (handoff ships page blocks)")
-        if prefill_only:
-            raise NotImplementedError(
-                "prefill-only engines and KV handoffs are the fleet slice "
-                "(ROADMAP.md queue 1, item 4)")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1 (or None "
                              "for whole-prompt prefill)")
@@ -112,6 +139,9 @@ class ServeEngine:
         self.cfg = cfg
         self.run_cfg = run_cfg or RunConfig()
         self.uid = name or f"engine{next(_engine_uid):03d}"
+        # prefill-only role: finished prompts are exported as KVHandoff
+        # page blocks instead of decoding in place
+        self.prefill_only = prefill_only
         self.max_slots = max_slots
         self.max_len = max_len
         self.continuous = continuous
@@ -143,7 +173,9 @@ class ServeEngine:
         # (queue, stats, shape tracking); the slot/page fields are owned by
         # the thread that calls step()
         self._lock = threading.Lock()
-        self.queue: Deque[Request] = collections.deque()  # guarded-by: _lock
+        self.queue: Deque[Any] = collections.deque()  # guarded-by: _lock
+        # finished prefills parked for the router's handoff mover
+        self._outbox: Deque[KVHandoff] = collections.deque()  # guarded-by: _lock
         self._stats: Dict[str, int] = collections.defaultdict(int)  # guarded-by: _lock
         self._seen_shapes: Dict[str, set] = collections.defaultdict(set)  # guarded-by: _lock
         self._init_state()
@@ -188,6 +220,7 @@ class ServeEngine:
                 "last_tok": self.last_tok.copy(),
                 "slots": list(self.slots),
                 "queue": list(self.queue),
+                "outbox": list(self._outbox),
                 "stats": dict(self._stats),
                 "slot_keys": self.slot_keys.copy(),
                 "slot_temp": self.slot_temp.copy(),
@@ -212,6 +245,7 @@ class ServeEngine:
             self.last_tok = state["last_tok"].copy()
             self.slots = list(state["slots"])
             self.queue = collections.deque(state["queue"])
+            self._outbox = collections.deque(state["outbox"])
             self._stats = collections.defaultdict(int, state["stats"])
             self.slot_keys = state["slot_keys"].copy()
             self.slot_temp = state["slot_temp"].copy()
@@ -231,6 +265,7 @@ class ServeEngine:
             self.lengths = np.zeros(self.max_slots, np.int32)
             self.last_tok = np.zeros(self.max_slots, np.int32)
             self.queue = collections.deque()
+            self._outbox = collections.deque()
             self.slot_keys = np.zeros((self.max_slots, 2), np.uint32)
             self.slot_temp = np.zeros(self.max_slots, np.float32)
             self.slot_topk = np.zeros(self.max_slots, np.int32)
@@ -245,12 +280,63 @@ class ServeEngine:
     # -- client side ---------------------------------------------------------
 
     def submit(self, request, **kw) -> Request:
-        """Queue a request (a :class:`Request` or a raw prompt array)."""
+        """Queue a request (a :class:`Request`, a raw prompt array, or a
+        :class:`KVHandoff` migrated from a prefill engine)."""
+        if isinstance(request, KVHandoff):
+            if not self.paged:
+                raise ValueError("KVHandoff import needs a paged engine")
+            if request.page_size != self.page_size:
+                raise ValueError(
+                    f"handoff page_size {request.page_size} != engine "
+                    f"page_size {self.page_size}")
+            with self._lock:
+                self.queue.append(request)
+            return request.request
         if not isinstance(request, Request):
             request = Request(np.asarray(request, np.int32), **kw)
         with self._lock:
             self.queue.append(request)
         return request
+
+    def take_handoffs(self) -> List[KVHandoff]:
+        """Pop every exported prefill (the router ships these into a
+        decode engine)."""
+        with self._lock:
+            out = list(self._outbox)
+            self._outbox.clear()
+        return out
+
+    def steal_queued(self) -> List[Any]:
+        """Pop every queued-but-unbound entry so a router can re-route it
+        away from a draining or preempted engine.  Bound slots are not
+        touched: they finish here or ride the preemption checkpoint."""
+        with self._lock:
+            out = list(self.queue)
+            self.queue.clear()
+        return out
+
+    def recover_outstanding(self) -> List[Any]:
+        """Crash recovery (the router's circuit-breaker path): every
+        accepted-but-unfinished entry (bound slots, queued entries, parked
+        handoffs) comes back for re-routing instead of failing.  Bound
+        requests lose their in-pool KV with the crashed state, so they
+        are reset to QUEUED and re-enter as plain prompts
+        (:meth:`Request.reset_for_retry`); queued entries and exported
+        handoffs (host copies, independent of the dead engine state)
+        return as they are.  The slot state is released; the next
+        ``run_service`` starts fresh."""
+        with self._lock:
+            bound = [r for r in self.slots if r is not None]
+            queued, self.queue = list(self.queue), collections.deque()
+            handed, self._outbox = list(self._outbox), collections.deque()
+        for req in bound:
+            if not req.done():
+                req.reset_for_retry()
+        self._release_state()
+        recovered = bound + queued + handed
+        if recovered:
+            self._bump("recovered", len(recovered))
+        return recovered
 
     def has_work(self) -> bool:
         with self._lock:
@@ -274,12 +360,12 @@ class ServeEngine:
             occupied = sum(r is not None for r in self.slots)
             return {
                 "engine": self.uid,
-                "prefill_only": False,
+                "prefill_only": self.prefill_only,
                 "occupied": occupied,
                 "max_slots": self.max_slots,
                 "queue_depth": len(self.queue),
                 "oldest_queued_age_s": (
-                    now - min(r.submitted_at for r in self.queue)
+                    now - min(_entry_submitted_at(e) for e in self.queue)
                     if self.queue else 0.0),
                 "free_pages": (len(self.free_pages) if self.paged
                                else self.max_slots - occupied),
@@ -346,16 +432,7 @@ class ServeEngine:
     def _finish_slot(self, i: int, state: RequestState,
                      error: Optional[str] = None) -> None:
         req = self.slots[i]
-        self.slots[i] = None
-        self.lengths[i] = 0
-        self.last_tok[i] = 0
-        self.slot_temp[i] = 0.0
-        self.slot_topk[i] = 0
-        self.slot_keys[i] = 0
-        self.prefill_pos[i] = -1
-        self.slot_prompt[i] = None
-        if self.paged:
-            self._free_slot_pages(i)
+        self._clear_slot(i)
         req._finish(state, error)
         self._bump("completed" if state is RequestState.DONE else "failed")
 
@@ -368,10 +445,12 @@ class ServeEngine:
                 self._finish_slot(i, RequestState.FAILED, error)
         with self._lock:
             queued, self.queue = list(self.queue), collections.deque()
-        for req in queued:  # _finish runs callbacks: outside the lock
+            handed, self._outbox = list(self._outbox), collections.deque()
+        for entry in queued + handed:  # _finish runs callbacks: outside the lock
+            req = entry.request if isinstance(entry, KVHandoff) else entry
             req._finish(RequestState.FAILED, error)
-        if queued:
-            self._bump("failed", len(queued))
+        if queued or handed:
+            self._bump("failed", len(queued) + len(handed))
 
     def _should_stop(self, req: Request, tok: int, length: int) -> bool:
         return (len(req.tokens) >= req.max_new_tokens
@@ -388,10 +467,27 @@ class ServeEngine:
                 return 0
             if not self.continuous and len(free) < self.max_slots:
                 return 0  # static batching: wait for the whole batch to end
-            batch: List[Request] = []
+            batch: List[Any] = []
             reserved = 0
             while self.queue and len(batch) < len(free):
                 req = self.queue[0]
+                if isinstance(req, KVHandoff):
+                    # a migrated prefill: its own pages plus one
+                    # decode-growth page (the rule of a fresh prompt)
+                    need = min(req.n_pages + 1, self.max_pages)
+                    if need > self.num_pages:
+                        self.queue.popleft()
+                        req.request._finish(
+                            RequestState.FAILED,
+                            f"handoff needs {need} pages of {self.page_size} "
+                            f"but the pool only has {self.num_pages}")
+                        self._stats["failed"] += 1
+                        continue
+                    if reserved + need > len(self.free_pages):
+                        break  # FIFO backpressure, as for prompts
+                    reserved += need
+                    batch.append(self.queue.popleft())
+                    continue
                 if req.prompt_len > self.max_len - 1:
                     self.queue.popleft()
                     req._finish(RequestState.FAILED,
@@ -423,6 +519,9 @@ class ServeEngine:
         now = time.time()
         for j, req in enumerate(batch):
             i = free[j]
+            if isinstance(req, KVHandoff):
+                self._import_handoff(i, req, now)
+                continue
             if self.paged and not self._alloc_pages(
                     i, -(-req.prompt_len // self.page_size)):
                 raise RuntimeError("page reservation failed after admission check")
@@ -439,6 +538,83 @@ class ServeEngine:
             self._stats["admitted"] += len(batch)
             self._stats["prefill_batches"] += 1
         return len(batch)
+
+    def _pad_pids(self, pids: np.ndarray) -> np.ndarray:
+        """Pad a page-id list to its power-of-two bucket by repeating the
+        last id (the JAX engine's bounded gather shapes)."""
+        b = min(_bucket(max(len(pids), 1), lo=1), self.max_pages)
+        if b == len(pids):
+            return pids
+        return np.concatenate([pids, np.full(b - len(pids), pids[-1], np.int32)])
+
+    def _clear_slot(self, i: int) -> None:
+        self.slots[i] = None
+        self.lengths[i] = 0
+        self.last_tok[i] = 0
+        self.slot_temp[i] = 0.0
+        self.slot_topk[i] = 0
+        self.slot_keys[i] = 0
+        self.prefill_pos[i] = -1
+        self.slot_prompt[i] = None
+        if self.paged:
+            self._free_slot_pages(i)
+
+    def _export_slot(self, i: int) -> None:
+        """Prefill-only handoff: gather the slot's own pages out of the
+        pool at the bucketed width, keep only the owned ones, copy them to
+        the host (the only host sync this adds) and park them in the
+        outbox as a :class:`KVHandoff`.  The slot's pages go back to the
+        free list and the slot unbinds WITHOUT finishing the request: it
+        stays RUNNING and completes on the importing decode engine."""
+        req = self.slots[i]
+        pids = np.asarray(self.slot_pages[i], np.int32)
+        n = len(pids)
+        padded = self._pad_pids(pids)
+        self._count_retrace("handoff_gather", len(padded))
+        idx = self._tensor(padded.astype(np.int64))
+        pages = _map_cache(lambda l: l.index_select(0, idx)[:n].cpu(),
+                           lambda l: l.index_select(1, idx)[:, :n].cpu(),
+                           self.cache)
+        hand = KVHandoff(
+            request=req, length=int(self.lengths[i]),
+            last_tok=int(self.last_tok[i]), slot_key=self.slot_keys[i].copy(),
+            temperature=float(self.slot_temp[i]), top_k=int(self.slot_topk[i]),
+            pages=pages, n_pages=n, page_size=self.page_size,
+            kv_bytes=tree_bytes(pages), source=self.uid)
+        self._clear_slot(i)
+        with self._lock:
+            self._outbox.append(hand)
+            self._stats["handoffs_exported"] += 1
+            self._stats["handoff_bytes_exported"] += hand.kv_bytes
+
+    def _import_handoff(self, i: int, hand: KVHandoff, now: float) -> None:
+        """Bind a migrated prefill: allocate exactly its page count, write
+        the shipped blocks into those pages of this pool (a block-table
+        rewrite: page ids change, intra-page offsets do not) and enter
+        decode directly; the prompt never replays."""
+        if not self._alloc_pages(i, hand.n_pages):
+            raise RuntimeError("page reservation failed after admission check")
+        pids = np.asarray(self.slot_pages[i], np.int64)
+        self._count_retrace("handoff_scatter", len(self._pad_pids(pids)))
+        idx = self._tensor(pids)
+        _map_cache(lambda l, d: l.index_copy_(0, idx, d.to(l.device, l.dtype)),
+                   lambda l, d: l.index_copy_(1, idx, d.to(l.device, l.dtype)),
+                   self.cache, hand.pages)
+        req = hand.request
+        self.slots[i] = req
+        self.lengths[i] = hand.length
+        self.last_tok[i] = hand.last_tok
+        self.prefill_pos[i] = -1
+        self.slot_prompt[i] = None
+        self.slot_keys[i] = hand.slot_key
+        self.slot_temp[i] = hand.temperature
+        self.slot_topk[i] = hand.top_k
+        req.state = RequestState.RUNNING
+        if req.admitted_at is None:
+            req.admitted_at = now
+        with self._lock:
+            self._stats["handoffs_imported"] += 1
+            self._stats["handoff_bytes_imported"] += hand.kv_bytes
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -519,6 +695,8 @@ class ServeEngine:
                 self.last_tok[i] = tok
                 if self._should_stop(req, tok, int(self.lengths[i])):
                     self._finish_slot(i, RequestState.DONE)
+                elif self.prefill_only:
+                    self._export_slot(i)
         with self._lock:
             self._stats["prefill_chunks"] += 1
             self._stats["prefill_tokens"] += used
@@ -528,6 +706,14 @@ class ServeEngine:
         """Admit what fits, spend one bounded prefill chunk, then run one
         fused decode over every slot whose prefill already finished.
         Returns False when there was nothing to do."""
+        inj = rfaults.active()
+        if inj is not None and self.has_work():
+            # chaos site (FaultPlan.crash_engine): only steps with work
+            # count, so the Nth firing is a logical point in the workload,
+            # not a function of idle-spin timing
+            act = inj.fire("engine.step", engine=self.uid)
+            if act is not None and act.get("action") == "crash":
+                raise rfaults.InjectedFault(f"injected crash at {self.uid} step")
         progressed = self._admit() > 0
         progressed = self._prefill_step() or progressed
         if self.paged:
@@ -651,7 +837,7 @@ class ServeEngine:
             out = dict(self._stats)
             now = time.time()
             queued = len(self.queue)
-            oldest = (now - min(r.submitted_at for r in self.queue)
+            oldest = (now - min(_entry_submitted_at(e) for e in self.queue)
                       if self.queue else 0.0)
             free_pages = len(self.free_pages) if self.paged else 0
             occupied = sum(r is not None for r in self.slots)
@@ -662,7 +848,7 @@ class ServeEngine:
             "max_slots": self.max_slots,
             "max_len": self.max_len,
             "continuous": self.continuous,
-            "prefill_only": False,
+            "prefill_only": self.prefill_only,
             "kv_layout": "paged" if self.paged else "contiguous",
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
             # chunk-width buckets seen (the JAX engine keeps one jitted

@@ -3,8 +3,9 @@ the paged cache scatter, flash attention, rmsnorm, the dataframe's
 hash-partition histogram) against their plain PyTorch versions, on the
 card, at every head dim the attention kernels take (16, 32, 64, 96,
 128; the contiguous decode also 24), and at the shapes each served
-config's path gives them; the smoke MLA and MoE engines and the threefry
-sampler on the card.  Every test here needs an
+config's path gives them (the fleet's whole-prompt prefill widths too);
+the smoke MLA and MoE engines, the threefry sampler and a disaggregated
+fleet on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -493,6 +494,110 @@ def test_serving_kernels_at_moonshot_shapes(dtype, tol):
     """moonshot-v1-16b-a3b's serving path: B 8, H 16, KV 16, D 128, S 512,
     T 64, page 16."""
     _serving_shape_checks("moonshot-v1-16b-a3b", dtype, tol, seed=100)
+
+
+def _within_limit(got, want, tol):
+    """Every element within its limit of the plain value: ``tol`` for
+    fp32; for bf16 the larger of ``tol`` and one bf16 ulp of |want|."""
+    limit = torch.full_like(want, tol, dtype=torch.float32)
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float().abs())
+        limit = torch.clamp(torch.ldexp(torch.ones_like(limit), e - 8), min=tol)
+    return bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 256, 512])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_serving_kernels_at_fleet_prefill_shapes(dtype, tol, T):
+    """The paged prefill at the widths a prefill-only engine of the fleet
+    gives it (whole prompts up to max_len 512): tinyllama-1.1b's H 32, KV
+    4, D 64, B 8, page 16, base 0, chunk lengths T, T - 1, T/2 + 1,
+    T/2 - 1, 65, 17, 1 and 0 (across page and tile edges, an empty row);
+    pools bitwise, padding and the empty row exactly zero, the output
+    within the per-element limit."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(60 + T)
+    B, S, page, H, KV, D = SERVE_B, SERVE_S, SERVE_PAGE, 32, 4, 64
+    base, clens = [0] * B, [T, T - 1, T // 2 + 1, T // 2 - 1, 65, 17, 1, 0]
+    q, kn, vn, kp, vp, bt, bs, cl = _paged_case(rng, dt, B, T, H, KV, D, page, S // page,
+                                                base, clens)
+    go, gk, gv = tpa.prefill_attention_paged_kernel(q, kn, vn, kp.clone(), vp.clone(),
+                                                    bt, bs, cl)
+    wo, wk, wv = tpa.prefill_attention_paged_plain(q, kn, vn, kp.clone(), vp.clone(),
+                                                   bt, bs, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    pad = torch.arange(T, device="cuda")[None, :] >= cl[:, None]
+    assert bool((go[pad] == 0).all()) and bool((go[-1] == 0).all())
+    assert _within_limit(go, wo, tol)
+
+
+@pytest.mark.cuda
+def test_seeded_draws_are_the_cpus_on_the_card():
+    """The pipelines' threefry draws do not depend on the device: keys,
+    bits and randint bitwise, uniforms bitwise, normals and the ETT series
+    as on the CPU (which tests/test_torch_prng.py holds to JAX's)."""
+    _card()
+    from repro_torch.common import prng
+    from repro_torch.models import forecasting as tf
+    from repro_torch.models import hydrology as th
+
+    key = prng.PRNGKey(3)
+    for fn in (lambda d: prng.split(key.to(d), 5), lambda d: prng.fold_in(key.to(d), 7),
+               lambda d: prng.random_bits(key, (64, 33), device=d),
+               lambda d: prng.randint(key, 1000, 0, 2928, device=d),
+               lambda d: prng.uniform(key, 4096, -1.0, 1.0, device=d)):
+        assert torch.equal(fn("cuda").cpu(), fn("cpu"))
+    n_gpu, n_cpu = prng.normal(key, 100_000, device="cuda").cpu(), prng.normal(key, 100_000)
+    assert (n_gpu - n_cpu).abs().max().item() <= 2 * torch.finfo(torch.float32).eps
+    ett = tf.make_ett_series(4096, seed=0, device="cuda").cpu()
+    assert (ett - tf.make_ett_series(4096, seed=0, device="cpu")).abs().max().item() <= 1e-5
+    (fg, tg), (fc, tc) = (th.make_camels_like(2000, device=d) for d in ("cuda", "cpu"))
+    assert (fg.cpu() - fc).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fleet_launches_its_kernels_and_keeps_the_streams():
+    """A disaggregated 1 + 1 fleet of the tinyllama smoke config on the
+    card, fp32, its engines stepping on threads of their own: the greedy
+    streams equal one colocated engine's; only the paged kernels launch,
+    the paged prefill exactly layers x the prefill engine's chunks, the
+    paged decode exactly layers x the decode engine's steps, the scatter
+    once a layer per chunk and per decode step."""
+    _card()
+    from repro_torch.common.params import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request, ServeEngine, build_fleet
+    from repro_torch.train.state import model_specs
+
+    cfg = get_config("tinyllama-1.1b", smoke=True).with_overrides(
+        compute_dtype=torch.float32)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         model_specs(cfg), "cuda")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 23, 40, 130, 9)]
+    kw = dict(max_slots=4, max_len=256, page_size=16)
+    direct = ServeEngine(cfg, params=params, **kw)
+    want = [direct.submit(p, max_new_tokens=8) for p in prompts]
+    direct.run_until_drained()
+    _zero_counts()
+    with build_fleet(cfg, num_engines=2, disaggregate=True, params=params, **kw) as router:
+        reqs = [router.submit(Request(p, max_new_tokens=8)) for p in prompts]
+        assert router.drain(timeout=300)
+        stats = router.stats()
+    torch.cuda.synchronize()
+    c = _counts()
+    pre, dec = stats["engines"]
+    assert [r.tokens for r in reqs] == [w.tokens for w in want]
+    assert c["paged_prefill"] == cfg.num_layers * pre["prefill_chunks"]
+    assert c["paged_decode"] == cfg.num_layers * dec["decode_steps"]
+    assert c["scatter"] == c["paged_prefill"] + c["paged_decode"]
+    assert c["flash"] == c["decode"] == c["prefill"] == 0
+    assert pre.get("decode_steps", 0) == 0 and dec.get("prefill_chunks", 0) == 0
+    assert stats["handoff_pages"] == sum(-(-len(p) // 16) for p in prompts)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.models import forecasting as JF  # noqa: E402
+from repro_torch.common import prng  # noqa: E402
 from repro_torch.common.params import from_jax_params, to_numpy, tree_leaves  # noqa: E402
 from repro_torch.launch import paper_tables as P  # noqa: E402
 from repro_torch.models import forecasting as TF  # noqa: E402
@@ -64,7 +65,7 @@ def _assert_trees(got, want, **tol):
 def test_init_matches_jax_tree(name):
     """The port's init gives JAX's tree, key for key and shape for shape,
     with JAX's scales: zero biases, weights of std 1/sqrt(fan in)."""
-    t = TF.MODELS[name](W, HZ)[0](torch.Generator().manual_seed(0), "cpu")
+    t = TF.MODELS[name](W, HZ)[0](prng.PRNGKey(0), "cpu")
     j = jax.tree.map(np.asarray, _jax_params(name))
     assert _structure(t) == _structure(j)
     for leaf in tree_leaves(t):

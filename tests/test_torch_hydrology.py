@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.models import hydrology as JH  # noqa: E402
+from repro_torch.common import prng  # noqa: E402
 from repro_torch.common.params import from_jax_params, to_numpy  # noqa: E402
 from repro_torch.launch import paper_tables as P  # noqa: E402
 from repro_torch.models import hydrology as TH  # noqa: E402
@@ -41,7 +42,7 @@ def basin():
 
 
 def test_lstm_init_matches_jax_tree():
-    t = TH.lstm_init(torch.Generator().manual_seed(0), device="cpu")
+    t = TH.lstm_init(prng.PRNGKey(0), device="cpu")
     j = JH.lstm_init(jax.random.PRNGKey(0))
     assert list(t) == list(j)
     assert {k: tuple(v.shape) for k, v in t.items()} == \

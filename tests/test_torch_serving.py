@@ -1,7 +1,7 @@
 """Port parity: the ``repro_torch`` ServeEngine against ``repro.serve``:
 token-identical greedy streams on the mixed workload with shared weights
 (fp32 compute), page reuse and pool-exhaustion recovery, checkpoint /
-restore, and the refusals of what the port does not serve yet."""
+restore, and the default device."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -146,12 +146,6 @@ def test_checkpoint_restore_roundtrip(params):
     assert eng.free_pages == state["free_pages"]
     eng.run_until_drained()
     assert [r.tokens for r in reqs] == want
-
-
-@pytest.mark.parametrize("kw", [dict(prefill_only=True)])
-def test_later_slices_raise(params, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        _engine(params[1], cfg=CFG, **kw)
 
 
 def test_default_device_is_the_card():
