@@ -59,7 +59,11 @@ non-zero:
             windows, and the paged prefill at the widths the fleet's
             prefill-only engines give it (tinyllama's H, KV, D; B 8, T 128,
             256 and 512 at base 0, ragged chunk lengths across page and
-            tile edges, an empty row).  Each element of a kernel's output is
+            tile edges, an empty row), and the contiguous decode at
+            recurrentgemma-9b's ring decode (B 8, H 16, KV 1, head dim 256,
+            a ring of 2048 slots: lengths 0, 1, 15-17, 511-513, 1023-1025,
+            2047 and a full ring, and scalar lengths; ring_decode_cases).
+            Each element of a kernel's output is
             held to its plain version within 1e-4 (fp32) or the larger of
             2e-2 and one bf16 ulp of the plain value (bf16; TOL_NOTE).
             Then torch.profiler's device time
@@ -83,8 +87,13 @@ non-zero:
             (torch.profiler); for both prefills and both decodes also the
             device time of their kernels, for the paged prefill the
             scatter kernel alone, for both decodes also their fp32 call
-            (the CUDA-core body) at the same shape.
-5. profile  torch.profiler over a separate serving run per layout: device
+            (the CUDA-core body) at the same shape.  Kernel 2 also at
+            recurrentgemma-9b's ring decode, every row a full ring of 2048
+            (ring_decode_row: bf16 and fp32, SDPA over K/V expanded to its
+            16 heads beside).
+5. profile  torch.profiler over PROFILE_WINDOW decode steps of a separate
+            serving run per layout, once its 8 requests all decode (a
+            whole run's trace took ~75 s to process): device
             busy and idle share, kernels and host ops per engine step, the
             port's kernels' device time per launch, top kernels; neither
             layout may launch a combine pass.
@@ -214,6 +223,25 @@ non-zero:
             against a numpy reference from threefry_np's bits (ETT_TOL).
             Then torch.profiler over PAPER_PROFILE_STEPS SGD steps of the
             GRU and of the LSTM: device idle share, kernels per step.
+13. recurrent  the recurrent families at their published widths (random
+            weights from a seeded torch.Generator).  xlstm-125m (12 layers,
+            d_model 768, 4 heads, mLSTM and sLSTM blocks) through the
+            training driver with no --arch (its default), B 8 x S 512, 10
+            steps: the loss falls and no port kernel launches (JAX's xlstm
+            path runs no Pallas kernel); one step profiled; 3 fp32 steps at
+            B 2 x S 64 from one state on the card and on the host CPU, loss
+            and grad-norm within TRAIN_TOL.  recurrentgemma-9b (38 layers,
+            d_model 4096, 12 local layers of H 16, KV 1, head dim 256 over
+            a 2048-slot ring, RG-LRU width 4096, vocab 256000) with fp32
+            parameters (38.3 GB) and compute, B 2: the no-cache prefill's
+            last logits at S 64 against the decode replay's at position 63
+            within 1e-3 of their max abs, then 32 greedy tokens, the kernel
+            path's stream equal to the plain path's; then with bf16
+            parameters (19.1 GB), B 4 decoded through 2112 positions (the
+            ring wraps): kernel 2 exactly 12 times a step and nothing
+            else, every logit finite, the last step's next tokens equal to
+            the plain path's on a clone of the cache (a near-tie recorded
+            with its gap); tokens/s, step p50, seconds.
 
 Each phase's wall seconds are printed on one line (``"phase": "wall"``).
 
@@ -292,8 +320,10 @@ MOE_PARAM_DTYPE = torch.bfloat16
 # the sampling phase: seeds of the threefry check (64, half >= 2^32), and
 # the temperature of the sampled serving run
 SAMPLE_SEEDS, SAMPLE_TEMPERATURE = 64, 1.0
-# engine steps of the decode windows the sampling and mla_moe phases profile
-PROFILE_WINDOW = 4
+# engine steps of the decode windows the profile, sampling and mla_moe
+# phases profile (2 since the recurrent phase joined the run, 4 before:
+# processing a trace costs ~0.5 ms an event, ~10^4 events a step)
+PROFILE_WINDOW = 2
 # the fleet phase: requests of its stream checks (fp32), of its rate runs
 # (bf16) and rounds of those; the chunk widths a prefill-only engine gives
 # kernel 5 (whole prompts up to max_len), checked and timed at B 8
@@ -378,6 +408,23 @@ RUNTIME_STEPS, RUNTIME_REQUESTS = 10, 4
 # the paper phase: validation NNSE above 0.5 (NSE > 0, better than the
 # mean) for these hydrology targets; steps of the profiled windows
 NNSE_TARGETS, PAPER_PROFILE_STEPS = ("mean_temperature", "streamflow"), 5
+# the recurrent phase.  xlstm-125m through the training driver's default
+# arch (B x S tokens a step, as many steps), then fp32 steps at B x S on
+# the card and on the host CPU (loss and grad-norm within TRAIN_TOL).
+# recurrentgemma-9b with fp32 parameters and compute: the no-cache
+# prefill's last logits against the decode replay's at the same position
+# within GEMMA_PREFILL_TOL of their max abs, then GEMMA_GEN greedy tokens
+# on the kernel path and the plain path; then with bf16 parameters, B
+# GEMMA_RING_B decoded token by token through GEMMA_RING_STEPS positions,
+# past the 2048-slot ring of its local layers
+XLSTM, GEMMA = "xlstm-125m", "recurrentgemma-9b"
+XLSTM_B, XLSTM_S, XLSTM_STEPS = 8, 512, 10
+XLSTM_PARITY_B, XLSTM_PARITY_S, XLSTM_PARITY_STEPS = 2, 64, 3
+GEMMA_B, GEMMA_PREFILL_S, GEMMA_GEN, GEMMA_PREFILL_TOL = 2, 64, 32, 1e-3
+GEMMA_RING_B, GEMMA_RING_STEPS = 4, 2112
+# kernel 2 at recurrentgemma's ring decode: B rows over a full ring of S
+# slots (the checks' lengths in ring_decode_cases)
+RING_B, RING_S = 8, 2048
 
 
 def emit(obj) -> None:
@@ -681,6 +728,7 @@ def phase_kernels():
     cases.append(check_no_host_sync(gen))
     cases += head_dim_24_cases(gen)
     cases += fleet_prefill_cases(gen)
+    cases += ring_decode_cases(gen)
     emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
 
@@ -718,6 +766,81 @@ def fleet_prefill_cases(gen):
                 raise AssertionError(f"paged prefill kernel disagrees at the fleet's "
                                      f"shapes: {out[-1]}")
     return out
+
+
+def ring_shape():
+    """(H, KV, D) of recurrentgemma's ring decode (lm.serving_attention_shapes:
+    16, 1, 256 at full width)."""
+    from repro_torch.models.lm import serving_attention_shapes
+
+    return serving_attention_shapes(get_config(GEMMA))["decode_attention"]
+
+
+def ring_decode_cases(gen):
+    """Kernel 2 at recurrentgemma's ring decode (B 8, H 16, KV 1, D 256, a
+    ring of 2048 slots: four 512-position spans and the combine pass),
+    fp32 and bf16: [B] lengths 0, 1, 15-17, 511-513, 1023-1025, 2047 and
+    a full ring, and scalar lengths (a full ring, and 1025); empty rows
+    exactly zero.  Drawn after every other case of the phase, whose
+    inputs stay those of the parent commit."""
+    H, KV, D = ring_shape()
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for lens in ([0, 1, 15, 16, 17, 511, 512, 513],
+                     [1023, 1024, 1025, 2047, RING_S, RING_S, RING_S, RING_S],
+                     RING_S, 1025):
+            rows = lens if isinstance(lens, list) else [lens] * RING_B
+            q, k, v, cl = contig_decode_case(gen, H, KV, D, RING_S, rows, dtype)
+            err, ok = check_contig_decode((q, k, v, cl if rows is lens else i32(lens)))
+            out.append({"kernel": "decode_attention", "shape": f"{GEMMA} ring decode",
+                        "B": RING_B, "H": H, "KV": KV, "head_dim": D, "S": RING_S,
+                        "cache_len": lens, "dtype": str(dtype), "max_abs_err": err,
+                        "tol": TOL_NOTE[dtype], "ok": ok})
+            if not ok:
+                raise AssertionError(f"contiguous decode kernel disagrees at the ring "
+                                     f"decode shape: {out[-1]}")
+    return out
+
+
+def ring_decode_row(launches):
+    """Kernel 2 at recurrentgemma's ring decode, every row a full ring (B
+    8, H 16, KV 1, D 256, S 2048, bf16; one input set per local layer), in
+    the kernel table's format with SDPA over K/V expanded to every head
+    beside, and the fp32 call (the CUDA-core body) at the same shape;
+    ``launches``: the recurrent phase's (filled in after it runs)."""
+    H, KV, D = ring_shape()
+    dt, esz, B, S, L = torch.bfloat16, 2, RING_B, RING_S, 12
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    lens = [S] * B
+    cases = [contig_decode_case(gen, H, KV, D, S, lens, dt) for _ in range(L)]
+    err = max(check_contig_decode(a)[0] for a in cases[:2])
+    lib = [contig_sdpa_inputs(
+        q[:, :, None], k, v,
+        (torch.arange(S, device="cuda")[None, :] < cl[:, None])[:, None, None, :], H, KV)
+        for q, k, v, cl in cases]
+    nxt, lib_nxt = rotate(cases), rotate(lib)
+    fn, plain = dec.decode_attention_kernel, dec.decode_attention_plain
+    live = sum(lens)
+    bytes_ = 2 * live * KV * D * esz + 2 * B * H * D * esz + 4 * B
+    row = kernel_row(
+        "decode_attention", "src/repro/kernels/decode_attention.py:114", launches, err,
+        cuda_ms(lambda: fn(*nxt())), cuda_ms(lambda: plain(*nxt())), bytes_,
+        4 * H * D * live, cuda_ms(lambda: sdpa(*lib_nxt())), CONTIG_SDPA,
+        {"B": B, "H": H, "KV": KV, "D": D, "S": S, "cache_len": lens, "arch": GEMMA,
+         "ring": True, "dtype": str(dt)},
+        lib_us=device_us_per_call(lambda: sdpa(*lib_nxt()))[0])
+    us, by_kernel = device_us_per_call(lambda: fn(*nxt()), reps=2 * L)
+    if us is None:  # the profiler window came back empty: not measured
+        row["device_us_per_launch"] = None
+    else:
+        redesigned(row, us, by_kernel, design="mma.sync m16n8k16, GQA-packed; D 256: Q "
+                   "staged in shared memory, 2 tiles in flight", header="decode_tc.cuh")
+    row["fp32"] = fp32_timing(cases, fn, plain, check_contig_decode, bytes_, esz, live, KV,
+                              B, H, D, L, "contig_decode_split_kernel + "
+                              "decode_combine_kernel (CUDA cores)")
+    del cases, lib
+    emit({"phase": "timing", "ok": True, "arch": GEMMA, "ring_decode": True, "rows": [row]})
+    return row
 
 
 def head_dim_24_cases(gen):
@@ -2997,6 +3120,315 @@ def hash_row(launches, device_us):
     return row
 
 
+def step_profile(fn, tries: int = 3):
+    """One call of ``fn`` under torch.profiler, tracing the device alone
+    (a host trace of a step's ~10^5 ops takes minutes to process),
+    synchronized: wall ms, device busy ms and idle share, kernels, the top
+    kernels.  A window without device events is opened again, up to
+    ``tries`` times; then None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels, by_name = device_kernels(prof)
+        if by_name:
+            busy = sum(v[0] for v in by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+            return {"wall_ms": wall_ms, "device_busy_ms": busy,
+                    "device_idle_share": 1.0 - busy / wall_ms, "gpu_kernels": len(kernels),
+                    "top_kernels": [{"name": k[:80], "ms": v[0], "launches": v[1]}
+                                    for k, v in top]}
+    return None
+
+
+def no_launches(what):
+    launched = {n: c for n, c in read_counts().items() if c}
+    if launched:
+        raise AssertionError(f"{what} launched port kernels: {launched}")
+
+
+def recurrent_xlstm():
+    """xlstm-125m at its published widths through the training driver's
+    default arch (no --arch), XLSTM_STEPS steps of XLSTM_B x XLSTM_S: the
+    loss falls (postprocess ``improved``) and no port kernel launches
+    (JAX's xlstm path runs no Pallas kernel); one step profiled; then
+    XLSTM_PARITY_STEPS fp32 steps at XLSTM_PARITY_B x XLSTM_PARITY_S from
+    one state on the card and on the host CPU, loss and grad-norm within
+    TRAIN_TOL (relative)."""
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+        args = launch_train.build_parser().parse_args(
+            ["--device", "cuda", "--steps", str(XLSTM_STEPS), "--batch", str(XLSTM_B),
+             "--seq", str(XLSTM_S), "--ckpt-dir", ckdir])
+        if args.arch != XLSTM:
+            raise AssertionError(f"the driver's default arch is {args.arch}")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = launch_train.run(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        no_launches("the xlstm training driver")
+    if not (res["improved"] and res["steps"] == XLSTM_STEPS
+            and np.isfinite([res["first_loss"], res["last_loss"]]).all()):
+        raise AssertionError(f"the xlstm training driver did not learn: {res}")
+    torch.cuda.empty_cache()
+
+    run_cfg = RunConfig()
+    corpus = make_corpus(cfg.vocab_size, XLSTM_B * XLSTM_S, SEED)
+    tok = torch.from_numpy(corpus.reshape(XLSTM_B, XLSTM_S)).cuda()
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, run_cfg)
+    step_fn = make_train_step(cfg, run_cfg)
+    t0 = time.perf_counter()
+    prof = step_profile(lambda: step_fn(state, batch))  # the driver has warmed cuBLAS
+    profile_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+
+    # fp32 (TF32 off, set in main) on the card and on the host, one state
+    cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
+    host = init_train_state(torch.Generator().manual_seed(SEED), cfg32, run_cfg, device="cpu")
+    card = map_tree(lambda t: t.to("cuda"), host)
+    pb = XLSTM_PARITY_B
+    rows = torch.from_numpy(make_corpus(
+        cfg.vocab_size, pb * XLSTM_PARITY_S * XLSTM_PARITY_STEPS, SEED + 1)).reshape(
+            -1, XLSTM_PARITY_S)
+    batches = [{"tokens": rows[i * pb:(i + 1) * pb],
+                "labels": torch.roll(rows[i * pb:(i + 1) * pb], -1, dims=1)}
+               for i in range(XLSTM_PARITY_STEPS)]
+    metrics, parity_s = {}, {}
+    zero_counts()
+    for dev, st in (("cuda", card), ("cpu", host)):
+        fn = make_train_step(cfg32, run_cfg)
+        metrics[dev] = []
+        t0 = time.perf_counter()
+        for b in batches:
+            st, m = fn(st, {k: v.to(dev) for k, v in b.items()})
+            metrics[dev].append({k: v.item() for k, v in m.items()})
+        parity_s[dev] = time.perf_counter() - t0
+    no_launches("xlstm's fp32 steps")
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                  zip(metrics["cuda"], metrics["cpu"])) for k in TRAIN_TOL}
+    del card, host
+    torch.cuda.empty_cache()
+    out = {"phase": "recurrent", "part": "xlstm_train", "ok": True, "arch": XLSTM,
+           "entry": "repro_torch.launch.train.run (no --arch)", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": XLSTM_B, "seq": XLSTM_S, "steps": res["steps"],
+           "first_loss": res["first_loss"], "last_loss": res["last_loss"],
+           "improved": res["improved"], "train_s": res["train_s"], "wall_s": wall_s,
+           "step_s": res["train_s"] / res["steps"],
+           "tokens_per_s": XLSTM_B * XLSTM_S * res["steps"] / res["train_s"],
+           "launches": "none (asserted)", "profiled_step": prof, "profile_s": profile_s,
+           "parity": {"compute_dtype": "torch.float32", "tf32": False, "batch": pb,
+                      "seq": XLSTM_PARITY_S, "card": metrics["cuda"], "host": metrics["cpu"],
+                      "max_rel_diff": rel, "tol_rel": TRAIN_TOL, "seconds": parity_s},
+           "seconds": time.perf_counter() - t_phase}
+    out["ok"] = all(rel[k] <= TRAIN_TOL[k] for k in TRAIN_TOL)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("xlstm's fp32 steps on the card and the host disagree")
+
+
+def gemma_params(param_dtype):
+    """recurrentgemma-9b at its published widths, random weights from a
+    seeded torch.Generator stored in ``param_dtype``."""
+    cfg = get_config(GEMMA).with_overrides(param_dtype=param_dtype)
+    specs = map_tree(lambda p: Param(p.shape, p.axes, param_dtype, p.init, p.scale),
+                     model_specs(cfg))
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), specs, "cuda")
+    return cfg, params, sum(t.numel() for t in tree_leaves(params))
+
+
+def local_layers(cfg) -> int:
+    from repro_torch.configs import block_pattern
+
+    head, unit, reps, tail = block_pattern(cfg)
+    return (sum(tk == "local" for tk, _ in head + tail)
+            + reps * sum(tk == "local" for tk, _ in unit))
+
+
+def zero_cache(cfg, B, max_len):
+    from repro_torch.models.lm import lm_cache_specs
+
+    return map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                    lm_cache_specs(cfg, B, max_len))
+
+
+def recurrent_gemma_fp32():
+    """recurrentgemma-9b with fp32 parameters and compute (TF32 off): the
+    no-cache prefill step's last logits at S GEMMA_PREFILL_S against the
+    decode replay's at the same position, within GEMMA_PREFILL_TOL of
+    their max abs (JAX's chunked == step-by-step invariant); then
+    GEMMA_GEN greedy tokens, the kernel path's stream equal to the plain
+    path's (``decode_impl="ref"``), a divergence reported with the plain
+    path's top-2 gap.  Returns kernel 2's launches."""
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg, params, n_params = gemma_params(torch.float32)
+    cfg = cfg.with_overrides(compute_dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 21)
+    P, B = GEMMA_PREFILL_S, GEMMA_B
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
+    zero_counts()
+    t0 = time.perf_counter()
+    last = make_prefill_step(cfg)(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    no_launches("recurrentgemma's no-cache prefill")
+    runs = {}
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(decode_impl=impl)
+        cache, dec = zero_cache(c, B, P + GEMMA_GEN), make_decode_step(c)
+        tok, stream, logits = prompt[:, :1], [], []
+        zero_counts()
+        t0 = time.perf_counter()
+        for i in range(P + GEMMA_GEN - 1):
+            nxt, lg, cache = dec(params, tok, cache, i)
+            if i >= P - 1:  # the replay's logits at the prompt's last position, then on
+                stream.append(nxt)
+                logits.append(lg[:, 0])
+            tok = prompt[:, i + 1:i + 2] if i + 1 < P else nxt[:, None]
+        torch.cuda.synchronize()
+        runs[impl] = {"stream": torch.stack(stream, 1).cpu(), "logits": logits,
+                      "launches": read_counts(), "steps": P + GEMMA_GEN - 1,
+                      "wall_s": time.perf_counter() - t0}
+        del cache
+    steps = runs["auto"]["steps"]
+    want = {n: (local_layers(cfg) * steps if n == "decode_attention" else 0) for n in COUNTED}
+    if runs["auto"]["launches"] != want or any(runs["ref"]["launches"].values()):
+        raise AssertionError(f"launches: kernel path {runs['auto']['launches']}, "
+                             f"expected {want}; plain path {runs['ref']['launches']}")
+    scale = last.abs().max().item()
+    prefill_err = {impl: (r["logits"][0] - last).abs().max().item() / scale
+                   for impl, r in runs.items()}
+    a, b = runs["auto"]["stream"], runs["ref"]["stream"]
+    out = {"phase": "recurrent", "part": "recurrentgemma_fp32", "arch": GEMMA,
+           "params": n_params, "param_gb": n_params * 4 / 1e9, "layers": cfg.num_layers,
+           "local_layers": local_layers(cfg), "batch": B, "prefill_s": prefill_s,
+           "prefill_seq": P, "prefill_vs_replay_rel_err": prefill_err,
+           "tol_rel_of_max_abs": GEMMA_PREFILL_TOL, "generated": GEMMA_GEN,
+           "streams_identical": bool(torch.equal(a, b)),
+           "kernel_path": {"launches": runs["auto"]["launches"], "wall_s": runs["auto"]["wall_s"]},
+           "plain_path": {"wall_s": runs["ref"]["wall_s"]},
+           "seconds": time.perf_counter() - t_phase}
+    out["ok"] = out["streams_identical"] and max(prefill_err.values()) <= GEMMA_PREFILL_TOL
+    if not out["streams_identical"]:
+        row, step = next((r, j) for j in range(a.shape[1]) for r in range(B)
+                         if a[r, j] != b[r, j])
+        top = torch.topk(runs["ref"]["logits"][step][row].float(), 2).values
+        out["first_divergence"] = {"row": row, "step": step,
+                                   "tokens": [int(a[row, step]), int(b[row, step])],
+                                   "plain_top2_logit_gap": float(top[0] - top[1])}
+    emit(out)
+    del params, runs, last
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError("recurrentgemma's fp32 paths disagree")
+    return want["decode_attention"]
+
+
+def recurrent_gemma_ring():
+    """recurrentgemma-9b with bf16 parameters, GEMMA_RING_B rows decoded
+    token by token (greedy, scalar lengths on the card) through
+    GEMMA_RING_STEPS positions, past its local layers' 2048-slot ring:
+    kernel 2 exactly once per local layer a step and no other kernel,
+    every logit finite; at the last step one decode on a clone of the
+    cache through the plain path gives the same next tokens (a differing
+    row passes only as a near-tie: the plain top-2 gap within twice the
+    row's largest logit difference, recorded).  Tokens/s, step p50 (the
+    device timeline between steps) and seconds.  Returns kernel 2's
+    launches."""
+    from repro_torch.train.step import make_decode_step
+
+    t_phase = time.perf_counter()
+    cfg, params, n_params = gemma_params(torch.bfloat16)
+    B, steps = GEMMA_RING_B, GEMMA_RING_STEPS
+    cache = zero_cache(cfg, B, steps)
+    slots = {t.shape[2] for key, t in cache["unit"]["b2"].items()}
+    if slots != {cfg.window} or steps <= cfg.window:
+        raise AssertionError(f"ring slots {slots}, window {cfg.window}, steps {steps}")
+    dec = make_decode_step(cfg)
+    lens = torch.arange(steps, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(SEED + 23)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)).cuda()
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        if i == steps - 1:
+            snapshot, last_in = map_tree(lambda t: t.clone(), cache), tok
+        nxt, lg, cache = dec(params, tok, cache, lens[i])
+        finite &= torch.isfinite(lg).all()
+        events[i + 1].record()
+        tok = nxt[:, None]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    want = {n: (local_layers(cfg) * steps if n == "decode_attention" else 0) for n in COUNTED}
+    if launches != want:
+        raise AssertionError(f"ring decode launches {launches}, expected {want}")
+    rn, rl, _ = make_decode_step(cfg.with_overrides(decode_impl="ref"))(
+        params, last_in, snapshot, lens[-1])
+    no_launches_after = {n: c - want[n] for n, c in read_counts().items()}
+    if any(no_launches_after.values()):
+        raise AssertionError(f"the plain decode launched kernels: {no_launches_after}")
+    # two more decode steps under the profiler, on a clone of the cache
+    probe = map_tree(lambda t: t.clone(), cache)
+    prof = step_profile(lambda: [dec(params, tok, probe, lens[-1]) for _ in range(2)])
+    if prof:
+        prof["gpu_kernels_per_step"] = prof["gpu_kernels"] / 2
+    rows = []
+    for r in range(B):
+        if int(rn[r]) == int(nxt[r]):
+            continue
+        plain = rl[r, 0].float()
+        gap = float(plain[int(rn[r])] - plain[int(nxt[r])])
+        diff = float((lg[r, 0].float() - plain).abs().max())
+        rows.append({"row": r, "tokens": [int(nxt[r]), int(rn[r])],
+                     "plain_gap_to_kernel_token": gap, "max_abs_logit_diff": diff,
+                     "near_tie": gap <= 2 * diff})
+    out = {"phase": "recurrent", "part": "recurrentgemma_ring_bf16", "arch": GEMMA,
+           "params": n_params, "param_gb": n_params * 2 / 1e9, "param_dtype": "torch.bfloat16",
+           "compute_dtype": str(cfg.compute_dtype), "batch": B, "positions": steps,
+           "ring_slots": cfg.window, "wraps": steps // cfg.window,
+           "launches": launches, "kernel2_per_step": launches["decode_attention"] / steps,
+           "all_logits_finite": bool(finite.item()),
+           "last_step_plain_equal": not rows, "last_step_differing_rows": rows,
+           "tokens_per_s": B * steps / wall_s, "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p95": float(np.percentile(step_ms, 95)), "wall_s": wall_s,
+           "profiled_2_steps": prof, "seconds": time.perf_counter() - t_phase}
+    out["ok"] = out["all_logits_finite"] and all(r["near_tie"] for r in rows)
+    emit(out)
+    del params, cache, snapshot, probe
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError("recurrentgemma's ring decode failed its checks")
+    return launches["decode_attention"]
+
+
+def phase_recurrent():
+    """The recurrent families at their published widths: xlstm-125m
+    through the training driver's default arch, then recurrentgemma-9b in
+    fp32 (prefill == replay, kernel == plain streams) and in bf16 through
+    its ring.  Returns kernel 2's launches of the phase."""
+    recurrent_xlstm()
+    return recurrent_gemma_fp32() + recurrent_gemma_ring()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3026,12 +3458,14 @@ def main() -> int:
     launches, shapes = serve_rounds(cfg, params, SERVE_ROUNDS)
     lap("serve")
     rows = phase_timing(cfg, launches, shapes)
+    ring_row = ring_decode_row({"decode_attention": 0})
     lap("timing")
     device_us = {}
     for layout in LAYOUTS:
-        device_us.update(phase_profile(cfg, params, layout))
-    for row in rows:  # the paged prefill's is taken at its timing shape
-        row.setdefault("device_us_per_launch", device_us[row["name"]])
+        device_us.update(phase_profile(cfg, params, layout, window=PROFILE_WINDOW))
+    for row in rows:  # each is taken at its timing shape, where measured
+        if row.get("device_us_per_launch") is None:
+            row["device_us_per_launch"] = device_us.get(row["name"])
     lap("profile")
     phase_stream(cfg, params)
     lap("stream")
@@ -3064,7 +3498,7 @@ def main() -> int:
         if any(v for k, v in by_phase.items() if k != "serve"):
             row["launches_by_phase"] = by_phase
             row["launches"] = sum(by_phase.values())
-        row["at_other_shapes"] = [r for r in family_rows + fleet_rows
+        row["at_other_shapes"] = [r for r in family_rows + fleet_rows + [ring_row]
                                   if r["name"] == row["name"]]
     rows.append(flash_row(cfg, {"flash_attention": flash_launches
                                 + rt_train["flash_attention"]}, flash_us,
@@ -3086,6 +3520,14 @@ def main() -> int:
     lap("rmsnorm")
     phase_paper()
     lap("paper")
+    # the recurrent phase's launches join kernel 2's row, as its ring
+    # decode line's count
+    ring_row["launches"] = phase_recurrent()
+    row2 = next(r for r in rows if r["name"] == "decode_attention")
+    row2.setdefault("launches_by_phase", {"serve": row2["launches"]})
+    row2["launches_by_phase"]["recurrent"] = ring_row["launches"]
+    row2["launches"] += ring_row["launches"]
+    lap("recurrent")
     emit({"phase": "wall", "ok": True, "seconds": wall, "total_s": sum(wall.values())})
     print(gpu_line(), flush=True)
     emit({"kernels": rows})

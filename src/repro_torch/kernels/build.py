@@ -37,12 +37,8 @@ HEAD_DIMS = (16, 32, 64, 96, 128)
 # further head dims of one kernel: the only path that needs each, and the
 # config it serves (no served config reaches another kernel there)
 EXTRA_HEAD_DIMS = {
-    "decode_attention": {24: "minicpm3's expanded MLA decode at smoke width"},
-}
-# head dims of the repo's configs that no kernel takes yet, and the
-# ROADMAP.md item whose port adds each
-PENDING_HEAD_DIMS = {
-    256: "ROADMAP.md queue 1 item 5 (recurrentgemma)",
+    "decode_attention": {24: "minicpm3's expanded MLA decode at smoke width",
+                         256: "recurrentgemma's ring decode"},
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -86,19 +82,15 @@ def head_dims(kernel: str) -> tuple:
 
 def check_head_dim(kernel: str, D: int) -> None:
     """Raise ValueError when attention kernel ``kernel`` is not
-    instantiated for head dim ``D``, naming the item that will add it where
-    one does, or the one kernel that takes it."""
+    instantiated for head dim ``D``, naming the one kernel that takes it
+    where one does."""
     dims = head_dims(kernel)
     if D in dims:
         return
     msg = f"{kernel}: head dim {D} not in {dims}"
-    todo = PENDING_HEAD_DIMS.get(D)
     owners = [(k, extra[D]) for k, extra in EXTRA_HEAD_DIMS.items() if D in extra]
-    if todo:
-        msg += f"; {todo} adds it"
-    elif owners:
-        msg += "".join(f"; only {k} takes it ({why}): no served config reaches "
-                       f"{kernel} at head dim {D}" for k, why in owners)
+    msg += "".join(f"; only {k} takes it ({why}): no served config reaches "
+                   f"{kernel} at head dim {D}" for k, why in owners)
     raise ValueError(msg)
 
 

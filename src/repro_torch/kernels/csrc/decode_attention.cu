@@ -23,10 +23,14 @@
 // combine launch) took 33.3-35.7 us at that shape on an NVIDIA H100 80GB
 // HBM3 at 700 W (8.3-8.7 of it in the combine; PERF.md).
 //
-// Head dims: 16, 24, 32, 64, 96 and 128.  24 is minicpm3's expanded MLA
-// decode at smoke width (nope 16 + rope 8); the bf16 body stages and
+// Head dims: 16, 24, 32, 64, 96, 128 and 256.  24 is minicpm3's expanded
+// MLA decode at smoke width (nope 16 + rope 8); the bf16 body stages and
 // multiplies it padded to 32 with zeros (decode_tc.cuh), the fp32 body
-// takes it as it is.
+// takes it as it is.  256 is recurrentgemma's ring decode (H 16, KV 1, a
+// ring of 2048 slots: four 512-position spans and the combine pass); the
+// bf16 body takes it at G <= 16 only, with Q staged in shared memory and
+// two tiles in flight a warp (decode_tc.cuh), and the fp32 body stages
+// ~80 KB of shared memory at G 16.
 //
 // Which body runs is the wrapper's choice (kernels/decode_attention.py),
 // passed in as `tensor_cores`; this file checks that the inputs allow it
@@ -285,10 +289,16 @@ cudaError_t launch(bool tensor_cores, const void* q, const void* k, const void* 
     if constexpr (sizeof(T) == 2) {
       if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
         return cudaErrorInvalidValue;
-      return G <= 16 ? launch_mma<D, 1>(q, k, v, cache_len, m, l, acc, out, B, S, H, KV,
-                                        span, nsplit, window, scale, stream)
-                     : launch_mma<D, 2>(q, k, v, cache_len, m, l, acc, out, B, S, H, KV,
-                                        span, nsplit, window, scale, stream);
+      if constexpr (DecShape<D>::kQShared) {  // one staged m16 tile of Q
+        if (G > 16) return cudaErrorInvalidValue;
+        return launch_mma<D, 1>(q, k, v, cache_len, m, l, acc, out, B, S, H, KV, span,
+                                nsplit, window, scale, stream);
+      } else {
+        return G <= 16 ? launch_mma<D, 1>(q, k, v, cache_len, m, l, acc, out, B, S, H, KV,
+                                          span, nsplit, window, scale, stream)
+                       : launch_mma<D, 2>(q, k, v, cache_len, m, l, acc, out, B, S, H, KV,
+                                          span, nsplit, window, scale, stream);
+      }
     }
     return cudaErrorInvalidValue;
   }
@@ -324,6 +334,7 @@ cudaError_t dispatch_dim(int D, bool tc, const void* q, const void* k, const voi
     case 64: return launch<T, 64>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     case 96: return launch<T, 96>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     case 128: return launch<T, 128>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
+    case 256: return launch<T, 256>(tc, q, k, v, lens, m, l, acc, out, B, S, H, KV, span, nsplit, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,7 @@
 //   * each tile's K and V rows come by 16-byte cp.async into the warp's
 //     ring of kDecStages tiles (rows padded by 16 bytes, so ldmatrix's
 //     eight rows hit distinct banks); keys past end are zero-filled;
-//   * Q's A fragments are loaded once into registers;
+//   * Q's A fragments are loaded once into registers (at D <= 128);
 //   * S = Q K^T takes D/16 k-steps per 8 keys (B fragments by ldmatrix);
 //   * the online softmax runs on the S accumulator in base 2 with
 //     scale*log2e folded in (one FFMA and one ex2 a score), the row sums l
@@ -26,6 +26,16 @@
 //     tile size), so P never goes through shared memory; V's B fragments
 //     come by ldmatrix.trans.
 // The caller merges the warps' (m, l, O) (dec_merge).
+//
+// Head dim 256 (recurrentgemma's ring decode, G 16: one m16 tile) changes
+// two things, both to fit the card.  O alone is 128 fp32 registers a lane
+// at D 256, and Q's 16 k-steps of A fragments would add 64 more, so Q is
+// staged once per warp in shared memory (beside the warp's ring, with the
+// first tile's cp.async group) and each k-step's A fragment is read there
+// by ldmatrix.  And a tile of K and V is 16.5 KB at D 256, so a warp keeps
+// two tiles in flight, not three: four warps' rings and Q copies take
+// 165 KB, inside the 227 KB a block may have (three stages with Q would
+// need 231 KB); a block is then alone on its SM either way.
 #pragma once
 
 #include <stdint.h>
@@ -37,7 +47,7 @@ namespace {
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecKeys = 16;         // keys of a warp's tile: one k16 step of P V
-constexpr int kDecStages = 3;        // tiles a warp keeps in flight
+constexpr int kDecStages = 3;        // tiles a warp keeps in flight, D <= 128
 
 // A head dim that is not a multiple of 16 (24: minicpm3's expanded MLA
 // decode at smoke width) is staged and multiplied at DP, the next multiple
@@ -50,7 +60,13 @@ struct DecShape {
   static constexpr int kDP = (D + 15) / 16 * 16;        // the padded head dim
   static constexpr int kRow = kDP + 8;                  // a staged row, elements
   static constexpr int kTileBytes = kDecKeys * kRow * 2;  // a K or V tile
-  static constexpr int kWarpBytes = kDecStages * 2 * kTileBytes;  // a warp's ring
+  // D 256: Q's A fragments from shared memory (one m16 tile, so G <= 16),
+  // and two tiles in flight
+  static constexpr bool kQShared = D > 128;
+  static constexpr int kStages = kQShared ? 2 : kDecStages;
+  static constexpr int kRingBytes = kStages * 2 * kTileBytes;
+  static constexpr int kQBytes = kQShared ? 16 * kRow * 2 : 0;  // the staged Q tile
+  static constexpr int kWarpBytes = kRingBytes + kQBytes;  // a warp's ring and Q
   static constexpr int kChunks = kDP / 8;               // 16 B chunks of a staged row
   static constexpr int kLiveChunks = D / 8;             // of them, those read from memory
   static constexpr int kSteps = kDP / 16;               // k16 steps of Q K^T
@@ -91,8 +107,9 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 
 // One warp's walk.  q: the group's G rows [G][D]; key position pos has
 // its K and V rows at element offset key_off(pos) of k and v; ring: this
-// warp's DecShape<D>::kWarpBytes of shared memory; start < end.  Leaves
-// acc.o unnormalised and acc.l summed over each row.
+// warp's DecShape<D>::kWarpBytes of shared memory (its ring, then at D 256
+// its Q tile); start < end.  Leaves acc.o unnormalised and acc.l summed
+// over each row.
 template <int D, int MT, typename KeyOff>
 __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, int G,
                                            const __nv_bfloat16* __restrict__ k,
@@ -100,11 +117,13 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
                                            int start, int end, uint32_t ring,
                                            float scale_log2, DecAcc<D, MT>& acc) {
   using Sh = DecShape<D>;
+  static_assert(!Sh::kQShared || MT == 1, "a staged Q tile holds one m16 tile");
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_tiles = (end - start + kDecKeys - 1) / kDecKeys;
   const int n_mine = warp < n_tiles ? (n_tiles - 1 - warp) / kDecWarps + 1 : 0;
-  auto slot = [&](int i) { return ring + (uint32_t)((i % kDecStages) * 2 * Sh::kTileBytes); };
+  const uint32_t q_s = ring + Sh::kRingBytes;  // the staged Q tile (D 256)
+  auto slot = [&](int i) { return ring + (uint32_t)((i % Sh::kStages) * 2 * Sh::kTileBytes); };
   auto load = [&](int i) {  // this warp's i-th tile: tile warp + i * kDecWarps
     const int p0 = start + (warp + i * kDecWarps) * kDecKeys;
     const uint32_t dst = slot(i);
@@ -120,26 +139,41 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
       cp_async16(dst + Sh::kTileBytes + o, v + off, live ? 16 : 0);
     }
   };
+  if constexpr (Sh::kQShared) {  // Q's 16 rows into group 0; rows past G and
+                                 // chunks past D zero-filled
 #pragma unroll
-  for (int i = 0; i < kDecStages; ++i) {  // group i: this warp's tile i
+    for (int it = 0; it < 16 * Sh::kChunks / 32; ++it) {
+      const int c = lane + 32 * it;
+      const int r = c / Sh::kChunks;
+      const int ch = c % Sh::kChunks;
+      const bool live = r < G && ch < Sh::kLiveChunks;
+      cp_async16(q_s + (uint32_t)(r * Sh::kRow + ch * 8) * 2, q + (live ? r * D + ch * 8 : 0),
+                 live ? 16 : 0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Sh::kStages; ++i) {  // group i: this warp's tile i
     if (i < n_mine) load(i);
     cp_async_commit();
   }
 
   const int r0 = lane / 4;
   const int c2 = 2 * (lane % 4);
-  uint32_t qa[MT][Sh::kSteps][4];
+  uint32_t qa[MT][Sh::kQShared ? 1 : Sh::kSteps][4];  // at D <= 128
+  if constexpr (!Sh::kQShared) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int ks = 0; ks < Sh::kSteps; ++ks)
+      for (int ks = 0; ks < Sh::kSteps; ++ks)
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {  // rows r0, r0 + 8; columns c2, 8 + c2
-        const int r = 16 * mt + r0 + 8 * (x & 1);
-        qa[mt][ks][x] = r < G && 16 * ks + 8 * (x >> 1) < D ? __ldg(reinterpret_cast<const unsigned int*>(
+        for (int x = 0; x < 4; ++x) {  // rows r0, r0 + 8; columns c2, 8 + c2
+          const int r = 16 * mt + r0 + 8 * (x & 1);
+          qa[mt][ks][x] = r < G && 16 * ks + 8 * (x >> 1) < D
+                              ? __ldg(reinterpret_cast<const unsigned int*>(
                                     q + r * D + 16 * ks + 8 * (x >> 1) + c2))
                               : 0u;
-      }
+        }
+  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -151,8 +185,8 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
   }
 
   for (int i = 0; i < n_mine; ++i) {
-    // of the kDecStages + i groups committed, tile i is group i
-    cp_async_wait<kDecStages - 1>();
+    // of the kStages + i groups committed, tile i is group i
+    cp_async_wait<Sh::kStages - 1>();
     __syncwarp();
     const uint32_t k_s = slot(i);
     const uint32_t v_s = k_s + Sh::kTileBytes;
@@ -169,10 +203,18 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
       uint32_t kb[4];
       ldsm_x4(kb, k_s + (uint32_t)(((lane / 16) * 8 + lane % 8) * Sh::kRow +
                                    16 * ks + ((lane / 8) % 2) * 8) * 2);
+      if constexpr (Sh::kQShared) {
+        // matrices: rows 0-7 / 8-15 (lane % 16) x columns 16ks + 0-7 / 8-15
+        uint32_t qf[4];
+        ldsm_x4(qf, q_s + (uint32_t)((lane % 16) * Sh::kRow + 16 * ks + (lane / 16) * 8) * 2);
+        mma16816(s[0][0], qf, kb[0], kb[1]);
+        mma16816(s[0][1], qf, kb[2], kb[3]);
+      } else {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma16816(s[mt][0], qa[mt][ks], kb[0], kb[1]);
-        mma16816(s[mt][1], qa[mt][ks], kb[2], kb[3]);
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(s[mt][0], qa[mt][ks], kb[0], kb[1]);
+          mma16816(s[mt][1], qa[mt][ks], kb[2], kb[3]);
+        }
       }
     }
     if (p0 + kDecKeys > end) {  // the last tile: mask the keys past end
@@ -230,7 +272,7 @@ __device__ __forceinline__ void dec_attend(const __nv_bfloat16* __restrict__ q, 
       }
     }
     __syncwarp();  // every lane has read the slot before it is refilled
-    if (i + kDecStages < n_mine) load(i + kDecStages);
+    if (i + Sh::kStages < n_mine) load(i + Sh::kStages);
     cp_async_commit();  // one group a step, empty past the last tile
   }
   cp_async_wait<0>();

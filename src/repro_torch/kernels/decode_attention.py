@@ -156,6 +156,8 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
                          "and window >= 0")
     tc, span, nsplit = contiguous_plan(
         q.dtype, all(t.data_ptr() % 16 == 0 for t in (q, k, v)), B, KV, S)
+    if tc and D > 128 and G > 16:
+        raise ValueError("the tensor-core body takes H/KV <= 16 at head dim 256")
     parts = decode_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
     err = build.load("decode_attention").decode_attention(

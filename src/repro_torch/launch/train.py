@@ -4,7 +4,8 @@
 The full paper pipeline as ONE stage graph under the port's Session:
 
   synthetic corpus -> Cylon-analogue Table -> LM train loop (microbatched,
-  AdamW, flash attention on the card) -> async checkpointing (+restart)
+  AdamW, the flash kernel on the card for attention stacks) -> async
+  checkpointing (+restart)
   -> postprocess (loss drop)
 
 Under ``--kind-pods`` the same graph runs with its data-engineering stage
@@ -20,9 +21,10 @@ CLI:
   ... --resume                                  # restart from checkpoint
   ... --kind-pods                               # data vs DL kind-split pilots
 
-``--arch`` defaults to the JAX package's ``xlstm-125m``, whose recurrent
-blocks the port does not run yet: it raises the model layer's
-``NotImplementedError`` before any pilot is acquired.
+``--arch`` defaults to the JAX package's ``xlstm-125m`` (mLSTM and sLSTM
+blocks: no attention, so no port kernel runs on its path).  An
+architecture or option the port cannot build raises before any pilot is
+acquired.
 """
 from __future__ import annotations
 

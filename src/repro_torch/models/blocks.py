@@ -1,8 +1,9 @@
 """Transformer building blocks (mirror of ``repro.models.blocks`` but for
-windows and M-RoPE): RMSNorm, RoPE, chunked flash-style attention, GQA
-and MLA attention without a cache (training) and over a KV cache (paged
-and contiguous serving), the SwiGLU/GeGLU/GELU MLP, and the GShard
-capacity-based top-k MoE (einsum and gather dispatch).
+M-RoPE): RMSNorm, RoPE, chunked flash-style attention, GQA attention
+(full or windowed over a ring cache) and MLA attention without a cache
+(training) and over a KV cache (paged and contiguous serving), the
+SwiGLU/GeGLU/GELU MLP, and the GShard capacity-based top-k MoE (einsum
+and gather dispatch).
 
 Every block is a pair of functions: ``<kind>_specs(cfg)`` declares the
 parameters, ``<kind>_apply(cfg, params, x, ...)`` runs the forward.
@@ -219,13 +220,29 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _windowed_attention(cfg: ModelConfig, q, k, v, window: int) -> torch.Tensor:
+    """Causal attention of q over the fresh k, v within ``window``
+    positions: the chunked attention, as JAX trains and prefills local
+    blocks (the flash kernel takes no window, nor does JAX's)."""
+    return chunked_attention(q, k, v, causal=True, window=window,
+                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+
 def _cached_attention(cfg: ModelConfig, q, k, v, cache: Dict,
-                      chunk_lens: Optional[torch.Tensor]):
+                      chunk_lens: Optional[torch.Tensor], window: int = 0):
     """The cache branches of ``attn_apply``: q [B,S,H,D] and the fresh k, v
-    [B,S,KV,D] after RoPE -> (o [B,S,H,D], new cache)."""
+    [B,S,KV,D] after RoPE -> (o [B,S,H,D], new cache).  With ``window``
+    the contiguous cache is a ring of ``slots`` positions: position p
+    lives at slot p % slots and a decode attends the min(len, slots)
+    slots written."""
     Bsz, S = k.shape[0], k.shape[1]
     length = torch.as_tensor(cache["len"], device=q.device)
     paged = "k_pages" in cache
+    if paged and window:
+        raise NotImplementedError(
+            "windowed attention over a paged cache needs ring-aware "
+            "page recycling; the engine restricts paged serving to "
+            "full-attention blocks")
     if S > 1 and chunk_lens is None:
         if paged:
             raise NotImplementedError(
@@ -233,14 +250,27 @@ def _cached_attention(cfg: ModelConfig, q, k, v, cache: Dict,
                 "per-row chunk_lens to run the ragged cache-writing prefill "
                 "through the block tables")
         _check_prefill_base(cache["len"])
-        if S > cache["k"].shape[1]:
+        slots = cache["k"].shape[1]
+        if window and S >= slots:
+            # the ring keeps the last `slots` positions, each at its
+            # position-mod-slots slot
+            ring = (S - slots + torch.arange(slots, device=q.device)) % slots
+            cache["k"][:, ring] = k[:, S - slots:].to(cache["k"].dtype)
+            cache["v"][:, ring] = v[:, S - slots:].to(cache["v"].dtype)
+        elif S > slots:
             raise ValueError(f"a {S}-token prefill does not fit a cache of "
-                             f"{cache['k'].shape[1]} positions")
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        return (_self_attention(cfg, q, k, v),
-                {"k": cache["k"], "v": cache["v"], "len": S})
+                             f"{slots} positions")
+        else:
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+        o = (_windowed_attention(cfg, q, k, v, window) if window
+             else _self_attention(cfg, q, k, v))
+        return o, {"k": cache["k"], "v": cache["v"], "len": S}
     if S > 1:
+        if window:
+            raise NotImplementedError(
+                "windowed attention does not support chunked prefill "
+                "over a warm cache (ring writes need the full prompt)")
         base = length.to(torch.int32).reshape(-1).expand(Bsz)
         chunk_lens = chunk_lens.to(torch.int32)
         if paged:
@@ -261,15 +291,20 @@ def _cached_attention(cfg: ModelConfig, q, k, v, cache: Dict,
                                        new_len, impl=cfg.decode_impl)[:, None]
     else:
         k_c, v_c = cache["k"], cache["v"]
+        slots = k_c.shape[1]
+        # a ring writes position p at slot p % slots (never dropped)
+        slot = torch.remainder(length, slots) if window else length
         if length.ndim == 1:
-            _slot_append(k_c, length, k[:, 0])
-            _slot_append(v_c, length, v[:, 0])
+            _slot_append(k_c, slot, k[:, 0])
+            _slot_append(v_c, slot, v[:, 0])
         else:
-            pos = length.to(torch.int64).clamp(0, k_c.shape[1] - 1).reshape(1)
+            pos = slot.to(torch.int64).clamp(0, slots - 1).reshape(1)
             k_c.index_copy_(1, pos, k.to(k_c.dtype))
             v_c.index_copy_(1, pos, v.to(v_c.dtype))
         new_len = length + 1
-        o = ops.decode_attention(q[:, 0], k_c, v_c, new_len,
+        # a ring attends every slot written: all of them once it is warm
+        lens = torch.clamp(new_len, max=slots) if window else new_len
+        o = ops.decode_attention(q[:, 0], k_c, v_c, lens,
                                  impl=cfg.decode_impl)[:, None]
     if paged:
         return o, {"k_pages": k_c, "v_pages": v_c,
@@ -289,10 +324,13 @@ def attn_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal GQA self-attention, without a cache or over a KV cache:
     paged ``{"k_pages", "v_pages", "block_table", "len"}`` or contiguous
-    ``{"k", "v", "len"}`` (``[B, S, KV, D]`` rows).
+    ``{"k", "v", "len"}`` (``[B, S, KV, D]`` rows).  ``window`` > 0 (a
+    local block) attends the last ``window`` positions only, over a
+    contiguous ring cache of ``min(max_len, window)`` slots.
 
     Without a cache (training) the sequence attends causally over itself
-    through the flash op, differentiably.  With ``S > 1`` and
+    through the flash op, differentiably (through ``chunked_attention``
+    with a window).  With ``S > 1`` and
     ``chunk_lens`` ([B]) it runs the ragged cache-writing prefill: row
     ``b``'s first ``chunk_lens[b]`` tokens append at offset
     ``cache["len"][b]`` and attend the full cached prefix.  With ``S > 1``
@@ -303,12 +341,11 @@ def attn_apply(
     continuous-batching decode (a contiguous row whose length is negative
     or past its cache drops its write), a scalar ``len`` decodes every row
     at one position (the contiguous write clamps to the last position, as
-    ``dynamic_update_slice`` does).  Caches are written in place; the
-    returned cache holds the same tensors and the new lengths."""
-    if window:
-        raise NotImplementedError(
-            "windowed attention (ring caches) is a later slice of the port "
-            "(ROADMAP.md queue 1, item 5)")
+    ``dynamic_update_slice`` does).  A ring's prefill of ``S`` >= its
+    slots keeps the last ``slots`` positions; its decodes write slot ``len
+    % slots`` and attend ``min(len + 1, slots)`` slots through the decode
+    op.  Caches are written in place; the returned cache holds the same
+    tensors and the new lengths."""
     if cfg.mrope_sections:
         raise NotImplementedError(
             "M-RoPE is a later slice of the port (ROADMAP.md queue 1, item 5)")
@@ -320,9 +357,11 @@ def attn_apply(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o, new_cache = _self_attention(cfg, q, k, v), None
+        o = (_windowed_attention(cfg, q, k, v, window) if window
+             else _self_attention(cfg, q, k, v))
+        new_cache = None
     else:
-        o, new_cache = _cached_attention(cfg, q, k, v, cache, chunk_lens)
+        o, new_cache = _cached_attention(cfg, q, k, v, cache, chunk_lens, window)
     y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 

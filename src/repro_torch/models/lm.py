@@ -1,19 +1,24 @@
-"""Decoder-only token LM (mirror of ``repro.models.lm`` for the dense,
-MLA and MoE families): the no-cache forward that training
-differentiates, and the serving forward over a KV cache.
+"""Decoder-only token LM (mirror of ``repro.models.lm``) for the dense,
+MLA, MoE, recurrent (xLSTM) and hybrid (RecurrentGemma) families: the
+no-cache forward that training differentiates, and the serving forward
+over a cache.
 
 Layers follow ``configs.base.block_pattern``: head layers, then a unit
 repeated ``reps`` times whose parameters (and caches) are stacked on a
 leading ``[reps, ...]`` dim exactly as in the JAX tree, then tail layers.
-Each layer is a temporal block (GQA ``attn`` or ``mla``) and a channel
-block (``mlp``, or ``moe`` whose auxiliary load-balance losses are summed
-over the layers).  Where JAX scans the unit, ``lm_apply`` loops over that
-dim (under ``remat``, each repetition is checkpointed, as JAX checkpoints
-the scan body); the per-layer cache slices are views, so the in-place
-cache writes land in the stacked tensors.  Two cache layouts, as in JAX:
-the contiguous slot cache (``lm_cache_specs``: ``[batch, max_len, KV,
-D]`` K/V per GQA layer, ``[batch, max_len, rank]`` latents per MLA layer)
-and the shared page pool (``lm_paged_cache_specs``).
+Each layer is a temporal block (GQA ``attn``, windowed ``local``,
+``mla``, or the recurrent ``rglru``, ``mlstm`` and ``slstm``) and an
+optional channel block (``mlp``, or ``moe`` whose auxiliary load-balance
+losses are summed over the layers).  Where JAX scans the unit,
+``lm_apply`` loops over that dim (under ``remat``, each repetition is
+checkpointed, as JAX checkpoints the scan body); the per-layer cache
+slices are views, so the in-place cache writes land in the stacked
+tensors.  Two cache layouts, as in JAX: the contiguous slot cache
+(``lm_cache_specs``: ``[batch, max_len, KV, D]`` K/V per GQA layer, a
+ring of ``min(max_len, window)`` slots per local layer, ``[batch,
+max_len, rank]`` latents per MLA layer, the recurrent states) and the
+shared page pool (``lm_paged_cache_specs``, attention-family blocks
+only).
 """
 from __future__ import annotations
 
@@ -25,22 +30,57 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.params import Param, map_tree
 from repro_torch.configs.base import ModelConfig, block_pattern
 from repro_torch.models import blocks as B
+from repro_torch.models import recurrent as R
 
-_PORTED_TEMPORAL = ("attn", "mla")
+# the temporal kinds whose state is a recurrence, not a K/V sequence
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
-def _check_kinds(cfg: ModelConfig) -> None:
+def temporal_kinds(cfg: ModelConfig) -> set:
     head, unit, _, tail = block_pattern(cfg)
-    kinds = set((*head, *unit, *tail))
-    if not {tk for tk, _ in kinds} <= set(_PORTED_TEMPORAL):
+    return {tk for tk, _ in (*head, *unit, *tail)}
+
+
+def _temporal_specs(kind: str, cfg: ModelConfig):
+    if kind in ("attn", "local"):
+        return B.attn_specs(cfg)
+    if kind == "mla":
+        return B.mla_specs(cfg)
+    if kind == "rglru":
+        return R.rglru_specs(cfg)
+    if kind == "mlstm":
+        return R.mlstm_specs(cfg)
+    if kind == "slstm":
+        return R.slstm_specs(cfg)
+    raise ValueError(kind)
+
+
+def _temporal_apply(kind: str, cfg, params, x, positions, cache, chunk_lens=None):
+    if kind == "attn":
+        return B.attn_apply(cfg, params, x, positions, cache, chunk_lens=chunk_lens)
+    if kind == "local":
+        if chunk_lens is not None:
+            raise NotImplementedError(
+                "chunked prefill does not support windowed (local) "
+                "attention: ring cache writes need the full prompt")
+        return B.attn_apply(cfg, params, x, positions, cache, window=cfg.window)
+    if kind == "mla":
+        return B.mla_apply(cfg, params, x, positions, cache, chunk_lens=chunk_lens)
+    if chunk_lens is not None:
         raise NotImplementedError(
-            f"the port runs GQA and MLA blocks only, got {sorted(kinds, key=str)} "
-            f"for {cfg.name}: windowed and recurrent blocks are a later slice "
-            f"(ROADMAP.md queue 1, item 5)")
+            f"chunked prefill supports attention-family blocks only, "
+            f"got {kind!r}")
+    if kind == "rglru":
+        return R.rglru_block_apply(cfg, params, x, cache)
+    if kind == "mlstm":
+        return R.mlstm_block_apply(cfg, params, x, cache)
+    if kind == "slstm":
+        return R.slstm_block_apply(cfg, params, x, cache)
+    raise ValueError(kind)
 
 
 def _layer_specs(cfg: ModelConfig, tk: str, ck: Optional[str]) -> Dict[str, Any]:
-    specs = {"t": B.mla_specs(cfg) if tk == "mla" else B.attn_specs(cfg)}
+    specs = {"t": _temporal_specs(tk, cfg)}
     if ck == "mlp":
         # in MoE stacks the dense head/tail layers use dense_ff if set
         ff = cfg.dense_ff if (cfg.num_experts > 0 and cfg.dense_ff) else None
@@ -51,30 +91,59 @@ def _layer_specs(cfg: ModelConfig, tk: str, ck: Optional[str]) -> Dict[str, Any]
 
 
 def _temporal_cache_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int):
-    """A GQA layer's contiguous ``[batch, max_len, KV, D]`` K/V rows, or an
-    MLA layer's ``[batch, max_len, rank]`` latent rows."""
-    cdt = cfg.compute_dtype
+    """A layer's contiguous cache: a GQA layer's ``[batch, max_len, KV,
+    D]`` K/V rows (a local layer's ring of ``min(max_len, window)``
+    slots), an MLA layer's ``[batch, max_len, rank]`` latent rows, or a
+    recurrent layer's state (the conv inputs in the compute dtype, the
+    recurrences in fp32; every one zeros, mLSTM's ``m`` too)."""
+    cdt, f32 = cfg.compute_dtype, torch.float32
+    if kind in ("attn", "local"):
+        _, KV = cfg.padded_gqa()
+        slots = min(max_len, cfg.window) if (kind == "local" and cfg.window) else max_len
+        axes = ("cache_batch", "cache_seq", "cache_heads", None)
+        return {
+            "k": Param((batch, slots, KV, cfg.qk_head_dim), axes, dtype=cdt, init="zeros"),
+            "v": Param((batch, slots, KV, cfg.head_dim), axes, dtype=cdt, init="zeros"),
+        }
     if kind == "mla":
         axes = ("cache_batch", "cache_seq", None)
         return {
             "c_kv": Param((batch, max_len, cfg.kv_lora_rank), axes, dtype=cdt, init="zeros"),
             "k_pe": Param((batch, max_len, cfg.rope_head_dim), axes, dtype=cdt, init="zeros"),
         }
-    _, KV = cfg.padded_gqa()
-    axes = ("cache_batch", "cache_seq", "cache_heads", None)
-    return {
-        "k": Param((batch, max_len, KV, cfg.qk_head_dim), axes, dtype=cdt,
-                   init="zeros"),
-        "v": Param((batch, max_len, KV, cfg.head_dim), axes, dtype=cdt,
-                   init="zeros"),
-    }
+    if kind == "rglru":
+        r, w = cfg.rnn_width, cfg.conv_width
+        return {
+            "conv": Param((batch, w - 1, r), ("cache_batch", None, "rnn"), dtype=cdt,
+                          init="zeros"),
+            "h": Param((batch, r), ("cache_batch", "rnn"), dtype=f32, init="zeros"),
+        }
+    if kind == "mlstm":
+        m = 2 * cfg.d_model
+        nh = cfg.num_heads
+        dh = m // nh
+        return {
+            "conv": Param((batch, cfg.conv_width - 1, m), ("cache_batch", None, "rnn"),
+                          dtype=cdt, init="zeros"),
+            "C": Param((batch, nh, dh, dh), ("cache_batch", None, None, None), dtype=f32,
+                       init="zeros"),
+            "n": Param((batch, nh, dh), ("cache_batch", None, None), dtype=f32,
+                       init="zeros"),
+            "m": Param((batch, nh), ("cache_batch", None), dtype=f32, init="zeros"),
+        }
+    if kind == "slstm":
+        d = cfg.d_model
+        return {name: Param((batch, d), ("cache_batch", "rnn"), dtype=f32, init="zeros")
+                for name in ("c", "n", "h", "m")}
+    raise ValueError(kind)
 
 
 def _temporal_paged_cache_specs(cfg: ModelConfig, kind: str, num_pages: int,
                                 page_size: int):
     """One shared page pool per layer (K/V, or the MLA latents); the block
     table lives outside the cache tree (every layer appends at the same
-    positions)."""
+    positions).  Full-attention kinds only, as in JAX: a recurrent state
+    has no sequence axis to page, and a ring would need page recycling."""
     cdt = cfg.compute_dtype
     if kind == "mla":
         axes = ("cache_seq", None, None)
@@ -84,6 +153,9 @@ def _temporal_paged_cache_specs(cfg: ModelConfig, kind: str, num_pages: int,
             "kpe_pages": Param((num_pages, page_size, cfg.rope_head_dim), axes,
                                dtype=cdt, init="zeros"),
         }
+    if kind != "attn":
+        raise NotImplementedError(
+            f"paged KV cache supports full-attention blocks only, got {kind!r}")
     _, KV = cfg.padded_gqa()
     return {
         "k_pages": Param((num_pages, page_size, KV, cfg.qk_head_dim),
@@ -112,7 +184,6 @@ def _layer_tree(cfg: ModelConfig, make) -> Dict[str, Any]:
 
 
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_kinds(cfg)
     specs: Dict[str, Any] = {
         "embed": Param((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
                        init="embed"),
@@ -127,14 +198,12 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def lm_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
-    _check_kinds(cfg)
     return _layer_tree(
         cfg, lambda tk, ck: _temporal_cache_specs(cfg, tk, batch, max_len))
 
 
 def lm_paged_cache_specs(cfg: ModelConfig, num_pages: int,
                          page_size: int) -> Dict[str, Any]:
-    _check_kinds(cfg)
     return _layer_tree(
         cfg, lambda tk, ck: _temporal_paged_cache_specs(cfg, tk, num_pages, page_size))
 
@@ -144,9 +213,17 @@ def serving_attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int, int]
     with the ``(H, KV, D)`` it gives them: a GQA stack runs both decodes
     and both prefills at (padded H, padded KV, head dim); an MLA stack
     only the contiguous decode, on either layout, at (padded H, padded H,
-    nope + rope): its latents are expanded per head, so the group is 1."""
-    _check_kinds(cfg)
+    nope + rope): its latents are expanded per head, so the group is 1.
+    A stack with recurrent or windowed blocks is served by the decode
+    step alone, over the contiguous cache (the engine refuses it, as
+    JAX's does): its local layers' ring decode runs the contiguous decode
+    at (padded H, padded KV, head dim), and a stack without attention
+    runs no kernel."""
     H, KV = cfg.padded_gqa()
+    kinds = temporal_kinds(cfg)
+    if kinds & {"local", *RECURRENT_KINDS}:
+        return ({"decode_attention": (H, KV, cfg.head_dim)}
+                if kinds & {"attn", "local"} else {})
     if cfg.attention == "mla":
         return {"decode_attention": (H, H, cfg.qk_head_dim)}
     return {kernel: (H, KV, cfg.head_dim) for kernel in (
@@ -154,30 +231,49 @@ def serving_attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int, int]
         "prefill_attention_paged")}
 
 
-# each layout's cache tensors, by the first one's name (GQA K/V, MLA
-# latents; contiguous rows or page pools)
-_CACHE_KEYS = {"k": ("k", "v"), "k_pages": ("k_pages", "v_pages"),
-               "c_kv": ("c_kv", "k_pe"), "ckv_pages": ("ckv_pages", "kpe_pages")}
-
-
-def _cache_keys(cache: Dict) -> Tuple[str, str]:
-    return next(keys for first, keys in _CACHE_KEYS.items() if first in cache)
-
-
-def _pack_cache(raw: Dict, length, block_table) -> Dict:
+def _pack_cache(kind: str, raw: Dict, length, block_table) -> Dict:
     """Join a layer's cache tensors with the runtime lengths (and, for
     the page pools, the shared block table) into the structure the
-    temporal block expects."""
-    keys = _cache_keys(raw)
-    packed = {key: raw[key] for key in keys}
-    if keys[0].endswith("_pages"):
-        packed["block_table"] = block_table
-    packed["len"] = length
-    return packed
+    temporal block expects; a recurrent state needs neither."""
+    if kind in ("attn", "local"):
+        if "k_pages" in raw:
+            return {"k_pages": raw["k_pages"], "v_pages": raw["v_pages"],
+                    "block_table": block_table, "len": length}
+        return {"k": raw["k"], "v": raw["v"], "len": length}
+    if kind == "mla":
+        if "ckv_pages" in raw:
+            return {"ckv_pages": raw["ckv_pages"], "kpe_pages": raw["kpe_pages"],
+                    "block_table": block_table, "len": length}
+        return {"c_kv": raw["c_kv"], "k_pe": raw["k_pe"], "len": length}
+    if kind == "rglru":
+        return {"conv": raw["conv"], "h": raw["h"]}
+    if kind == "mlstm":
+        return {"conv": raw["conv"], "state": (raw["C"], raw["n"], raw["m"])}
+    if kind == "slstm":
+        return {"state": (raw["c"], raw["n"], raw["h"], raw["m"])}
+    raise ValueError(kind)
 
 
-def _unpack_cache(cache: Dict) -> Dict:
-    return {key: cache[key] for key in _cache_keys(cache)}
+def _unpack_cache(kind: str, cache: Dict) -> Dict:
+    """A layer's cache tensors (written in place by its block) in the
+    declared tree's structure."""
+    if kind in ("attn", "local"):
+        if "k_pages" in cache:
+            return {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
+        return {"k": cache["k"], "v": cache["v"]}
+    if kind == "mla":
+        if "ckv_pages" in cache:
+            return {"ckv_pages": cache["ckv_pages"], "kpe_pages": cache["kpe_pages"]}
+        return {"c_kv": cache["c_kv"], "k_pe": cache["k_pe"]}
+    if kind == "rglru":
+        return {"conv": cache["conv"], "h": cache["h"]}
+    if kind == "mlstm":
+        C, n, m = cache["state"]
+        return {"conv": cache["conv"], "C": C, "n": n, "m": m}
+    if kind == "slstm":
+        c, n, h, m = cache["state"]
+        return {"c": c, "n": n, "h": h, "m": m}
+    raise ValueError(kind)
 
 
 def lm_apply(
@@ -208,9 +304,11 @@ def lm_apply(
     the prefill into an empty contiguous cache (``cache_len`` 0).
     Positions default to ``base + arange(S)`` per row (prefill) or
     ``cache_len`` (decode).  The caches are updated in place and the
-    returned cache tree holds the same tensors.  ``last_only`` keeps only
-    the last position's logits."""
-    _check_kinds(cfg)
+    returned cache tree holds the same tensors.  A stack with recurrent
+    blocks takes a cache one token at a time (``S == 1``): JAX's cached
+    recurrent step reads only the first of ``S > 1`` tokens and broadcasts
+    its output, so the port refuses that call before writing anything.
+    ``last_only`` keeps only the last position's logits."""
     if (cache is None) != (cache_len is None):
         raise ValueError("cache and cache_len go together")
     if inputs.ndim != 2:
@@ -222,8 +320,16 @@ def lm_apply(
             "remat_policy='save_block_outputs' only matters under sharding: "
             "the distributed slice (ROADMAP.md queue 1, item 6)")
     head, unit, reps, tail = block_pattern(cfg)
-    x = params["embed"][inputs].to(cfg.compute_dtype)
     Bsz, S = inputs.shape
+    if cache is not None and S > 1 and chunk_lens is None:
+        recurrent = sorted(temporal_kinds(cfg) & set(RECURRENT_KINDS))
+        if recurrent:
+            raise NotImplementedError(
+                f"a cache over recurrent blocks ({', '.join(recurrent)}) is "
+                f"filled one token at a time (S == 1), got S={S}: the "
+                f"reference's cached recurrent step reads only the first "
+                f"token and broadcasts its output (ROADMAP.md queue 3)")
+    x = params["embed"][inputs].to(cfg.compute_dtype)
     dev = inputs.device
     if cache is not None:
         cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32)
@@ -237,15 +343,14 @@ def lm_apply(
             positions = cache_len.reshape(-1).expand(Bsz)[:, None]
 
     def run_layer(tk, ck, p, x, c):
-        cc = _pack_cache(c, cache_len, block_table) if c is not None else None
-        temporal = B.mla_apply if tk == "mla" else B.attn_apply
-        x, nc = temporal(cfg, p["t"], x, positions, cc, chunk_lens=chunk_lens)
+        cc = _pack_cache(tk, c, cache_len, block_table) if c is not None else None
+        x, nc = _temporal_apply(tk, cfg, p["t"], x, positions, cc, chunk_lens)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         if ck == "mlp":
             x = B.mlp_apply(cfg, p["c"], x)
         elif ck == "moe":
             x, aux = B.moe_apply(cfg, p["c"], x)
-        return x, (_unpack_cache(nc) if nc is not None else None), aux
+        return x, (_unpack_cache(tk, nc) if nc is not None else None), aux
 
     def run_unit(x, p_r, c_r):
         aux = torch.zeros((), dtype=torch.float32, device=dev)

@@ -156,8 +156,14 @@ class ServeEngine:
         # full backing by default; pass a smaller num_pages to overcommit
         self.num_pages = (num_pages if num_pages is not None
                           else max_slots * self.max_pages)
-        # raises for archs the port does not serve yet
+        # raises for archs the port does not build yet
         specs = model_specs(cfg)
+        # raise for archs the engine cannot serve, with JAX's reasons: paged
+        # caches need attention-family blocks, and the ragged chunked
+        # prefill cannot fill recurrent states or windowed rings
+        if self.paged:
+            lm_paged_cache_specs(cfg, 1, page_size)
+        self._prefill_chunk = make_prefill_chunk_step(cfg, self.run_cfg)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(gen, specs, self.device)
@@ -166,7 +172,6 @@ class ServeEngine:
         # casting the tree once here computes exactly the same function
         self._run_params = map_tree(lambda t: t.to(self.device, cfg.compute_dtype),
                                     params)
-        self._prefill_chunk = make_prefill_chunk_step(cfg, self.run_cfg)
         self._decode = make_decode_step(cfg, self.run_cfg)
 
         # _lock guards the state shared with submitter/monitor threads

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.common.params import map_tree, tree_leaves
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.lm import lm_apply, lm_cache_specs
+from repro_torch.models.lm import lm_apply, lm_cache_specs, temporal_kinds
 from repro_torch.train.optimizer import opt_update
 
 PyTree = Any
@@ -122,6 +122,17 @@ def make_train_step(cfg: ModelConfig, run_cfg: RunConfig):
     return train_step
 
 
+def _check_full_attention(cfg: ModelConfig, what: str) -> None:
+    """Refuse, as JAX does, a serving prefill of a stack with recurrent or
+    windowed blocks: the ragged cache-writing prefill appends K/V rows."""
+    kinds = temporal_kinds(cfg)
+    if not kinds <= {"attn", "mla"}:
+        raise NotImplementedError(
+            f"{what} supports full-attention blocks only, got {sorted(kinds)} "
+            f"(recurrent state caches need a step-scan prefill; windowed ring "
+            f"caches need per-row length-aware writes)")
+
+
 def _last_valid(logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Each row's logits at its last valid position (position 0 for rows
     of length 0) -> ``(next_token [B], last [B, V])``."""
@@ -144,7 +155,7 @@ def make_prefill_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
     ragged cache-writing forward at base 0 into a zero ``[B, max_len]``
     cache (padding tokens write no K/V), and returns ``(next_token [B],
     last_logits [B, V], cache)`` with the logits read at each row's last
-    valid position."""
+    valid position.  Stacks with full-attention blocks only, as in JAX."""
     if not with_cache:
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
@@ -164,6 +175,7 @@ def make_prefill_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
         raise NotImplementedError("cache-writing prefill targets token-LM archs")
     if max_len is None:
         raise ValueError("with_cache=True requires max_len")
+    _check_full_attention(cfg, "cache-writing prefill")
 
     def prefill_step(params, tokens, lengths):
         B, dev = tokens.shape[0], tokens.device
@@ -191,9 +203,11 @@ def make_prefill_chunk_step(cfg: ModelConfig,
     pool; without it the cache is the contiguous slot cache.  Returns
     ``(next_token [B], last_logits [B, V], cache)`` with the last logits
     read at each row's final valid chunk position (junk for inert rows).
+    Stacks with full-attention blocks only, as in JAX.
     """
     if cfg.is_encoder_decoder or cfg.input_kind != "tokens":
         raise NotImplementedError("chunked prefill targets token-LM archs")
+    _check_full_attention(cfg, "chunked prefill")
 
     def chunk_step(params, tokens, base, chunk_lens, cache, block_table=None):
         chunk_lens = torch.as_tensor(chunk_lens, device=tokens.device).to(torch.int32)

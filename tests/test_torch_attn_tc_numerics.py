@@ -264,6 +264,26 @@ def test_decode_emulation_within_half_the_card_tolerance(G, D, S, window):
     _check(f"decode G{G} D{D} S{S} window {window}", got, want32, want)
 
 
+@pytest.mark.parametrize("scalar", [False, True])
+def test_decode_emulation_at_the_ring_decode_shape(scalar):
+    """recurrentgemma's ring decode: D 256, G 16 (H 16, KV 1), a ring of
+    2048 slots, so four 512-position blocks a full row and the combine
+    pass; lengths across the tile and span edges up to a full ring, or
+    one scalar length (a full ring) for every row."""
+    rng = np.random.default_rng(256)
+    S, D, G = 2048, 256, 16
+    lens = ([2048] * 4 if scalar else [0, 1, 17, 511, 513, 1025, 2047, 2048])
+    B = len(lens)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    q, k, v = _bf16(rng, (B, G, D)), _bf16(rng, (B, S, 1, D)), _bf16(rng, (B, S, 1, D))
+    got = decode_emulated(q, k, v, lens)
+    want32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    if not scalar:
+        assert (got[0] == 0).all()
+    _check(f"ring decode G{G} D{D} S{S} scalar={scalar}", got, want32, want)
+
+
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("D", [64, 96])

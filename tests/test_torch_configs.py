@@ -115,12 +115,33 @@ def test_served_configs_fit_the_attention_kernels(arch, smoke):
         assert H % KV == 0 and H // KV <= 32, (arch, kernel, H, KV)
 
 
+# the recurrent architectures: decoded token by token over the contiguous
+# cache, trained, never served by the engine (as in JAX)
+RECURRENT = ["recurrentgemma-9b", "xlstm-125m"]
 # the ROADMAP.md queue 1 item that lands each unported architecture:
-# recurrent and windowed blocks and encoder-decoders (item 5)
-UNPORTED_ITEM = {"xlstm-125m": 5, "recurrentgemma-9b": 5, "whisper-medium": 5}
+# encoder-decoders (item 5)
+UNPORTED_ITEM = {"whisper-medium": 5}
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(SERVED)))
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_paths_fit_the_attention_kernels(arch, smoke):
+    """recurrentgemma's local layers decode through the contiguous decode
+    over their ring, at (H, KV, D) = (16, 1, 256) at full width (4, 1, 16
+    at smoke width), groups the kernel takes (16 and 4); xlstm has no
+    attention, so its decode reaches no kernel."""
+    cfg = tcfg.get_config(arch, smoke=smoke)
+    shapes = tlm.serving_attention_shapes(cfg)
+    if arch == "xlstm-125m":
+        assert shapes == {}
+        return
+    assert shapes == {"decode_attention": (16, 1, 256) if not smoke else (4, 1, 16)}
+    for kernel, (H, KV, D) in shapes.items():
+        build.check_head_dim(kernel, D)
+        assert H % KV == 0 and H // KV <= 32
+
+
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(SERVED) - set(RECURRENT)))
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, item {UNPORTED_ITEM[arch]}\\)"):
@@ -170,7 +191,6 @@ def _deferred_refusals():
     qwen = tcfg.get_config("qwen2-vl-72b", smoke=True)
     run = tcfg.RunConfig()
     return {
-        "window": (5, lambda: tblocks.attn_apply(tiny, None, None, None, window=4)),
         "mrope": (5, lambda: tblocks.attn_apply(qwen, None, None, None)),
         "embedding_inputs": (5, lambda: tlm.lm_apply(tiny, None, torch.zeros((1, 4, 8)))),
         "encdec_loss": (5, lambda: tstep.make_loss_fn(whisper, run)),

@@ -68,6 +68,24 @@ def test_decode_plain_matches_pallas(B, H, KV, S, D, bk, scalar):
     np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
 
 
+@pytest.mark.parametrize("scalar", [True, False])
+def test_decode_plain_at_the_ring_decode_shape_matches_pallas(scalar):
+    """recurrentgemma's ring decode at head dim 256, G 16 (H 16, KV 1 after
+    padded_gqa): the lengths a ring of S slots gives, min(len, S) -- one
+    key, the 16-key tile edges, the 512-position span edges, S - 1 and a
+    full ring -- against the Pallas kernel in interpret mode and the jnp
+    oracle."""
+    B, H, KV, S, D = 8, 16, 1, 1024, 256
+    rng = np.random.default_rng(256)
+    q, k, v = _decode_inputs(rng, B, H, KV, S, D)
+    lens = (np.asarray(S, np.int32) if scalar else
+            np.minimum([1, 15, 16, 17, 511, 513, S - 1, S + 40], S).astype(np.int32))
+    got, want = _decode_both(q, k, v, lens, block_k=256)
+    np.testing.assert_allclose(got, want, **TOL)
+    oracle = jref.decode_attention_ref(*(jnp.asarray(a) for a in (q, k, v, lens)))
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
 @pytest.mark.parametrize("window", [8, 64, 100])
 def test_decode_plain_windowed_matches_pallas(window):
     B, H, KV, S, D = 4, 8, 2, 256, 32
@@ -158,27 +176,25 @@ def test_contiguous_plan_and_partials_agree(dtype, aligned, B, KV, G, S):
 
 def test_head_dims_without_a_kernel_raise_naming_their_item():
     """96 is instantiated in every attention kernel; 24 (minicpm3's
-    expanded MLA decode at smoke width) in the contiguous decode alone,
-    and the other four raise at 24 saying no served config reaches them
-    there; 256 (recurrentgemma) raises naming the queue item that adds it;
-    any other raises too."""
+    expanded MLA decode at smoke width) and 256 (recurrentgemma's ring
+    decode) in the contiguous decode alone, and the other four raise at
+    each saying no served config reaches them there; any other raises
+    too."""
     kernels = ("flash_attention", "decode_attention", "decode_attention_paged",
                "prefill_attention", "prefill_attention_paged")
-    assert 96 in build.HEAD_DIMS and 24 not in build.HEAD_DIMS
-    assert build.head_dims("decode_attention") == (16, 24, 32, 64, 96, 128)
-    assert 24 not in build.PENDING_HEAD_DIMS
+    assert 96 in build.HEAD_DIMS and not {24, 256} & set(build.HEAD_DIMS)
+    assert build.head_dims("decode_attention") == (16, 24, 32, 64, 96, 128, 256)
     for kernel in kernels:
         for D in build.HEAD_DIMS:
             build.check_head_dim(kernel, D)
-        with pytest.raises(ValueError, match="queue 1 item 5"):
-            build.check_head_dim(kernel, 256)
         with pytest.raises(ValueError, match="head dim 80 not in"):
             build.check_head_dim(kernel, 80)
-    build.check_head_dim("decode_attention", 24)
-    for kernel in kernels[2:] + kernels[:1]:
-        with pytest.raises(ValueError, match="no served config reaches "
-                                             f"{kernel} at head dim 24"):
-            build.check_head_dim(kernel, 24)
+    for D in (24, 256):
+        build.check_head_dim("decode_attention", D)
+        for kernel in kernels[2:] + kernels[:1]:
+            with pytest.raises(ValueError, match="no served config reaches "
+                                                 f"{kernel} at head dim {D}"):
+                build.check_head_dim(kernel, D)
 
 
 # -- prefill -------------------------------------------------------------------

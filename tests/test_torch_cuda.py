@@ -1078,3 +1078,130 @@ def test_runtime_entry_points_launch_their_kernels(tmp_path):
     assert c["paged_decode"] > 0 and c["paged_prefill"] > 0
     assert c["scatter"] == c["paged_decode"] + c["paged_prefill"]
     assert c["flash"] == c["decode"] == c["prefill"] == 0
+
+
+# -- the recurrent families (xlstm, recurrentgemma) ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_decode_kernel_at_recurrentgemma_ring_shapes(dtype, tol):
+    """recurrentgemma's ring decode (lm.serving_attention_shapes: H 16, KV 1,
+    D 256 at full width; H 4, KV 1, D 16 at smoke width) over a ring of
+    2048 (16) slots, B 8: lengths across the 16-key tile, the 512-position
+    span and the ring's end, in [B] and scalar form; empty rows exactly
+    zero."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import serving_attention_shapes
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(256)
+    for smoke, S in ((False, 2048), (True, 16)):
+        H, KV, D = serving_attention_shapes(
+            get_config("recurrentgemma-9b", smoke=smoke))["decode_attention"]
+        edges = sorted({min(n, S) for n in (0, 1, 15, 16, 17, 511, 512, 513, 1023, 1024,
+                                           1025, S - 1, S, S, S, S)})
+        rows = [edges[i:i + 8] for i in range(0, len(edges), 8)]
+        for lens in rows + [S, S // 2 + 1]:
+            B = 8
+            cl = (torch.tensor((lens + [S] * B)[:B], dtype=torch.int32) if isinstance(lens, list)
+                  else torch.tensor(lens, dtype=torch.int32)).cuda()
+            q = _randn(rng, (B, H, D), dt)
+            k, v = (_randn(rng, (B, S, KV, D), dt) for _ in range(2))
+            got = tda.decode_attention_kernel(q, k, v, cl)
+            want = tda.decode_attention_plain(q, k, v, cl)
+            torch.cuda.synchronize()
+            assert (got.float() - want.float()).abs().max().item() <= tol, (smoke, lens)
+            assert (got[cl.expand(B) == 0] == 0).all()
+
+
+def _smoke_lm(arch, dtype=torch.float32):
+    from repro_torch.common.params import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.train.state import model_specs
+    cfg = get_config(arch, smoke=True).with_overrides(compute_dtype=dtype)
+    return cfg, init_params(torch.Generator(device="cuda").manual_seed(0),
+                            model_specs(cfg), "cuda")
+
+
+@pytest.mark.cuda
+def test_recurrent_paths_launch_what_they_should():
+    """On the card: an xlstm train step and recurrentgemma's no-cache
+    prefill launch no port kernel (JAX's paths run no Pallas kernel
+    there); recurrentgemma's decode steps launch kernel 2 once per local
+    layer a step and nothing else, through a wrap of its 16-slot ring;
+    the kernel path's greedy stream equals the plain path's (fp32)."""
+    _card()
+    from repro_torch.common.params import map_tree
+    from repro_torch.configs import RunConfig, block_pattern
+    from repro_torch.models.lm import lm_cache_specs
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.configs import get_config
+    xcfg = get_config("xlstm-125m", smoke=True)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), xcfg,
+                             RunConfig(), device="cuda")
+    tok = torch.randint(0, xcfg.vocab_size, (2, 32), device="cuda", dtype=torch.int32)
+    _zero_counts()
+    _, m = make_train_step(xcfg, RunConfig())(state, {"tokens": tok,
+                                                      "labels": torch.roll(tok, -1, 1)})
+    torch.cuda.synchronize()
+    assert np.isfinite(m["loss"].item()) and not any(_counts().values())
+
+    cfg, params = _smoke_lm("recurrentgemma-9b")
+    head, unit, reps, tail = block_pattern(cfg)
+    n_local = sum(tk == "local" for tk, _ in head + tail) + reps * sum(
+        tk == "local" for tk, _ in unit)
+    B, steps = 2, 40
+    last = make_prefill_step(cfg)(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert last.shape == (2, cfg.padded_vocab) and not any(_counts().values())
+    streams = {}
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(decode_impl=impl)
+        cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                         lm_cache_specs(c, B, 64))
+        dec = make_decode_step(c)
+        t = tok[:, :1]
+        out = []
+        _zero_counts()
+        for i in range(steps):
+            t, _, cache = dec(params, t[:, None] if t.ndim == 1 else t, cache,
+                              torch.full((B,), i, dtype=torch.int32, device="cuda"))
+            out.append(t)
+        torch.cuda.synchronize()
+        want = {"decode": n_local * steps if impl == "auto" else 0}
+        assert _counts() == {**{k: 0 for k in _counts()}, **want}, impl
+        streams[impl] = torch.stack(out).cpu()
+    assert torch.equal(streams["auto"], streams["ref"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_ring_decode_makes_no_host_sync(per_slot):
+    """recurrentgemma's decode step (smoke, bf16) on the card under
+    sync-debug "error": the ring writes, kernel 2 over the clamped lengths
+    and the RG-LRU steps make no host sync (one would raise)."""
+    _card()
+    from repro_torch.common.params import map_tree
+    from repro_torch.models.lm import lm_cache_specs
+    from repro_torch.train.step import make_decode_step
+    cfg, params = _smoke_lm("recurrentgemma-9b", torch.bfloat16)
+    B = 3
+    cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                     lm_cache_specs(cfg, B, 64))
+    dec = make_decode_step(cfg)
+    tok = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+    lens = [(torch.full((B,), i, dtype=torch.int32) if per_slot else torch.tensor(i)).cuda()
+            for i in range(20)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for n in lens:  # through a wrap of the 16-slot ring
+            nxt, _, cache = dec(params, tok, cache, n)
+            tok = nxt[:, None]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tda.decode_attention_kernel.launches == 20

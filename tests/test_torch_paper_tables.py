@@ -123,18 +123,6 @@ def test_launch_train_kind_pods_fall_back_to_one_pod(tmp_path):
     assert res["kind_pods"] is None and res["steps"] == 1
 
 
-def test_launch_train_default_arch_raises_the_model_layers_refusal(tmp_path):
-    """The JAX package's default, xlstm-125m, is recurrent: the port raises
-    the model layer's refusal before it acquires anything, and does not
-    pick another architecture."""
-    args = tlaunch.build_parser().parse_args(
-        ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    assert args.arch == "xlstm-125m"
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tlaunch.run(args)
-    assert not any(tmp_path.iterdir())
-
-
 def test_entry_points_need_the_card_unless_the_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default is usable here")

@@ -256,10 +256,6 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
         tlm.lm_apply(cfg, params, tok)
     tlm.lm_apply(cfg, params, tok, remat=False)  # only matters under remat
-    # the training entry point runs; its default architecture (the JAX
-    # package's xlstm-125m) is recurrent and raises the model layer's refusal
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        tlaunch.run(tlaunch.build_parser().parse_args(["--device", "cpu"]))
 
 
 # -- prefills ----------------------------------------------------------------
