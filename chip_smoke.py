@@ -62,7 +62,15 @@ non-zero:
             tile edges, an empty row), and the contiguous decode at
             recurrentgemma-9b's ring decode (B 8, H 16, KV 1, head dim 256,
             a ring of 2048 slots: lengths 0, 1, 15-17, 511-513, 1023-1025,
-            2047 and a full ring, and scalar lengths; ring_decode_cases).
+            2047 and a full ring, and scalar lengths; ring_decode_cases);
+            then flash and the contiguous decode at whisper-medium's
+            shapes (flash full over 1500 frames and causal over 187
+            tokens, H 16, KV 16, D 64; kernel 2 over the [4, 1500, 16, 64]
+            cross cache at scalar lengths 1, 511-513, 1024, 1499, 1500 and
+            the [4, 448, 16, 64] self cache at 0, 1, 15-17, 447, 448;
+            encdec_shape_cases) and at qwen2-vl-72b's (H 64, KV 8, D 128:
+            flash causal at S 512 and 319, kernel 2 over 512 positions;
+            mrope_shape_cases).
             Each element of a kernel's output is
             held to its plain version within 1e-4 (fp32) or the larger of
             2e-2 and one bf16 ulp of the plain value (bf16; TOL_NOTE).
@@ -175,10 +183,13 @@ non-zero:
    runtime  the two main paths through the port's pilot runtime.  The
             training entry point ``repro_torch.launch.train.run``: its stage
             graph (preprocess >> train >> postprocess) under a Session over
-            the card, full-width tinyllama-1.1b, B 8 x S 512, RUNTIME_STEPS
-            steps, its checkpoint written to a temporary directory removed
-            afterwards.  Counters zeroed just before and read just after:
-            flash attention exactly 44 launches a step, no other kernel;
+            the card, tinyllama-1.1b at full width and 4 of its 22 layers
+            (RUNTIME_LAYERS: the driver's config cut in depth, so its final
+            checkpoint write is 3.7 GB, not 13.2), B 8 x S 512,
+            RUNTIME_STEPS steps, its checkpoint written to a temporary
+            directory removed afterwards.  Counters zeroed just before and
+            read just after: flash attention exactly 8 launches a step, no
+            other kernel;
             the loss falls (postprocess ``improved``); the train stage's
             overheads (queue, communicator, execute) and placement are
             printed.  Then a paged fp32 ServeEngine on the serve phase's
@@ -242,6 +253,42 @@ non-zero:
             else, every logit finite, the last step's next tokens equal to
             the plain path's on a clone of the cache (a near-tie recorded
             with its gap); tokens/s, step p50, seconds.
+14. encdec  whisper-medium at its published widths (24 + 24 layers,
+            d_model 1024, 16 heads, head dim 64, d_ff 4096 GELU, vocab
+            51865; 0.81 B parameters in fp32, random from a seeded
+            torch.Generator): 10 train steps of B 8 x 1500 frames (seeded
+            normal: the stubbed conv front end) and 187 decoder tokens of
+            the corpus (bf16 compute, AdamW, remat): the loss falls, flash
+            launches exactly 96 times a step (the encoder's full and the
+            decoder's causal self-attention, twice under remat) and
+            nothing else; one more step profiled; 3 fp32 steps at B 2 on
+            the kernel path and the plain path within TRAIN_TOL.  Then B 4 x 1500 frames encoded
+            (24 flash launches), the cross cache precomputed and 64
+            greedy tokens decoded from the start token: in fp32 the
+            kernel path's stream equals the plain path's and the no-cache
+            prefill's last logits equal the replay's within 1e-3 of their
+            max abs; in bf16 kernel 2 launches exactly 48 times a step
+            (self and cross), nothing else; tokens/s, step p50, two more
+            steps profiled.  Then
+            flash timed at the encoder's shape (B 8, S 1500, full) and
+            kernel 2 at the cross decode (B 4, S 1500: split spans and the
+            combine pass), SDPA beside.
+15. mrope   qwen2-vl-72b at its published widths (d_model 8192, H 64, KV
+            8, D 128, d_ff 29568 SwiGLU, vocab 152064) and 4 of its 80
+            layers (6.0 B parameters, 24 GB in fp32), on embedding inputs
+            with M-RoPE positions (32 text tokens, a 16 x 16 image grid,
+            32 text tokens: t, h and w differ): in fp32 the no-cache
+            forward's last logits equal the empty-cache prefill of S - 1
+            positions (flash exactly 4 launches) plus one decode step at
+            (p, p, p) (kernel 2 exactly 4) within 1e-3 of their max abs;
+            a loss and its gradient's norm at 2 layers on B 1 x S 512,
+            kernel path against plain path within TRAIN_TOL; then bf16
+            parameters, B 4 prefilled (flash exactly 4) and 32 greedy
+            steps (kernel 2 exactly 4 a step, nothing else); tokens/s,
+            step p50, two more steps profiled; kernel 2 timed at its
+            decode shape.  Both phases'
+            launches and timings join rows 1 and 2 of the kernel table
+            (``launches_by_phase``, ``at_other_shapes``).
 
 Each phase's wall seconds are printed on one line (``"phase": "wall"``).
 
@@ -425,6 +472,38 @@ GEMMA_RING_B, GEMMA_RING_STEPS = 4, 2112
 # kernel 2 at recurrentgemma's ring decode: B rows over a full ring of S
 # slots (the checks' lengths in ring_decode_cases)
 RING_B, RING_S = 8, 2048
+# the encdec phase: whisper-medium trains on WHISPER_B x WHISPER_FRAMES
+# frames (the stubbed conv front end's output, seeded normal) and
+# frames // dec_len_ratio decoder tokens of the corpus for WHISPER_STEPS
+# steps (fp32 parameters, bf16 compute), then WHISPER_PARITY_STEPS fp32
+# steps at WHISPER_PARITY_B on the kernel path and the plain path
+# (TRAIN_TOL); it decodes WHISPER_DEC_B rows of WHISPER_GEN greedy tokens
+# from a start token over a self cache of WHISPER_MAX_LEN positions (the
+# model's text context) and the cross cache of its encoded frames: fp32
+# streams kernel == plain, the no-cache prefill's last logits against the
+# decode replay's within WHISPER_PREFILL_TOL of their max abs, then bf16
+WHISPER = "whisper-medium"
+WHISPER_B, WHISPER_FRAMES, WHISPER_STEPS = 8, 1500, 10
+WHISPER_PARITY_B, WHISPER_PARITY_STEPS = 2, 3
+WHISPER_DEC_B, WHISPER_GEN, WHISPER_MAX_LEN, WHISPER_PREFILL_TOL = 4, 64, 448, 1e-3
+# the start-of-transcript token the decodes begin from (whisper's <|startoftranscript|>)
+WHISPER_START = 50258
+# the mrope phase: qwen2-vl-72b at its published widths with its depth cut
+# to QWEN_LAYERS of 80; embedding inputs of QWEN_TEXT text tokens, a
+# QWEN_GRID image and QWEN_TEXT text tokens with M-RoPE positions; the fp32
+# no-cache forward against the empty-cache prefill plus one decode step
+# (QWEN_PREFILL_TOL of the max abs logit); a loss and its grads at
+# QWEN_PARITY_LAYERS layers on B 1 x QWEN_PARITY_S, kernel path against
+# plain path (TRAIN_TOL); then bf16 parameters, QWEN_DEC_B rows prefilled
+# and decoded QWEN_GEN greedy tokens
+QWEN = "qwen2-vl-72b"
+QWEN_LAYERS, QWEN_PARITY_LAYERS, QWEN_PARITY_S = 4, 2, 512
+QWEN_TEXT, QWEN_GRID, QWEN_B, QWEN_PREFILL_TOL = 32, (16, 16), 2, 1e-3
+QWEN_DEC_B, QWEN_GEN = 4, 32
+# the runtime phase trains tinyllama-1.1b through the driver at this many
+# of its 22 layers: its final checkpoint write of the full 13.2 GB state
+# took ~107 s of the phase (PERF.md section 5), 3.7 GB at 4 layers
+RUNTIME_LAYERS = 4
 
 
 def emit(obj) -> None:
@@ -729,6 +808,8 @@ def phase_kernels():
     cases += head_dim_24_cases(gen)
     cases += fleet_prefill_cases(gen)
     cases += ring_decode_cases(gen)
+    cases += encdec_shape_cases(gen)
+    cases += mrope_shape_cases(gen)
     emit({"phase": "kernels", "ok": True, "kernels": list(COUNTED),
           "cases": cases})
 
@@ -841,6 +922,80 @@ def ring_decode_row(launches):
     del cases, lib
     emit({"phase": "timing", "ok": True, "arch": GEMMA, "ring_decode": True, "rows": [row]})
     return row
+
+
+def decode_step_shape(arch):
+    """(H, KV, D) of ``arch``'s decode step (lm.serving_attention_shapes:
+    whisper 16, 16, 64; qwen2-vl 64, 8, 128 at full width)."""
+    from repro_torch.models.lm import serving_attention_shapes
+
+    return serving_attention_shapes(get_config(arch))["decode_attention"]
+
+
+def shape_case_checks(kind, shape, runs):
+    """Run ``runs`` (``[(fields, thunk)]``, each thunk returning (max abs
+    error, ok)) and raise on the first disagreement."""
+    out = []
+    for fields, thunk in runs:
+        err, ok = thunk()
+        out.append({**fields, "shape": shape, "max_abs_err": err,
+                    "tol": TOL_NOTE[fields["dtype"]], "ok": ok})
+        out[-1]["dtype"] = str(fields["dtype"])
+        if not ok:
+            raise AssertionError(f"{fields['kernel']} disagrees at {kind} shapes: {out[-1]}")
+    return out
+
+
+def encdec_shape_cases(gen):
+    """The two kernels at the shapes whisper-medium's paths give them, fp32
+    and bf16: flash full over the encoder's 1500 frames (B 2, H 16, KV 16,
+    D 64) and causal over the decoder's 187 tokens; kernel 2 over the
+    cross cache [B 4, 1500, 16, 64] at scalar lengths 1, 511-513, 1024,
+    1499 and 1500 (past 512 positions: split spans and the combine pass)
+    and over the self cache [B 4, 448, 16, 64] at scalar lengths 0, 1,
+    15-17, 447 and 448.  Drawn after every other case of the phase, whose
+    inputs stay those of the parent commit."""
+    H, KV, D = decode_step_shape(WHISPER)
+    dec_len = WHISPER_FRAMES // get_config(WHISPER).dec_len_ratio
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, causal in ((WHISPER_FRAMES, False), (dec_len, True)):
+            args = flash_case(gen, 2, H, KV, S, D, dtype)
+            runs.append(({"kernel": "flash_attention", "B": 2, "H": H, "KV": KV, "S": S,
+                          "head_dim": D, "causal": causal, "dtype": dtype},
+                         lambda a=args, c=causal: check_flash(a, c)))
+        for S, lens in ((WHISPER_FRAMES, (1, 511, 512, 513, 1024, 1499, 1500)),
+                        (WHISPER_MAX_LEN, (0, 1, 15, 16, 17, 447, 448))):
+            q, k, v, _ = contig_decode_case(gen, H, KV, D, S, [0] * WHISPER_DEC_B, dtype)
+            for n in lens:
+                runs.append(({"kernel": "decode_attention", "B": WHISPER_DEC_B, "H": H,
+                              "KV": KV, "S": S, "head_dim": D, "cache_len": n, "dtype": dtype},
+                             lambda a=(q, k, v, i32(n)): check_contig_decode(a)))
+    return shape_case_checks("whisper", f"{WHISPER} encoder-decoder", runs)
+
+
+def mrope_shape_cases(gen):
+    """The two kernels at the shapes qwen2-vl-72b's paths give them (H 64,
+    KV 8, D 128), fp32 and bf16: flash causal at S 512 and at a ragged S
+    (the mrope phase's prefills); kernel 2 over [B 4, 512, 8, 128] at
+    [B] lengths across the 16-key tile and the row's end and at scalar
+    lengths.  Drawn after every other case of the phase."""
+    H, KV, D = decode_step_shape(QWEN)
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (512, 2 * QWEN_TEXT + QWEN_GRID[0] * QWEN_GRID[1] - 1):
+            args = flash_case(gen, 2, H, KV, S, D, dtype)
+            runs.append(({"kernel": "flash_attention", "B": 2, "H": H, "KV": KV, "S": S,
+                          "head_dim": D, "causal": True, "dtype": dtype},
+                         lambda a=args: check_flash(a)))
+        for lens in ([0, 1, 17, 512], [15, 16, 319, 511], 320, 512):
+            rows = lens if isinstance(lens, list) else [lens] * QWEN_DEC_B
+            q, k, v, cl = contig_decode_case(gen, H, KV, D, 512, rows, dtype)
+            runs.append(({"kernel": "decode_attention", "B": QWEN_DEC_B, "H": H, "KV": KV,
+                          "S": 512, "head_dim": D, "cache_len": lens, "dtype": dtype},
+                         lambda a=(q, k, v, cl if rows is lens else i32(lens)):
+                         check_contig_decode(a)))
+    return shape_case_checks("qwen2-vl", f"{QWEN} M-RoPE", runs)
 
 
 def head_dim_24_cases(gen):
@@ -2433,9 +2588,7 @@ def phase_train_parity(cfg):
         raise AssertionError(f"flash launches: kernel path "
                              f"{runs['auto']['flash_launches']}, plain path "
                              f"{runs['ref']['flash_launches']}")
-    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
-                  zip(runs["auto"]["metrics"], runs["ref"]["metrics"]))
-           for k in TRAIN_TOL}
+    rel = max_rel(runs["auto"]["metrics"], runs["ref"]["metrics"])
     out = {"phase": "train_parity", "ok": all(rel[k] <= TRAIN_TOL[k] for k in TRAIN_TOL),
            "compute_dtype": "torch.float32", "tf32": False, "steps": PARITY_STEPS,
            "kernel_path": runs["auto"], "plain_path": runs["ref"],
@@ -2789,11 +2942,12 @@ def phase_pipeline(t, host_cols):
 def phase_runtime(cfg):
     """The port's two main paths through its pilot runtime.  First the
     training entry point ``launch.train.run``, its stage graph (preprocess >>
-    train >> postprocess) under a Session over the card at full width,
-    B 8 x S 512, RUNTIME_STEPS steps, its checkpoint in a temporary
-    directory removed afterwards: every counter zeroed just before and
-    read just after, flash attention exactly 2 x layers per step, no
-    other kernel.  Then a paged fp32 ServeEngine as a service stage
+    train >> postprocess) under a Session over the card at full width and
+    RUNTIME_LAYERS of the 22 layers (the driver's config, cut in depth
+    for this call), B 8 x S 512, RUNTIME_STEPS steps, its checkpoint in a
+    temporary directory removed afterwards: every counter zeroed just
+    before and read just after, flash attention exactly 2 x layers per
+    step, no other kernel.  Then a paged fp32 ServeEngine as a service stage
     (``session.serve``), RUNTIME_REQUESTS greedy requests through the
     ServiceHandle, then drain: each request's tokens equal the same
     engine's ``run_until_drained`` on the same weights, and the paged
@@ -2804,19 +2958,27 @@ def phase_runtime(cfg):
     from repro_torch.serve import Request
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
-        args = launch_train.build_parser().parse_args(
-            ["--arch", ARCH, "--steps", str(RUNTIME_STEPS), "--batch", str(TRAIN_B),
-             "--seq", str(TRAIN_S), "--ckpt-dir", ckdir])
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        res = launch_train.run(args)
-        torch.cuda.synchronize()
-        train_wall = time.perf_counter() - t0
-        train_launches = read_counts()
-        ckpt_step = store.latest_step(ckdir)
-    want = 2 * cfg.num_layers * RUNTIME_STEPS
+    layers = RUNTIME_LAYERS
+    full_config = launch_train.get_config
+    launch_train.get_config = lambda arch, smoke=False: full_config(
+        arch, smoke=smoke).with_overrides(num_layers=layers)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+            args = launch_train.build_parser().parse_args(
+                ["--arch", ARCH, "--steps", str(RUNTIME_STEPS), "--batch", str(TRAIN_B),
+                 "--seq", str(TRAIN_S), "--ckpt-dir", ckdir])
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = launch_train.run(args)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            train_launches = read_counts()
+            ckpt_step = store.latest_step(ckdir)
+            ckpt_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*") if f.is_file())
+    finally:
+        launch_train.get_config = full_config
+    want = 2 * layers * RUNTIME_STEPS
     if train_launches["flash_attention"] != want:
         raise AssertionError(f"the training entry point launched flash {train_launches['flash_attention']} "
                              f"times, expected {want}")
@@ -2874,7 +3036,8 @@ def phase_runtime(cfg):
     torch.cuda.empty_cache()
     emit({"phase": "runtime", "ok": True, "gpu": gpu_line(),
           "train": {"entry": "repro_torch.launch.train.run", "arch": cfg.name,
-                    "layers": cfg.num_layers, "batch": TRAIN_B, "seq": TRAIN_S,
+                    "layers": layers, "layers_published": cfg.num_layers,
+                    "checkpoint_disk_bytes": ckpt_bytes, "batch": TRAIN_B, "seq": TRAIN_S,
                     "steps": res["steps"], "first_loss": res["first_loss"],
                     "last_loss": res["last_loss"], "improved": res["improved"],
                     "train_s": res["train_s"], "wall_s": train_wall,
@@ -3152,6 +3315,57 @@ def no_launches(what):
         raise AssertionError(f"{what} launched port kernels: {launched}")
 
 
+def counted_run(fn):
+    """``fn()`` with every launch counter zeroed just before and read just
+    after (synchronized): (its result, the counts)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def only(launches, want, what):
+    """Raise unless ``launches`` are exactly ``want`` ({name: count}) and
+    zero for every other kernel."""
+    full = {n: want.get(n, 0) for n in COUNTED}
+    if launches != full:
+        raise AssertionError(f"{what} launched {launches}, expected {full}")
+
+
+def rel_of_max(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def first_divergence(a, b, logits):
+    """Where two [B, T] streams first differ, with the plain path's top-2
+    logit gap there (``logits``: the plain path's [B, V] per step)."""
+    row, step = next((r, j) for j in range(a.shape[1]) for r in range(a.shape[0])
+                     if a[r, j] != b[r, j])
+    top = torch.topk(logits[step][row].float(), 2).values
+    return {"row": row, "step": step, "tokens": [int(a[row, step]), int(b[row, step])],
+            "plain_top2_logit_gap": float(top[0] - top[1])}
+
+
+def train_metrics(state, step_fn, batches):
+    """Run ``batches`` through ``step_fn``: per-step losses, grad-norms, ms."""
+    losses, norms, step_ms = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(m["loss"].item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(m["grad_norm"].item())
+    return state, losses, norms, step_ms
+
+
+def max_rel(a, b):
+    """The largest relative difference of each TRAIN_TOL metric over the
+    steps of two runs (``a``, ``b``: lists of {metric: value})."""
+    return {k: max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(a, b)) for k in TRAIN_TOL}
+
+
 def recurrent_xlstm():
     """xlstm-125m at its published widths through the training driver's
     default arch (no --arch), XLSTM_STEPS steps of XLSTM_B x XLSTM_S: the
@@ -3216,8 +3430,7 @@ def recurrent_xlstm():
             metrics[dev].append({k: v.item() for k, v in m.items()})
         parity_s[dev] = time.perf_counter() - t0
     no_launches("xlstm's fp32 steps")
-    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
-                  zip(metrics["cuda"], metrics["cpu"])) for k in TRAIN_TOL}
+    rel = max_rel(metrics["cuda"], metrics["cpu"])
     del card, host
     torch.cuda.empty_cache()
     out = {"phase": "recurrent", "part": "xlstm_train", "ok": True, "arch": XLSTM,
@@ -3323,12 +3536,7 @@ def recurrent_gemma_fp32():
            "seconds": time.perf_counter() - t_phase}
     out["ok"] = out["streams_identical"] and max(prefill_err.values()) <= GEMMA_PREFILL_TOL
     if not out["streams_identical"]:
-        row, step = next((r, j) for j in range(a.shape[1]) for r in range(B)
-                         if a[r, j] != b[r, j])
-        top = torch.topk(runs["ref"]["logits"][step][row].float(), 2).values
-        out["first_divergence"] = {"row": row, "step": step,
-                                   "tokens": [int(a[row, step]), int(b[row, step])],
-                                   "plain_top2_logit_gap": float(top[0] - top[1])}
+        out["first_divergence"] = first_divergence(a, b, runs["ref"]["logits"])
     emit(out)
     del params, runs, last
     torch.cuda.empty_cache()
@@ -3427,6 +3635,469 @@ def phase_recurrent():
     its ring.  Returns kernel 2's launches of the phase."""
     recurrent_xlstm()
     return recurrent_gemma_fp32() + recurrent_gemma_ring()
+
+
+def whisper_batches(cfg, B, steps, seed):
+    """``steps`` batches of B rows: frames [B, WHISPER_FRAMES, d] seeded
+    normal on the card (the stubbed conv front end's output), decoder
+    tokens of the corpus (frames // dec_len_ratio a row) and the labels
+    they give rolled by -1, as JAX's ``_batch`` in tests/test_models_smoke.py
+    shapes them."""
+    T = WHISPER_FRAMES // cfg.dec_len_ratio
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.from_numpy(make_corpus(cfg.vocab_size, B * T * steps, seed).reshape(
+        steps, B, T)).cuda()
+    return [{"frames": torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                                   device="cuda"),
+             "tokens": rows[i], "labels": torch.roll(rows[i], -1, dims=1)}
+            for i in range(steps)]
+
+
+def encdec_train():
+    """whisper-medium trains at its published widths: fp32 parameters, bf16
+    compute, AdamW, remat, WHISPER_STEPS steps of WHISPER_B x
+    WHISPER_FRAMES frames and their decoder tokens; the loss falls and
+    flash launches exactly 2 x (24 + 24) times a step (the encoder's full
+    and the decoder's causal self-attention, again in each recompute),
+    no other kernel; one more step profiled.  Then WHISPER_PARITY_STEPS
+    fp32 steps (TF32 off) at
+    WHISPER_PARITY_B on the kernel path and the plain path from one
+    initial state: loss and grad-norm within TRAIN_TOL.  Returns the
+    flash launches of the main run."""
+    t_phase = time.perf_counter()
+    cfg, run_cfg = get_config(WHISPER), RunConfig()
+    per_step = 2 * (cfg.num_layers + cfg.num_decoder_layers)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, run_cfg)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    batches = whisper_batches(cfg, WHISPER_B, WHISPER_STEPS, SEED + 30)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg, run_cfg)
+    (state, losses, norms, step_ms), launches = counted_run(
+        lambda: train_metrics(state, step_fn, batches))
+    only(launches, {"flash_attention": per_step * WHISPER_STEPS}, "whisper's train steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = step_profile(lambda: step_fn(state, batches[0]))
+    del state, batches
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite loss or grad-norm: {losses} {norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+
+    runs = {}
+    batches = whisper_batches(cfg, WHISPER_PARITY_B, WHISPER_PARITY_STEPS, SEED + 31)
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(compute_dtype=torch.float32, decode_impl=impl)
+        st = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), c, run_cfg)
+        (_, l, n, _), runs[impl] = counted_run(
+            lambda: train_metrics(st, make_train_step(c, run_cfg), batches))
+        runs[impl] = {"metrics": [{"loss": a, "grad_norm": b} for a, b in zip(l, n)],
+                      "launches": runs[impl]}
+        del st
+        torch.cuda.empty_cache()
+    only(runs["auto"]["launches"], {"flash_attention": per_step * WHISPER_PARITY_STEPS},
+         "whisper's fp32 kernel path")
+    only(runs["ref"]["launches"], {}, "whisper's fp32 plain path")
+    rel = max_rel(runs["auto"]["metrics"], runs["ref"]["metrics"])
+    steady = step_ms[1:]
+    out = {"phase": "encdec", "part": "whisper_train", "arch": WHISPER, "params": n_params,
+           "param_gb": n_params * 4 / 1e9, "encoder_layers": cfg.num_layers,
+           "decoder_layers": cfg.num_decoder_layers, "d_model": cfg.d_model,
+           "compute_dtype": str(cfg.compute_dtype), "batch": WHISPER_B,
+           "frames": WHISPER_FRAMES, "decoder_tokens": WHISPER_FRAMES // cfg.dec_len_ratio,
+           "steps": WHISPER_STEPS, "losses": losses, "grad_norms": norms,
+           "first5_mean_loss": first, "last5_mean_loss": last,
+           "first_step_ms": step_ms[0], "step_ms_p50": float(np.percentile(steady, 50)),
+           "step_ms_p95": float(np.percentile(steady, 95)),
+           "frames_per_s": WHISPER_B * WHISPER_FRAMES * len(steady) / (sum(steady) / 1e3),
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "flash_launches_per_step": launches["flash_attention"] / WHISPER_STEPS,
+           "profiled_step": prof,
+           "parity": {"compute_dtype": "torch.float32", "tf32": False,
+                      "batch": WHISPER_PARITY_B, "kernel_path": runs["auto"],
+                      "plain_path": runs["ref"], "max_rel_diff": rel, "tol_rel": TRAIN_TOL},
+           "seconds": time.perf_counter() - t_phase}
+    out["ok"] = last < first and all(rel[k] <= TRAIN_TOL[k] for k in TRAIN_TOL)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("whisper's loss did not fall or its fp32 paths disagree")
+    return launches["flash_attention"]
+
+
+def whisper_decode(cfg, params, frames, lens, profile=False):
+    """Encode ``frames`` (no remat), fill a WHISPER_MAX_LEN self cache's
+    cross K/V, then WHISPER_GEN greedy decode steps from the start token
+    at the scalar lengths ``lens`` (0-d device tensors): (stream [B, T] on
+    the host, each step's logits [B, V], the encode's launches, the
+    decode's launches, per-step device ms, decode wall s, and with
+    ``profile`` two more steps under the profiler)."""
+    from repro_torch.models import encdec
+    from repro_torch.train.state import cache_specs
+    from repro_torch.train.step import make_decode_step
+
+    B = frames.shape[0]
+    with torch.no_grad():
+        enc, enc_launches = counted_run(lambda: encdec.encode(cfg, params, frames,
+                                                              remat=False))
+        cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                         cache_specs(cfg, B, WHISPER_MAX_LEN))
+        cross = encdec.precompute_cross_cache(cfg, params, enc)
+        for name in ("xk", "xv"):
+            cache["dec_unit"]["b0"][name].copy_(cross["b0"][name])
+        del enc, cross
+        dec = make_decode_step(cfg)
+        tok = torch.full((B, 1), WHISPER_START, dtype=torch.int32, device="cuda")
+        stream, logits = [], []
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(lens) + 1)]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        events[0].record()
+        for i, n in enumerate(lens):
+            nxt, lg, cache = dec(params, tok, cache, n)
+            events[i + 1].record()
+            stream.append(nxt)
+            logits.append(lg[:, 0])
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+        prof = step_profile(lambda: [dec(params, tok, cache, lens[-1] + 1)
+                                     for _ in range(2)]) if profile else None
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(lens))]
+    return (torch.stack(stream, 1).cpu(), logits, enc_launches, launches, step_ms, wall_s,
+            prof)
+
+
+def encdec_decode():
+    """whisper-medium decodes at its published widths (fp32 parameters):
+    WHISPER_DEC_B rows of WHISPER_FRAMES frames encoded (24 flash
+    launches, full), the cross cache precomputed, WHISPER_GEN greedy
+    tokens from the start token.  In fp32 (TF32 off) the kernel path's
+    stream equals the plain path's (a divergence fails with its top-2
+    gap), and the no-cache prefill step over the tokens fed gives last
+    logits within WHISPER_PREFILL_TOL (of their max abs) of the decode
+    replay's at its last position (48 flash launches).  In bf16 compute,
+    kernel 2 launches exactly 48 times a step (24 self, 24 cross) and
+    nothing else; tokens/s and step p50; two more steps profiled.  Returns
+    the flash and kernel 2 launches of the kernel path's runs."""
+    from repro_torch.train.step import make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER)
+    L = cfg.num_decoder_layers
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED + 1),
+                         model_specs(cfg), "cuda")
+    frames = torch.randn((WHISPER_DEC_B, WHISPER_FRAMES, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 32))
+    lens = torch.arange(WHISPER_GEN, dtype=torch.int32, device="cuda")
+    runs = {}
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(compute_dtype=torch.float32, decode_impl=impl)
+        stream, logits, enc_l, dec_l, _, wall_s, _ = whisper_decode(c, params, frames, lens)
+        k = impl == "auto"
+        if k:
+            flash, k2 = enc_l["flash_attention"], dec_l["decode_attention"]
+        only(enc_l, {"flash_attention": cfg.num_layers} if k else {}, f"whisper's {impl} encode")
+        only(dec_l, {"decode_attention": 2 * L * WHISPER_GEN} if k else {},
+             f"whisper's {impl} decode")
+        runs[impl] = {"stream": stream, "logits": logits, "wall_s": wall_s}
+    a, b = runs["auto"]["stream"], runs["ref"]["stream"]
+    fed = torch.cat([torch.full((WHISPER_DEC_B, 1), WHISPER_START, dtype=torch.int32),
+                     a[:, :-1]], 1).cuda()
+    c32 = cfg.with_overrides(compute_dtype=torch.float32)
+    last, pre_l = counted_run(lambda: make_prefill_step(c32)(
+        params, {"frames": frames, "tokens": fed}))
+    only(pre_l, {"flash_attention": cfg.num_layers + L}, "whisper's no-cache prefill")
+    prefill_err = rel_of_max(runs["auto"]["logits"][-1], last)
+    out = {"phase": "encdec", "part": "whisper_decode_fp32", "arch": WHISPER,
+           "batch": WHISPER_DEC_B, "frames": WHISPER_FRAMES, "self_cache": WHISPER_MAX_LEN,
+           "generated": WHISPER_GEN, "streams_identical": bool(torch.equal(a, b)),
+           "prefill_vs_replay_rel_err": prefill_err, "tol_rel_of_max_abs": WHISPER_PREFILL_TOL,
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+    if not out["streams_identical"]:
+        out["first_divergence"] = first_divergence(a, b, runs["ref"]["logits"])
+    out["ok"] = out["streams_identical"] and prefill_err <= WHISPER_PREFILL_TOL
+    emit(out)
+    del runs, last
+    if not out["ok"]:
+        raise AssertionError("whisper's fp32 decode paths disagree")
+
+    stream, logits, enc_l, dec_l, step_ms, wall_s, prof = whisper_decode(cfg, params, frames,
+                                                                         lens, profile=True)
+    only(enc_l, {"flash_attention": cfg.num_layers}, "whisper's bf16 encode")
+    only(dec_l, {"decode_attention": 2 * L * WHISPER_GEN}, "whisper's bf16 decode")
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    steady = step_ms[1:]
+    out = {"phase": "encdec", "part": "whisper_decode_bf16", "arch": WHISPER,
+           "compute_dtype": str(cfg.compute_dtype), "batch": WHISPER_DEC_B,
+           "generated": WHISPER_GEN, "launches": dec_l,
+           "kernel2_per_step": dec_l["decode_attention"] / WHISPER_GEN,
+           "encode_flash_launches": enc_l["flash_attention"], "all_logits_finite": finite,
+           "tokens_per_s": WHISPER_DEC_B * WHISPER_GEN / wall_s,
+           "step_ms_p50": float(np.percentile(steady, 50)),
+           "step_ms_p95": float(np.percentile(steady, 95)), "wall_s": wall_s,
+           "profiled_2_steps": prof, "seconds": time.perf_counter() - t_phase, "ok": finite}
+    emit(out)
+    del params, frames
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("whisper's bf16 decode gave non-finite logits")
+    return (flash + pre_l["flash_attention"] + enc_l["flash_attention"],
+            k2 + dec_l["decode_attention"])
+
+
+def encdec_rows():
+    """Row 1 at the whisper encoder's shape (B 8, H 16, S 1500, D 64, full,
+    bf16) and row 2 at its cross-attention decode (B 4, [B, 1500, 16, 64],
+    scalar length 1500, bf16: split spans and the combine pass, its share
+    in ``device_us_by_kernel``), one input set per layer, with SDPA
+    beside (K/V already at every head: G 1)."""
+    cfg = get_config(WHISPER)
+    H, KV, D = decode_step_shape(WHISPER)
+    dt, esz, L, S = torch.bfloat16, 2, cfg.num_layers, WHISPER_FRAMES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    B = WHISPER_B
+    cases = [flash_case(gen, B, H, KV, S, D, dt) for _ in range(L)]
+    err = max(check_flash(a, False)[0] for a in cases[:2])
+    nxt = rotate(cases)
+    fn = lambda: fa.flash_attention_kernel(*nxt(), causal=False)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(*nxt())  # noqa: E731
+    flash = kernel_row(
+        "flash_attention", "src/repro/kernels/flash_attention.py:85", {"flash_attention": 0},
+        err, cuda_ms(fn), cuda_ms(lambda: fa.flash_attention_plain(*nxt(), causal=False)),
+        esz * 4 * B * H * S * D, 4 * B * H * S * S * D, cuda_ms(lib),
+        "SDPA (full), K/V at every head (G 1)",
+        {"B": B, "H": H, "KV": KV, "S": S, "D": D, "causal": False, "arch": WHISPER,
+         "path": "encoder self-attention", "dtype": str(dt)},
+        lib_us=device_us_per_call(lib)[0])
+    us, by_kernel = device_us_per_call(fn, reps=2 * L)
+    if us is not None:
+        redesigned(flash, us, by_kernel)
+    del cases
+    B = WHISPER_DEC_B
+    cases = [contig_decode_case(gen, H, KV, D, S, [S] * B, dt) for _ in range(L)]
+    cases = [(q, k, v, i32(S)) for q, k, v, _ in cases]
+    decode = decode_row(cases, H, KV, D, S, [S] * B, {
+        "arch": WHISPER, "path": "cross-attention decode", "cache_len": f"scalar {S}"})
+    del cases
+    return [flash, decode]
+
+
+def decode_row(cases, H, KV, D, S, lens, at):
+    """Kernel 2's row at ``cases`` (one input set per layer, bf16), with
+    SDPA over K/V expanded to every head and the device time by kernel
+    (the split body and, past 512 positions, the combine pass)."""
+    B, esz = len(lens), 2
+    err = max(check_contig_decode(a)[0] for a in cases[:2])
+    lib = [contig_sdpa_inputs(
+        q[:, :, None], k, v,
+        (torch.arange(S, device="cuda")[None, :] < cl.expand(B)[:, None])[:, None, None, :],
+        H, KV) for q, k, v, cl in cases]
+    nxt, lib_nxt = rotate(cases), rotate(lib)
+    fn, plain = dec.decode_attention_kernel, dec.decode_attention_plain
+    live = sum(lens)
+    row = kernel_row(
+        "decode_attention", "src/repro/kernels/decode_attention.py:114",
+        {"decode_attention": 0}, err, cuda_ms(lambda: fn(*nxt())),
+        cuda_ms(lambda: plain(*nxt())),
+        2 * live * KV * D * esz + 2 * B * H * D * esz + 4 * B, 4 * H * D * live,
+        cuda_ms(lambda: sdpa(*lib_nxt())), CONTIG_SDPA,
+        {"B": B, "H": H, "KV": KV, "D": D, "S": S, "dtype": "torch.bfloat16", **at},
+        lib_us=device_us_per_call(lambda: sdpa(*lib_nxt()))[0])
+    us, by_kernel = device_us_per_call(lambda: fn(*nxt()), reps=2 * len(cases))
+    if us is None:
+        row["device_us_per_launch"] = None
+    else:
+        redesigned(row, us, by_kernel, design="mma.sync m16n8k16, GQA-packed",
+                   header="decode_tc.cuh")
+        row["combine_share"] = sum(v for k, v in by_kernel.items() if "combine" in k) / us
+    return row
+
+
+def phase_encdec():
+    """whisper-medium at its published widths: training (encdec_train),
+    decoding (encdec_decode), then rows 1 and 2 at its shapes
+    (encdec_rows).  Returns the rows and the phase's main-path launches."""
+    train_flash = encdec_train()
+    enc_flash, dec2 = encdec_decode()
+    rows = encdec_rows()
+    launches = {"flash_attention": train_flash + enc_flash, "decode_attention": dec2}
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    emit({"phase": "timing", "ok": True, "arch": WHISPER, "rows": rows})
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def mrope_positions(B, text, grid_h, grid_w, tail):
+    """[B, S, 3] int32 (t, h, w) on the card: ``text`` text tokens, an image
+    of grid_h x grid_w patches at one t (h and w its row and column past
+    the image's start), then ``tail`` text tokens; a text token's t, h
+    and w are its index in the sequence (so the last is (S-1, S-1, S-1),
+    where the decode step continues)."""
+    rows = [[i, i, i] for i in range(text)]
+    rows += [[text, text + r, text + c] for r in range(grid_h) for c in range(grid_w)]
+    rows += [[i, i, i] for i in range(len(rows), len(rows) + tail)]
+    return torch.tensor(rows, dtype=torch.int32, device="cuda")[None].expand(B, -1, -1)
+
+
+def loss_grad_norm(cfg, params, batch):
+    """One loss and the global norm of its gradient (no optimizer); a leaf
+    the loss does not read gets zeros, as in the train step."""
+    from repro_torch.train.step import make_loss_fn
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(leaves)
+    tree = map_tree(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = make_loss_fn(cfg, RunConfig())(tree, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    return {"loss": loss.item(), "grad_norm": norm.item()}
+
+
+def phase_mrope():
+    """qwen2-vl-72b at its published widths, its depth cut to QWEN_LAYERS
+    of 80 layers (fp32 parameters, 24 GB): embedding inputs with M-RoPE
+    positions (an image grid, then text: t, h and w differ).  In fp32
+    (TF32 off): the no-cache prefill step's last logits against the
+    empty-cache prefill of S - 1 positions (lm_apply, flash exactly L
+    launches) plus one decode step of the matching token at (p, p, p)
+    (kernel 2 exactly L), within QWEN_PREFILL_TOL of their max abs; a
+    loss and its gradient's norm at QWEN_PARITY_LAYERS layers on B 1 x
+    QWEN_PARITY_S, kernel path against plain path within TRAIN_TOL.  Then
+    bf16 parameters: QWEN_DEC_B rows prefilled (flash exactly L) and
+    QWEN_GEN greedy steps (kernel 2 exactly L a step, nothing else);
+    tokens/s and step p50, two more steps profiled; then row 2 at its
+    decode shape.  Returns the
+    row and the phase's main-path launches."""
+    from repro_torch.models.lm import lm_apply, lm_cache_specs
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(QWEN).with_overrides(num_layers=QWEN_LAYERS)
+    L = cfg.num_layers
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED + 2),
+                         model_specs(cfg), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    pos = mrope_positions(QWEN_B, QWEN_TEXT, *QWEN_GRID, QWEN_TEXT)
+    S = pos.shape[1]
+    c32 = cfg.with_overrides(compute_dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (QWEN_B, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    emb = torch.randn((QWEN_B, S, cfg.d_model), generator=gen, device="cuda")
+    emb[:, -1] = params["embed"][tok[:, 0]]
+    with torch.no_grad():
+        full, full_l = counted_run(lambda: make_prefill_step(c32)(
+            params, {"embeds": emb, "positions": pos}))
+        only(full_l, {"flash_attention": L}, "qwen's no-cache prefill")
+        cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                         lm_cache_specs(c32, QWEN_B, S))
+        _, pre_l = counted_run(lambda: lm_apply(c32, params, emb[:, :-1], pos[:, :-1],
+                                                cache, 0, remat=False))
+        only(pre_l, {"flash_attention": L}, "qwen's empty-cache prefill")
+        (_, lg, _), dec_l = counted_run(lambda: make_decode_step(c32)(
+            params, tok, cache, torch.tensor(S - 1, device="cuda")))
+        only(dec_l, {"decode_attention": L}, "qwen's fp32 decode step")
+    prefill_err = rel_of_max(lg[:, 0], full)
+    del cache, lg, full
+
+    # loss and grad at QWEN_PARITY_LAYERS layers: views of the first ones
+    cp = c32.with_overrides(num_layers=QWEN_PARITY_LAYERS)
+    pp = dict(params, unit=map_tree(lambda t: t[:QWEN_PARITY_LAYERS], params["unit"]))
+    ppos = mrope_positions(1, QWEN_TEXT, *QWEN_GRID,
+                           QWEN_PARITY_S - QWEN_TEXT - QWEN_GRID[0] * QWEN_GRID[1])
+    batch = {"embeds": torch.randn((1, QWEN_PARITY_S, cfg.d_model), generator=gen,
+                                   device="cuda"),
+             "positions": ppos,
+             "labels": torch.randint(0, cfg.vocab_size, (1, QWEN_PARITY_S), generator=gen,
+                                     device="cuda")}
+    grads = {}
+    for impl in ("auto", "ref"):
+        grads[impl], launches = counted_run(
+            lambda: loss_grad_norm(cp.with_overrides(decode_impl=impl), pp, batch))
+        only(launches, {"flash_attention": 2 * QWEN_PARITY_LAYERS} if impl == "auto" else {},
+             f"qwen's {impl} loss and grad")
+        torch.cuda.empty_cache()
+    rel = max_rel([grads["auto"]], [grads["ref"]])
+    out = {"phase": "mrope", "part": "qwen_fp32", "arch": QWEN, "layers": L,
+           "layers_published": get_config(QWEN).num_layers, "params": n_params,
+           "param_gb": n_params * 4 / 1e9, "batch": QWEN_B, "seq": S,
+           "image_grid": list(QWEN_GRID), "prefill_vs_decode_rel_err": prefill_err,
+           "tol_rel_of_max_abs": QWEN_PREFILL_TOL,
+           "loss_grad": {"layers": QWEN_PARITY_LAYERS, "seq": QWEN_PARITY_S,
+                         "kernel_path": grads["auto"], "plain_path": grads["ref"],
+                         "max_rel_diff": rel, "tol_rel": TRAIN_TOL}}
+    out["ok"] = prefill_err <= QWEN_PREFILL_TOL and all(rel[k] <= TRAIN_TOL[k]
+                                                         for k in TRAIN_TOL)
+    emit(out)
+    del pp, batch, emb
+    if not out["ok"]:
+        raise AssertionError("qwen's fp32 checks failed")
+
+    # bf16 parameters: a prefill and QWEN_GEN decode steps
+    cb = cfg.with_overrides(param_dtype=torch.bfloat16)
+    params = map_tree(lambda t: t.to(torch.bfloat16), params)
+    torch.cuda.empty_cache()
+    B, max_len = QWEN_DEC_B, 512
+    pos = mrope_positions(B, QWEN_TEXT, *QWEN_GRID, QWEN_TEXT)
+    emb = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                     lm_cache_specs(cb, B, max_len))
+    lens = torch.arange(S, S + QWEN_GEN, dtype=torch.int32, device="cuda")
+    dec_fn = make_decode_step(cb)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(QWEN_GEN + 1)]
+    with torch.no_grad():
+        (lg, _, _), pre_l = counted_run(lambda: lm_apply(cb, params, emb, pos, cache, 0,
+                                                         remat=False, last_only=True))
+        only(pre_l, {"flash_attention": L}, "qwen's bf16 prefill")
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(QWEN_GEN):
+            nxt, lg, cache = dec_fn(params, tok, cache, lens[i])
+            finite &= torch.isfinite(lg).all()
+            events[i + 1].record()
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        dec_l = read_counts()
+        prof = step_profile(lambda: [dec_fn(params, tok, cache, lens[-1]) for _ in range(2)])
+    only(dec_l, {"decode_attention": L * QWEN_GEN}, "qwen's bf16 decode")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(QWEN_GEN)][1:]
+    out = {"phase": "mrope", "part": "qwen_decode_bf16", "arch": QWEN, "layers": L,
+           "param_gb": n_params * 2 / 1e9, "batch": B, "prompt": S, "generated": QWEN_GEN,
+           "launches": dec_l, "prefill_flash_launches": pre_l["flash_attention"],
+           "kernel2_per_step": dec_l["decode_attention"] / QWEN_GEN,
+           "all_logits_finite": bool(finite.item()),
+           "tokens_per_s": B * QWEN_GEN / wall_s,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p95": float(np.percentile(step_ms, 95)), "wall_s": wall_s,
+           "profiled_2_steps": prof, "seconds": time.perf_counter() - t_phase}
+    out["ok"] = out["all_logits_finite"]
+    emit(out)
+    del params, cache, emb
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError("qwen's bf16 decode gave non-finite logits")
+
+    H, KV, D = decode_step_shape(QWEN)
+    n = S + QWEN_GEN // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    cases = [contig_decode_case(gen, H, KV, D, max_len, [n] * B, torch.bfloat16)
+             for _ in range(L)]
+    row = decode_row([(q, k, v, i32(n)) for q, k, v, _ in cases], H, KV, D, max_len, [n] * B,
+                     {"arch": QWEN, "path": "decode step (M-RoPE)", "cache_len": f"scalar {n}"})
+    # the kernel path's runs: both fp32 prefills and the bf16 one, the
+    # fp32 decode step and the bf16 ones
+    launches = {"flash_attention": 3 * L, "decode_attention": L + L * QWEN_GEN}
+    row["launches"] = launches["decode_attention"]
+    emit({"phase": "timing", "ok": True, "arch": QWEN, "rows": [row]})
+    return [row], launches
 
 
 def main() -> int:
@@ -3528,6 +4199,19 @@ def main() -> int:
     row2["launches_by_phase"]["recurrent"] = ring_row["launches"]
     row2["launches"] += ring_row["launches"]
     lap("recurrent")
+    # whisper's and qwen2-vl's launches and shapes join rows 1 and 2
+    encdec_rows, encdec_launches = phase_encdec()
+    lap("encdec")
+    mrope_rows, mrope_launches = phase_mrope()
+    lap("mrope")
+    for row in rows:
+        if row["name"] in encdec_launches:
+            row["launches_by_phase"]["encdec"] = encdec_launches[row["name"]]
+            row["launches_by_phase"]["mrope"] = mrope_launches[row["name"]]
+            row["launches"] = sum(row["launches_by_phase"].values())
+            row.setdefault("at_other_shapes", [])
+            row["at_other_shapes"] += [r for r in encdec_rows + mrope_rows
+                                       if r["name"] == row["name"]]
     emit({"phase": "wall", "ok": True, "seconds": wall, "total_s": sum(wall.values())})
     print(gpu_line(), flush=True)
     emit({"kernels": rows})

@@ -1,6 +1,7 @@
-"""Transformer building blocks (mirror of ``repro.models.blocks`` but for
-M-RoPE): RMSNorm, RoPE, chunked flash-style attention, GQA attention
-(full or windowed over a ring cache) and MLA attention without a cache
+"""Transformer building blocks (mirror of ``repro.models.blocks``):
+RMSNorm, RoPE and M-RoPE, chunked flash-style attention, GQA attention
+(causal or full self-attention, windowed over a ring cache, or
+cross-attention to encoder states) and MLA attention without a cache
 (training) and over a KV cache (paged and contiguous serving), the
 SwiGLU/GeGLU/GELU MLP, and the GShard capacity-based top-k MoE (einsum
 and gather dispatch).
@@ -46,7 +47,7 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -65,6 +66,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: [B, S, H, D]; positions: [B, S, 3]
+    (t, h, w); ``sections`` splits the D/2 rotary frequencies into (t, h,
+    w) groups: frequency i turns with the position of its group."""
+    if positions.ndim != 3:
+        raise ValueError(f"M-RoPE takes [B, S, 3] positions, got {tuple(positions.shape)}")
+    d = x.shape[-1]
+    freqs = _rope_freqs(d, theta, x.device)                   # [D/2]
+    sec_idx = [i for i, s in enumerate(sections) for _ in range(s)][: d // 2]
+    # each frequency's (t, h or w) position times the frequency: the
+    # entry JAX picks from its [B,S,D/2,3] product
+    angles = positions[..., sec_idx].float() * freqs          # [B,S,D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rope_or_mrope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    if positions.ndim == 3:  # M-RoPE positions given to a plain RoPE config
+        positions = positions[..., 0]
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +199,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def _self_attention(cfg: ModelConfig, q, k, v) -> torch.Tensor:
-    """Causal attention of q [B,S,H,D] over the fresh k, v [B,S,KV,D]
-    through the flash op, on [B,H,S,D] views (no copies)."""
+def _self_attention(cfg: ModelConfig, q, k, v, causal: bool = True) -> torch.Tensor:
+    """Causal or full attention of q [B,S,H,D] over the fresh k, v
+    [B,S,KV,D] through the flash op, on [B,H,S,D] views (no copies)."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True,
+                            v.transpose(1, 2), causal=causal,
                             impl=cfg.decode_impl, q_chunk=cfg.q_chunk,
                             kv_chunk=cfg.kv_chunk)
     return o.transpose(1, 2)
@@ -319,18 +348,31 @@ def attn_apply(
     positions: torch.Tensor,
     cache: Optional[Dict] = None,
     *,
+    causal: bool = True,
     window: int = 0,
+    kv_source: Optional[torch.Tensor] = None,
     chunk_lens: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal GQA self-attention, without a cache or over a KV cache:
-    paged ``{"k_pages", "v_pages", "block_table", "len"}`` or contiguous
-    ``{"k", "v", "len"}`` (``[B, S, KV, D]`` rows).  ``window`` > 0 (a
-    local block) attends the last ``window`` positions only, over a
-    contiguous ring cache of ``min(max_len, window)`` slots.
+    """GQA attention: self-attention (causal, or full with ``causal=False``)
+    without a cache or over a KV cache, or cross-attention to the encoder
+    states ``kv_source`` [B, Skv, d] (projected to K/V without the block's
+    norm; only q goes through it).  RoPE (M-RoPE for a config with
+    ``mrope_sections``, on [B, S, 3] positions) turns q and k of causal
+    self-attention only, as in JAX: an encoder's full attention and a
+    cross-attention carry no rotation.  Self caches are paged
+    ``{"k_pages", "v_pages", "block_table", "len"}`` or contiguous ``{"k",
+    "v", "len"}`` (``[B, S, KV, D]`` rows); a cross cache ``{"xk", "xv",
+    "xlen"}`` holds the encoder's K/V [B, Skv, KV, D] and a scalar length.
+    ``window`` > 0 (a local block) attends the last ``window`` positions
+    only, over a contiguous ring cache of ``min(max_len, window)`` slots.
 
-    Without a cache (training) the sequence attends causally over itself
-    through the flash op, differentiably (through ``chunked_attention``
-    with a window).  With ``S > 1`` and
+    Without a cache (training) the sequence attends over itself through
+    the flash op, differentiably (through ``chunked_attention`` with a
+    window); a cross-attention attends the encoder states through
+    ``chunked_attention`` (Sq != Skv).  With a cross cache the one new
+    token attends the cached encoder K/V through the decode op, and the
+    cache comes back unchanged (JAX passes a dummy ``kv_source`` there and
+    projects it for nothing; the port passes none).  With ``S > 1`` and
     ``chunk_lens`` ([B]) it runs the ragged cache-writing prefill: row
     ``b``'s first ``chunk_lens[b]`` tokens append at offset
     ``cache["len"][b]`` and attend the full cached prefix.  With ``S > 1``
@@ -346,22 +388,31 @@ def attn_apply(
     % slots`` and attend ``min(len + 1, slots)`` slots through the decode
     op.  Caches are written in place; the returned cache holds the same
     tensors and the new lengths."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE is a later slice of the port (ROADMAP.md queue 1, item 5)")
     cdt = cfg.compute_dtype
     h = rmsnorm_apply(params["norm"], x, cfg.norm_eps).to(cdt)
     q = torch.einsum("bsd,dhk->bshk", h, params["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", h, params["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", h, params["wv"].to(cdt))
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cache is None:
-        o = (_windowed_attention(cfg, q, k, v, window) if window
-             else _self_attention(cfg, q, k, v))
-        new_cache = None
-    else:
+    if cache is not None and "xk" in cache:
+        o = ops.decode_attention(q[:, 0].contiguous(), cache["xk"], cache["xv"],
+                                 cache["xlen"], impl=cfg.decode_impl)[:, None]
+        y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
+        return x + y.to(x.dtype), cache
+    is_self = kv_source is None
+    src = h if is_self else kv_source.to(cdt)
+    k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(cdt))
+    if is_self and causal:
+        q = _rope_or_mrope(cfg, q, positions)
+        k = _rope_or_mrope(cfg, k, positions)
+    new_cache = None
+    if cache is not None:
         o, new_cache = _cached_attention(cfg, q, k, v, cache, chunk_lens, window)
+    elif not is_self:
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    elif window:
+        o = _windowed_attention(cfg, q, k, v, window)
+    else:
+        o = _self_attention(cfg, q, k, v, causal)
     y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 

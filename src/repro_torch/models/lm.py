@@ -1,7 +1,7 @@
-"""Decoder-only token LM (mirror of ``repro.models.lm``) for the dense,
-MLA, MoE, recurrent (xLSTM) and hybrid (RecurrentGemma) families: the
-no-cache forward that training differentiates, and the serving forward
-over a cache.
+"""Decoder-only LM (mirror of ``repro.models.lm``) for the dense, MLA,
+MoE, recurrent (xLSTM) and hybrid (RecurrentGemma) families, on tokens
+or on embeddings with M-RoPE positions (qwen2-vl): the no-cache forward
+that training differentiates, and the serving forward over a cache.
 
 Layers follow ``configs.base.block_pattern``: head layers, then a unit
 repeated ``reps`` times whose parameters (and caches) are stacked on a
@@ -218,8 +218,13 @@ def serving_attention_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int, int]
     step alone, over the contiguous cache (the engine refuses it, as
     JAX's does): its local layers' ring decode runs the contiguous decode
     at (padded H, padded KV, head dim), and a stack without attention
-    runs no kernel."""
+    runs no kernel.  The encoder-decoder (whisper) and the embedding-input
+    M-RoPE stack (qwen2-vl) are decoded by their decode steps alone, as
+    JAX's engine refuses them: the contiguous decode at (padded H, padded
+    KV, head dim), whisper's over its self and its cross cache."""
     H, KV = cfg.padded_gqa()
+    if cfg.is_encoder_decoder or cfg.input_kind != "tokens" or cfg.mrope_sections:
+        return {"decode_attention": (H, KV, cfg.head_dim)}
     kinds = temporal_kinds(cfg)
     if kinds & {"local", *RECURRENT_KINDS}:
         return ({"decode_attention": (H, KV, cfg.head_dim)}
@@ -291,7 +296,11 @@ def lm_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns ``(logits [B,S,V], cache, aux_loss)``.
 
-    ``inputs`` are int tokens [B,S].  Without a cache this is the
+    ``inputs`` are int tokens [B,S] or embeddings [B,S,d] (the stubbed
+    vision or audio front end's output, cast to the compute dtype).
+    ``positions`` are [B,S], or [B,S,3] (t, h, w) for M-RoPE (a config with
+    ``mrope_sections`` needs them; a plain RoPE config reads their t).
+    Without a cache this is the
     training forward: positions default to ``arange(S)``, the attention is
     the causal flash op, and ``remat`` checkpoints each repetition of the
     unit (its activations are recomputed in the backward pass).  With
@@ -311,16 +320,12 @@ def lm_apply(
     ``last_only`` keeps only the last position's logits."""
     if (cache is None) != (cache_len is None):
         raise ValueError("cache and cache_len go together")
-    if inputs.ndim != 2:
-        raise NotImplementedError(
-            "embedding inputs (whisper, qwen2-vl) are a later slice "
-            "(ROADMAP.md queue 1, item 5)")
     if remat and cache is None and cfg.remat_policy == "save_block_outputs":
         raise NotImplementedError(
             "remat_policy='save_block_outputs' only matters under sharding: "
             "the distributed slice (ROADMAP.md queue 1, item 6)")
     head, unit, reps, tail = block_pattern(cfg)
-    Bsz, S = inputs.shape
+    Bsz, S = inputs.shape[:2]
     if cache is not None and S > 1 and chunk_lens is None:
         recurrent = sorted(temporal_kinds(cfg) & set(RECURRENT_KINDS))
         if recurrent:
@@ -329,7 +334,7 @@ def lm_apply(
                 f"filled one token at a time (S == 1), got S={S}: the "
                 f"reference's cached recurrent step reads only the first "
                 f"token and broadcasts its output (ROADMAP.md queue 3)")
-    x = params["embed"][inputs].to(cfg.compute_dtype)
+    x = (params["embed"][inputs] if inputs.ndim == 2 else inputs).to(cfg.compute_dtype)
     dev = inputs.device
     if cache is not None:
         cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32)

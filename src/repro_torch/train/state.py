@@ -8,24 +8,26 @@ import torch
 
 from repro_torch.common.params import Param, init_params, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import encdec
 from repro_torch.models.lm import lm_cache_specs, lm_specs
 from repro_torch.train.optimizer import opt_specs
+
+# the encoder positions of whisper's cross cache (30 s of audio)
+ENC_LEN = 1500
 
 
 def model_specs(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are a later slice (ROADMAP.md queue 1, "
-            "item 5)")
+        return encdec.encdec_specs(cfg)
     return lm_specs(cfg)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
-    """The contiguous slot cache of ``batch`` rows of ``max_len``."""
+    """The contiguous slot cache of ``batch`` rows of ``max_len``; an
+    encoder-decoder's decoder self cache is ``max_len`` and its cross
+    cache ``ENC_LEN`` positions whatever ``max_len`` is, as in JAX."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder caches are a later slice (ROADMAP.md queue 1, "
-            "item 5)")
+        return encdec.encdec_cache_specs(cfg, batch, max_len, enc_len=ENC_LEN)
     return lm_cache_specs(cfg, batch, max_len)
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.common.params import map_tree, tree_leaves
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import encdec
 from repro_torch.models.lm import lm_apply, lm_cache_specs, temporal_kinds
 from repro_torch.train.optimizer import opt_update
 
@@ -34,14 +35,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_loss_fn(cfg: ModelConfig, run_cfg: RunConfig):
     """``loss_fn(params, batch)``: cross-entropy of the no-cache forward
     plus 0.01 x the auxiliary loss, under remat unless ``run_cfg.remat``
-    is ``"none"``."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder training is a later slice (ROADMAP.md queue 1, "
-            "item 5)")
+    is ``"none"``.  An encoder-decoder's batch is ``{"frames" [B, T_enc,
+    d], "tokens", "labels" [B, T_dec]}`` (encode, then the teacher-forced
+    decoder; no auxiliary loss); a token LM's ``{"tokens" or "embeds",
+    "labels"}`` with optional ``"positions"``."""
     remat = run_cfg.remat != "none"
 
     def loss_fn(params, batch):
+        if cfg.is_encoder_decoder:
+            enc_out = encdec.encode(cfg, params, batch["frames"], remat=remat)
+            logits = encdec.decode_train(cfg, params, enc_out, batch["tokens"], remat=remat)
+            return cross_entropy(logits, batch["labels"])
         inputs = batch.get("tokens", batch.get("embeds"))
         logits, _, aux = lm_apply(cfg, params, inputs, batch.get("positions"),
                                   remat=remat)
@@ -88,7 +92,10 @@ def make_train_step(cfg: ModelConfig, run_cfg: RunConfig):
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
         with torch.enable_grad():
             loss = loss_fn(_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (the token embedding of a model
+            # fed embeddings) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), grads
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
@@ -99,7 +106,7 @@ def make_train_step(cfg: ModelConfig, run_cfg: RunConfig):
             acc_dt = cfg.grad_accum_dtype
             grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                      for p in tree_leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            loss = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
             for i in range(n_micro):
                 mb = {k: x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:])[i]
                       for k, x in batch.items()}
@@ -146,8 +153,10 @@ def make_prefill_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
     """Prefill step factory.
 
     Without a cache, ``prefill_step(params, batch)`` runs the no-cache
-    forward of ``batch["tokens"]`` (positions ``batch.get("positions")``)
-    and returns the last position's logits ``[B, V]``.
+    forward of ``batch["tokens"]`` or ``batch["embeds"]`` (positions
+    ``batch.get("positions")``), or an encoder-decoder's encode of
+    ``batch["frames"]`` and decoder pass over ``batch["tokens"]``, and
+    returns the last position's logits ``[B, V]``.
 
     ``with_cache=True`` builds the serving prefill into a fresh contiguous
     cache: ``prefill_step(params, tokens, lengths)`` takes right-padded
@@ -157,17 +166,16 @@ def make_prefill_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None,
     last_logits [B, V], cache)`` with the logits read at each row's last
     valid position.  Stacks with full-attention blocks only, as in JAX."""
     if not with_cache:
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "encoder-decoder prefill is a later slice (ROADMAP.md queue "
-                "1, item 5)")
-
         def last_logits_step(params, batch):
-            inputs = batch.get("tokens", batch.get("embeds"))
             with torch.no_grad():
-                logits, _, _ = lm_apply(cfg, params, inputs,
-                                        batch.get("positions"), remat=False,
-                                        last_only=True)
+                if cfg.is_encoder_decoder:
+                    enc_out = encdec.encode(cfg, params, batch["frames"], remat=False)
+                    logits = encdec.decode_train(cfg, params, enc_out, batch["tokens"],
+                                                 remat=False, last_only=True)
+                else:
+                    inputs = batch.get("tokens", batch.get("embeds"))
+                    logits, _, _ = lm_apply(cfg, params, inputs, batch.get("positions"),
+                                            remat=False, last_only=True)
             return logits[:, -1, :]
 
         return last_logits_step
@@ -225,14 +233,21 @@ def make_decode_step(cfg: ModelConfig, run_cfg: Optional[RunConfig] = None):
     cache_len, block_table=None)`` returns ``(next_token [B], logits
     [B,1,V], cache)``.  ``cache_len`` is [B] (each row at its own length)
     or a scalar (every row at one position); ``block_table`` selects the
-    paged pool, else the cache is the contiguous slot cache."""
-    if cfg.is_encoder_decoder or cfg.mrope_sections:
-        raise NotImplementedError(
-            "encoder-decoder and M-RoPE decode are later slices (ROADMAP.md "
-            "queue 1, item 5)")
+    paged pool, else the cache is the contiguous slot cache.  An
+    encoder-decoder runs ``encdec.decode_step`` over its self and cross
+    caches (scalar ``cache_len``); an M-RoPE config decodes at position
+    (``cache_len``, ``cache_len``, ``cache_len``), as JAX builds it."""
 
     def decode_step(params, tokens, cache, cache_len, block_table=None):
-        logits, new_cache, _ = lm_apply(cfg, params, tokens, None, cache,
+        if cfg.is_encoder_decoder:
+            logits, new_cache = encdec.decode_step(cfg, params, tokens, cache, cache_len)
+            next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return next_token, logits, new_cache
+        positions = None
+        if cfg.mrope_sections:
+            length = torch.as_tensor(cache_len, device=tokens.device).to(torch.int32)
+            positions = length.reshape(1, 1, 1).expand(tokens.shape[0], 1, 3)
+        logits, new_cache, _ = lm_apply(cfg, params, tokens, positions, cache,
                                         cache_len, block_table=block_table)
         next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token, logits, new_cache

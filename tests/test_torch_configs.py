@@ -99,14 +99,18 @@ def test_served_configs_fit_the_attention_kernels(arch, smoke):
     kernel its serving path reaches is instantiated for the head dim the
     path gives it, at a group the decode kernels take (G <= 32), so on the
     card its attention never reaches a kernel that refuses it.  A GQA
-    stack reaches both decodes and both prefills at its head dim; an MLA
-    stack only the contiguous decode, at nope + rope with G 1 (24 for
-    minicpm3's smoke width, 96 at full width)."""
+    stack on token inputs reaches both decodes and both prefills at its
+    head dim; an MLA stack only the contiguous decode, at nope + rope with
+    G 1 (24 for minicpm3's smoke width, 96 at full width); qwen2-vl,
+    which the engine refuses (embedding inputs, M-RoPE), only the
+    contiguous decode of its decode step."""
     cfg = tcfg.get_config(arch, smoke=smoke)
     shapes = tlm.serving_attention_shapes(cfg)
     if cfg.attention == "mla":
         H, _ = cfg.padded_gqa()
         assert shapes == {"decode_attention": (H, H, cfg.nope_head_dim + cfg.rope_head_dim)}
+    elif arch == "qwen2-vl-72b":
+        assert shapes == {"decode_attention": (4, 2, 32) if smoke else (64, 8, 128)}
     else:
         assert len(shapes) == 4
     for kernel, (H, KV, D) in shapes.items():
@@ -118,9 +122,14 @@ def test_served_configs_fit_the_attention_kernels(arch, smoke):
 # the recurrent architectures: decoded token by token over the contiguous
 # cache, trained, never served by the engine (as in JAX)
 RECURRENT = ["recurrentgemma-9b", "xlstm-125m"]
-# the ROADMAP.md queue 1 item that lands each unported architecture:
-# encoder-decoders (item 5)
-UNPORTED_ITEM = {"whisper-medium": 5}
+# the encoder-decoder and the embedding-input M-RoPE stack: trained,
+# prefilled without a cache and decoded by their decode steps alone, never
+# served by the engine (as in JAX)
+DECODE_STEP_ONLY = ["qwen2-vl-72b", "whisper-medium"]
+
+
+def test_every_arch_is_ported():
+    assert sorted(set(SERVED) | set(RECURRENT) | set(DECODE_STEP_ONLY)) == ARCHS
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -141,11 +150,22 @@ def test_recurrent_decode_paths_fit_the_attention_kernels(arch, smoke):
         assert H % KV == 0 and H // KV <= 32
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(SERVED) - set(RECURRENT)))
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, item {UNPORTED_ITEM[arch]}\\)"):
-        model_specs(tcfg.get_config(arch, smoke=True))
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", DECODE_STEP_ONLY)
+def test_decode_step_paths_fit_the_attention_kernels(arch, smoke):
+    """whisper's decode step runs the contiguous decode over its self and
+    its cross cache at (16, 16, 64) (4, 4, 16 at smoke width), qwen2-vl's
+    at (64, 8, 128) (4, 2, 32): kernel 2 alone, at head dims and groups
+    it takes; the model specs build."""
+    cfg = tcfg.get_config(arch, smoke=smoke)
+    want = {("whisper-medium", False): (16, 16, 64), ("whisper-medium", True): (4, 4, 16),
+            ("qwen2-vl-72b", False): (64, 8, 128), ("qwen2-vl-72b", True): (4, 2, 32)}
+    shapes = tlm.serving_attention_shapes(cfg)
+    assert shapes == {"decode_attention": want[arch, smoke]}
+    H, KV, D = shapes["decode_attention"]
+    build.check_head_dim("decode_attention", D)
+    assert H % KV == 0 and H // KV <= 32
+    assert tree_leaves(model_specs(cfg))
 
 
 def test_param_count_matches():
@@ -182,21 +202,8 @@ def _deferred_refusals():
 
     from repro_torch.core.communicator import build_communicator
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import blocks as tblocks
-    from repro_torch.train import state as tstate
-    from repro_torch.train import step as tstep
 
-    tiny = tcfg.get_config("tinyllama-1.1b", smoke=True)
-    whisper = tcfg.get_config("whisper-medium", smoke=True)
-    qwen = tcfg.get_config("qwen2-vl-72b", smoke=True)
-    run = tcfg.RunConfig()
     return {
-        "mrope": (5, lambda: tblocks.attn_apply(qwen, None, None, None)),
-        "embedding_inputs": (5, lambda: tlm.lm_apply(tiny, None, torch.zeros((1, 4, 8)))),
-        "encdec_loss": (5, lambda: tstep.make_loss_fn(whisper, run)),
-        "encdec_prefill": (5, lambda: tstep.make_prefill_step(whisper, run)),
-        "encdec_decode": (5, lambda: tstep.make_decode_step(whisper, run)),
-        "encdec_cache": (5, lambda: tstate.cache_specs(whisper, 1, 8)),
         "multi_axis_mesh": (6, lambda: make_mesh((2, 2), ("data", "model"), device="cpu")),
         "communicator_across_cards": (6, lambda: build_communicator(
             [torch.device("cuda", 0), torch.device("cuda", 1)])),

@@ -4,8 +4,8 @@ hash-partition histogram) against their plain PyTorch versions, on the
 card, at every head dim the attention kernels take (16, 32, 64, 96,
 128; the contiguous decode also 24), and at the shapes each served
 config's path gives them (the fleet's whole-prompt prefill widths too);
-the smoke MLA and MoE engines, the threefry sampler and a disaggregated
-fleet on the card.  Every test here needs an
+the smoke MLA and MoE engines, the threefry sampler, a disaggregated
+fleet, and whisper's and qwen2-vl's paths on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1205,3 +1205,140 @@ def test_ring_decode_makes_no_host_sync(per_slot):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert tda.decode_attention_kernel.launches == 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_kernels_at_whisper_encoder_and_cross_shapes(dtype, tol):
+    """whisper-medium's shapes (lm.serving_attention_shapes: H 16, KV 16,
+    D 64): flash full over 1500 frames (B 2) and causal over the
+    decoder's 187 tokens; kernel 2 over the cross cache [B 4, 1500, 16,
+    64] at scalar lengths past one 512-position span (split spans and the
+    combine pass) and over the self cache [B 4, 448, 16, 64]."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import serving_attention_shapes
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(1500)
+    H, KV, D = serving_attention_shapes(get_config("whisper-medium"))["decode_attention"]
+    assert (H, KV, D) == (16, 16, 64)
+    for S, causal in ((1500, False), (187, True)):
+        q, k, v = (_randn(rng, (2, S, n, D), dt).transpose(1, 2) for n in (H, KV, KV))
+        got = tfa.flash_attention_kernel(q, k, v, causal=causal)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= tol, (S, causal)
+    for S, lens in ((1500, (1, 511, 512, 513, 1024, 1499, 1500)),
+                    (448, (0, 1, 15, 16, 17, 447, 448))):
+        q = _randn(rng, (4, H, D), dt)
+        k, v = (_randn(rng, (4, S, KV, D), dt) for _ in range(2))
+        for n in lens:
+            cl = torch.tensor(n, dtype=torch.int32).cuda()
+            got = tda.decode_attention_kernel(q, k, v, cl)
+            want = tda.decode_attention_plain(q, k, v, cl)
+            torch.cuda.synchronize()
+            assert (got.float() - want.float()).abs().max().item() <= tol, (S, n)
+            assert n or (got == 0).all()
+
+
+def _whisper_cache(cfg, params, B, frames, max_len=32):
+    from repro_torch.common.params import map_tree
+    from repro_torch.models import encdec
+    from repro_torch.train.state import cache_specs
+    cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                     cache_specs(cfg, B, max_len))
+    with torch.no_grad():
+        cross = encdec.precompute_cross_cache(cfg, params, encdec.encode(cfg, params, frames,
+                                                                         remat=False))
+    for name in ("xk", "xv"):
+        cache["dec_unit"]["b0"][name].copy_(cross["b0"][name])
+    return cache
+
+
+@pytest.mark.cuda
+def test_encdec_and_mrope_paths_launch_what_they_should():
+    """Smoke width on the card: a whisper train step launches flash exactly
+    2 x (encoder + decoder layers) times (full and causal, again under
+    remat) and nothing else; its decode steps kernel 2 exactly twice a
+    layer (self and cross), nothing else, the fp32 stream equal to the
+    plain path's; qwen2-vl's empty-cache prefill on embeddings launches
+    flash once a layer and its M-RoPE decode step kernel 2 once a layer."""
+    _card()
+    from repro_torch.common.params import map_tree
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models.lm import lm_apply, lm_cache_specs
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_decode_step, make_train_step
+    cfg = get_config("whisper-medium", smoke=True)
+    L = cfg.num_layers + cfg.num_decoder_layers
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, RunConfig())
+    frames = torch.randn(2, 1500, cfg.d_model, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 187), device="cuda", dtype=torch.int32)
+    _zero_counts()
+    _, m = make_train_step(cfg, RunConfig())(state, {"frames": frames, "tokens": tok,
+                                                     "labels": torch.roll(tok, -1, 1)})
+    torch.cuda.synchronize()
+    assert np.isfinite(m["loss"].item())
+    assert _counts() == {**{k: 0 for k in _counts()}, "flash": 2 * L}
+    streams = {}
+    for impl in ("auto", "ref"):
+        c = cfg.with_overrides(compute_dtype=torch.float32, decode_impl=impl)
+        cache = _whisper_cache(c, state["params"], 2, frames)
+        dec = make_decode_step(c)
+        t, out = tok[:, :1], []
+        _zero_counts()
+        for i in range(12):
+            nxt, _, cache = dec(state["params"], t, cache, torch.tensor(i).cuda())
+            out.append(nxt)
+            t = nxt[:, None]
+        torch.cuda.synchronize()
+        want = 2 * cfg.num_decoder_layers * 12 if impl == "auto" else 0
+        assert _counts() == {**{k: 0 for k in _counts()}, "decode": want}, impl
+        streams[impl] = torch.stack(out).cpu()
+    assert torch.equal(streams["auto"], streams["ref"])
+
+    qcfg, params = _smoke_lm("qwen2-vl-72b")
+    B, S = 2, 40
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None, :, None].repeat(B, 1, 3)
+    pos[:, 8:24, 1] += torch.arange(16, device="cuda", dtype=torch.int32) // 4
+    pos[:, 8:24, 2] += torch.arange(16, device="cuda", dtype=torch.int32) % 4
+    cache = map_tree(lambda p: torch.zeros(p.shape, dtype=p.dtype, device="cuda"),
+                     lm_cache_specs(qcfg, B, 64))
+    emb = torch.randn(B, S, qcfg.d_model, device="cuda")
+    _zero_counts()
+    with torch.no_grad():
+        lm_apply(qcfg, params, emb, pos, cache, 0, remat=False)
+        torch.cuda.synchronize()
+        assert _counts() == {**{k: 0 for k in _counts()}, "flash": qcfg.num_layers}
+        _zero_counts()
+        make_decode_step(qcfg)(params, tok[:, :1], cache, torch.tensor(S).cuda())
+    torch.cuda.synchronize()
+    assert _counts() == {**{k: 0 for k in _counts()}, "decode": qcfg.num_layers}
+
+
+@pytest.mark.cuda
+def test_whisper_decode_step_makes_no_host_sync():
+    """whisper's decode step (smoke, bf16) on the card under sync-debug
+    "error": the self cache write at a 0-d device length, kernel 2 over
+    the self and the cross cache, the greedy pick (a host sync would
+    raise)."""
+    _card()
+    from repro_torch.train.step import make_decode_step
+    cfg, params = _smoke_lm("whisper-medium", torch.bfloat16)
+    frames = torch.randn(3, 1500, cfg.d_model, device="cuda")
+    cache = _whisper_cache(cfg, params, 3, frames)
+    dec = make_decode_step(cfg)
+    tok = torch.ones((3, 1), dtype=torch.int32, device="cuda")
+    lens = [torch.tensor(i).cuda() for i in range(10)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for n in lens:
+                nxt, _, cache = dec(params, tok, cache, n)
+                tok = nxt[:, None]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tda.decode_attention_kernel.launches == 2 * cfg.num_decoder_layers * 10
