@@ -199,6 +199,34 @@ non-zero:
             ``run_until_drained`` on the same weights, and only the paged
             decode, the paged prefill and the scatter launch.  Rows 1, 3
             and 5 of the kernel table count these launches too.
+   exec     the cross-process runtime (``repro_torch.core.exec``): a
+            SubprocessTransport of EXEC_WORKERS worker processes, each
+            with its own CUDA context on the card: their boot seconds and
+            card, the longest heartbeat gap against the timeout, the echo
+            round trip (median of EXEC_ECHOS), a tensor of EXEC_WIRE_MB MB
+            out and back (MB/s, bitwise); kernels 5 and 3 at tinyllama's
+            serving shapes and kernel 7 at the pipeline's, launched by a
+            worker and held there to their plain versions; the pipeline (a
+            Session on transport="subprocess": a hash shuffle of an
+            EXEC_ROWS-row table over EXEC_SHARDS logical shards, then its
+            reduction, each in a worker; run twice) bitwise equal to the
+            same graph in-process, kernel 7 counted in the worker, the
+            per-task overheads of both; the service stage in a worker
+            (fp32 tinyllama-1.1b at full width, EXEC_REQUESTS requests of
+            the mixed workload): the worker's weights' checksum equal to
+            the parent's, then every stream equal to an in-process
+            engine's with every token, kernels 3 and 5 launched in the
+            worker exactly as in-process, tokens/s of both; a service on
+            the pool preempted mid-decode and resumed from the state that
+            crossed the wire (its bytes and seconds), streams equal; the
+            disaggregated 1 + 1 fleet in bf16 with its KV handoffs shipped
+            through a worker (every one) against the in-process fleet
+            (streams equal; bytes and ms a handoff); faults: a worker
+            SIGKILLed mid-task, a checkpointed task retried on the
+            respawned pool with its resume step, a heartbeat stall and a
+            dropped reply (each planned fault fires); no worker compiled a
+            library; every worker reaped.  The launches counted in the
+            workers join rows 3, 5 and 7.
 9. dataframe  a 2^26-row table (int32 keys uniform in [0, 2^20), float32
             v, x1, x2 and y = 3 x1 - 2 x2 + noise, from numpy at SEED) on 8
             logical shards of the card: shuffle, sort, join with a 2^20-row
@@ -230,6 +258,11 @@ non-zero:
             a dl_stage inference against sequential: bm_s, rc_s, saved_s).
             Every task DONE, every metric finite, validation NNSE above 0.5
             for mean_temperature and streamflow, no port kernel launched.
+            Then Fig. 4 (``bench_scaling_ops``, not ``full``): sort and
+            join over 1, 2, 4 and 8 logical shards of the card, strong and
+            weak scaling, one row each; nothing dropped; only the hash
+            kernel launches (the join's exchanges; its launches join row
+            7).
             The seeded draws are JAX's: ``make_ett_series`` on the card
             against a numpy reference from threefry_np's bits (ETT_TOL).
             Then torch.profiler over PAPER_PROFILE_STEPS SGD steps of the
@@ -237,8 +270,8 @@ non-zero:
 13. recurrent  the recurrent families at their published widths (random
             weights from a seeded torch.Generator).  xlstm-125m (12 layers,
             d_model 768, 4 heads, mLSTM and sLSTM blocks) through the
-            training driver with no --arch (its default), B 8 x S 512, 10
-            steps: the loss falls and no port kernel launches (JAX's xlstm
+            training driver with no --arch (its default), B 8 x S 512,
+            XLSTM_STEPS (6) steps: the loss falls and no port kernel launches (JAX's xlstm
             path runs no Pallas kernel); one step profiled; 3 fp32 steps at
             B 2 x S 64 from one state on the card and on the host CPU, loss
             and grad-norm within TRAIN_TOL.  recurrentgemma-9b (38 layers,
@@ -300,6 +333,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -348,6 +382,7 @@ from repro_torch.serve import Request, RequestState, ServeEngine  # noqa: E402
 from repro_torch.train.state import init_train_state, model_specs  # noqa: E402
 from repro_torch.train.step import make_prefill_chunk_step, make_train_step  # noqa: E402
 import paged_scatter_cases  # noqa: E402
+import torch_exec_tasks as XT  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
@@ -457,7 +492,10 @@ RUNTIME_STEPS, RUNTIME_REQUESTS = 10, 4
 NNSE_TARGETS, PAPER_PROFILE_STEPS = ("mean_temperature", "streamflow"), 5
 # the recurrent phase.  xlstm-125m through the training driver's default
 # arch (B x S tokens a step, as many steps), then fp32 steps at B x S on
-# the card and on the host CPU (loss and grad-norm within TRAIN_TOL).
+# the card and on the host CPU (loss and grad-norm within TRAIN_TOL);
+# 6 steps since the exec phase joined the run (10 before: 65 s of the
+# 1200 s limit, PERF.md section 7): the driver's postprocess holds the
+# mean of the last 5 losses below that of the first 5, which needs 6.
 # recurrentgemma-9b with fp32 parameters and compute: the no-cache
 # prefill's last logits against the decode replay's at the same position
 # within GEMMA_PREFILL_TOL of their max abs, then GEMMA_GEN greedy tokens
@@ -465,7 +503,7 @@ NNSE_TARGETS, PAPER_PROFILE_STEPS = ("mean_temperature", "streamflow"), 5
 # GEMMA_RING_B decoded token by token through GEMMA_RING_STEPS positions,
 # past the 2048-slot ring of its local layers
 XLSTM, GEMMA = "xlstm-125m", "recurrentgemma-9b"
-XLSTM_B, XLSTM_S, XLSTM_STEPS = 8, 512, 10
+XLSTM_B, XLSTM_S, XLSTM_STEPS = 8, 512, 6
 XLSTM_PARITY_B, XLSTM_PARITY_S, XLSTM_PARITY_STEPS = 2, 64, 3
 GEMMA_B, GEMMA_PREFILL_S, GEMMA_GEN, GEMMA_PREFILL_TOL = 2, 64, 32, 1e-3
 GEMMA_RING_B, GEMMA_RING_STEPS = 4, 2112
@@ -504,6 +542,20 @@ QWEN_DEC_B, QWEN_GEN = 4, 32
 # of its 22 layers: its final checkpoint write of the full 13.2 GB state
 # took ~107 s of the phase (PERF.md section 5), 3.7 GB at 4 layers
 RUNTIME_LAYERS = 4
+# the exec phase: a pool of EXEC_WORKERS worker processes of one card each;
+# EXEC_ECHOS echo round trips and a tensor of EXEC_WIRE_MB MB out and back;
+# the pipeline's table of EXEC_ROWS rows on EXEC_SHARDS logical shards;
+# EXEC_REQUESTS fp32 requests through the service stage in a worker, and
+# EXEC_PREEMPT_REQUESTS through a service preempted and resumed across the
+# wire; the disaggregated 1 + 1 fleet's EXEC_FLEET_REQUESTS bf16 requests
+# of EXEC_FLEET_GEN tokens on engines of EXEC_FLEET_SLOTS slots, prompts of
+# 9-16 tokens (one chunk width, so both fleets run one set of shapes); the
+# attempt deadline that recovers a dropped reply
+EXEC_WORKERS, EXEC_ECHOS, EXEC_WIRE_MB = 2, 50, 256
+EXEC_ROWS, EXEC_SHARDS = 1 << 24, 8
+EXEC_REQUESTS, EXEC_PREEMPT_REQUESTS = 8, 4
+EXEC_FLEET_REQUESTS, EXEC_FLEET_GEN, EXEC_FLEET_SLOTS = 4, 6, 2
+EXEC_ATTEMPT_S = 5.0
 
 
 def emit(obj) -> None:
@@ -3057,6 +3109,439 @@ def phase_runtime(cfg):
     return train_launches, serve_launches
 
 
+def exec_pool_kernels(pool, cfg):
+    """Kernels 5 and 3 (fp32, the service stage's dtype) at tinyllama's
+    serving shapes (B 8, T 64 at bases 0-448, 512 positions in pages of
+    16) and kernel 7 at the pipeline's ([8, 2^21] keys, 8 buckets), each
+    launched by a worker process and held there to its plain version
+    (comparison launches: not counted as the path's)."""
+    rng = np.random.default_rng(SEED + 7)
+    H, KV, D, B, T, mp = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 8, 64, MAX_LEN // PAGE
+    num_pages = B * mp + 1
+    bt = rng.permutation(num_pages)[:B * mp].reshape(B, mp).astype(np.int32)
+    base = np.array([0, 15, 16, 17, 100, 255, 400, 448], np.int32)
+    clens = np.array([64, 1, 33, 0, 64, 17, 64, 64], np.int32)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    case = {"q": randn(B, T, H, D), "k_new": randn(B, T, KV, D), "v_new": randn(B, T, KV, D),
+            "k_pages": randn(num_pages, PAGE, KV, D), "v_pages": randn(num_pages, PAGE, KV, D),
+            "block_table": torch.from_numpy(bt), "base": torch.from_numpy(base),
+            "chunk_lens": torch.from_numpy(clens), "q_dec": randn(B, H, D),
+            "lens": torch.from_numpy(base + clens)}
+    paged = pool.submit(XT.run_paged_kernels, case).result(timeout=300)
+    keys = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, DF_KEYS, (EXEC_SHARDS, EXEC_ROWS // EXEC_SHARDS)).astype(np.int32))
+    hashed = pool.submit(XT.run_hash_kernel, keys, EXEC_SHARDS).result(timeout=300)
+    tol = TOL[torch.float32]
+    if not (paged["prefill_err"] <= tol and paged["decode_err"] <= tol and paged["pages_equal"]
+            and hashed["equal"]):
+        raise AssertionError(f"a kernel in a worker disagrees with its plain version: "
+                             f"{paged}, hash equal {hashed['equal']}")
+    want = {"prefill_attention_paged": 1, "paged_scatter": 1, "decode_attention_paged": 1}
+    for res, w in ((paged, want), (hashed, {"hash_partition_histogram": 1})):
+        if res["launches"] != {n: w.get(n, 0) for n in COUNTED} or res["pid"] == os.getpid():
+            raise AssertionError(f"the worker's kernel check did not launch in a worker: {res}")
+    return {"paged_prefill_max_abs_err": paged["prefill_err"],
+            "paged_decode_max_abs_err": paged["decode_err"], "tolerance": tol,
+            "pools_equal": paged["pages_equal"], "hash_bitwise": hashed["equal"],
+            "pids": sorted({paged["pid"], hashed["pid"]}),
+            "compiled": paged["compiled"] + hashed["compiled"]}
+
+
+def exec_pipeline(spec):
+    """The pipeline (a hash shuffle, then its reduction) as a Session
+    graph on ``spec``'s transport over the card, twice in one session:
+    the first run's results, and each task's overheads (queue,
+    communicator, execute) in seconds in both runs (the first one's
+    execute holds the workers' boot and first imports)."""
+    from repro_torch.core import Session
+    from repro_torch.core.pilot import PilotDescription
+
+    graph = XT.shuffle_stage.bind(EXEC_ROWS, EXEC_SHARDS, SEED) >> XT.reduce_stage
+    runs = []  # (results, overheads) of each run
+    with Session(pods=[PilotDescription(num_devices=1, name="exec-pod")],
+                 max_workers_per_pilot=EXEC_WORKERS, transport=spec,
+                 transport_options={"worker_devices": 1}) as s:
+        for run in ("cold", "warm"):
+            pipe = s.start(graph, name=f"exec-{spec}-{run}")
+            if not pipe.wait(600) or pipe.error is not None:
+                raise AssertionError(f"the {spec} pipeline failed: {pipe.error}")
+            runs.append((pipe.results, {n: {**t.overhead_s, "execute": t.duration_s}
+                                        for n, t in pipe.tasks.items()}))
+    (first, cold), (second, warm) = runs
+    if not np.array_equal(first["shuffle"]["key_sums"], second["shuffle"]["key_sums"]):
+        raise AssertionError(f"the {spec} pipeline's two runs differ")
+    launches = {n: first["shuffle"]["launches"][n] + second["shuffle"]["launches"][n]
+                for n in COUNTED}
+    return first, launches, {"cold": cold, "warm": warm}
+
+
+def exec_wait(reqs, what, task=None, timeout=600.0):
+    """Wait for every request; a failed service task or the deadline
+    raises."""
+    deadline = time.time() + timeout
+    for r in reqs:
+        while not r.wait(0.5):
+            if task is not None and task.finalized and task.error:
+                raise AssertionError(f"{what}: the service failed: {task.error}")
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: {r.rid} stalled at {len(r.tokens)} tokens")
+
+
+def exec_streams_equal(what, reqs, work, want):
+    """Every request DONE with its full count of tokens (a dropped last
+    token fails here), and its stream the in-process engine's."""
+    counts = [len(r.tokens) for r in reqs]
+    if any(r.state is not RequestState.DONE for r in reqs) or \
+            counts != [g for _, g in work]:
+        raise AssertionError(f"{what}: requests not served in full: {counts} of "
+                             f"{[g for _, g in work]}, states {[r.state.name for r in reqs]}")
+    bad = [i for i, (r, w) in enumerate(zip(reqs, want)) if r.tokens != w]
+    if bad:
+        raise AssertionError(f"{what}: streams {bad} differ from the in-process engine's")
+    return counts
+
+
+def exec_service(pool, cfg):
+    """The service stage in a worker (a Session on the subprocess
+    transport) against an in-process engine on the same weights; then a
+    service on the pool preempted mid-decode and resumed from the state
+    that crossed the wire."""
+    from repro_torch.core import Session
+    from repro_torch.core.exec.protocol import dumps
+    from repro_torch.core.pilot import PilotDescription
+    from repro_torch.core.task import ServiceControl, ServicePreempted
+
+    cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
+    kw = dict(arch=ARCH, smoke=False, overrides={"compute_dtype": torch.float32},
+              engine_kw={**SERVE, "kv_layout": "paged"}, seed=SEED)
+    dev = torch.device("cuda", 0)
+    work = mixed_requests(EXEC_REQUESTS, cfg.vocab_size, SEED + 3)
+    # both processes serve two short requests first, off the clock
+    warm = [(p, 4) for p, _ in work[:2]]
+    direct, params = XT.make_engine(dev, kw["arch"], False, kw["overrides"], kw["engine_kw"],
+                                    SEED)
+    checksum = XT.weights_checksum(params)
+    XT.warm_up(direct, warm)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    direct_reqs = [direct.submit(p, max_new_tokens=g) for p, g in work]
+    direct.run_until_drained()
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    direct_launches = read_counts()
+    want = [list(r.tokens) for r in direct_reqs]
+    del direct
+
+    t0 = time.perf_counter()
+    with Session(pods=[PilotDescription(num_devices=1, name="exec-serve-pod")],
+                 max_workers_per_pilot=1, transport="subprocess",
+                 transport_options={"worker_devices": 1}) as s:
+        handle = s.serve(XT.engine_stage.bind(**kw, min_requests=len(work), warm=warm),
+                         name="exec-serve")
+        reqs = [handle.submit_request(Request(p, max_new_tokens=g)) for p, g in work]
+        exec_wait(reqs, "the service stage", handle.task)
+        if not handle.stop(drain=True, timeout=120):
+            raise AssertionError("the service stage did not drain")
+        task = handle.task
+    wall = time.perf_counter() - t0
+    if task.state.value != "done":
+        raise AssertionError(f"the service stage ended {task.state}: {task.error}")
+    res = task.result
+    if res["weights_checksum"] != checksum:
+        raise AssertionError(f"the worker's weights differ from the parent's: checksum "
+                             f"{res['weights_checksum']} != {checksum}")
+    counts = exec_streams_equal("the service stage", reqs, work, want)
+    if res["launches"] != direct_launches:
+        raise AssertionError(f"the worker launched {res['launches']}, the in-process "
+                             f"engine {direct_launches}")
+    paged = PATH_KERNELS["paged"]
+    if min(res["launches"][n] for n in paged) <= 0 or any(
+            c for n, c in res["launches"].items() if n not in paged):
+        raise AssertionError(f"the service stage's launches: {res['launches']}")
+    if res["pid"] == os.getpid():
+        raise AssertionError("the service stage ran in the parent")
+    tokens = sum(counts)
+    service = {"entry": "Session(transport='subprocess').serve(ServeEngine.run_service)",
+               "compute_dtype": "torch.float32", "requests": len(reqs),
+               "tokens_per_request": counts, "weights_checksum": checksum,
+               "streams_equal_in_process": True, "worker_pid": res["pid"],
+               "launches_in_worker": res["launches"], "launches_in_process": direct_launches,
+               "tokens_per_s_remote": tokens / res["serve_s"],
+               "tokens_per_s_in_process": tokens / direct_s,
+               "serve_s_remote": res["serve_s"], "serve_s_in_process": direct_s,
+               "session_wall_s": wall,
+               "overheads_s": {**task.overhead_s, "execute": task.duration_s},
+               "worker_max_memory_allocated_gb": res["max_memory_allocated"] / 1e9,
+               "compiled_in_worker": res["compiled"]}
+
+    # preempted mid-decode, resumed from the state that crossed the wire
+    work_p = mixed_requests(EXEC_PREEMPT_REQUESTS, cfg.vocab_size, SEED + 4)
+    ref_eng = ServeEngine(cfg32, params=params, device=dev, seed=SEED, **kw["engine_kw"])
+    ref_reqs = [ref_eng.submit(p, max_new_tokens=g) for p, g in work_p]
+    ref_eng.run_until_drained()
+    want_p = [list(r.tokens) for r in ref_reqs]
+    del ref_eng
+    ctl = ServiceControl()
+    reqs_p = [ctl.submit_request(Request(p, max_new_tokens=g)) for p, g in work_p]
+    fut = pool.submit(XT.serve, "cuda", **kw, min_requests=len(work_p), service_control=ctl)
+    deadline = time.time() + 300
+    while min(len(r.tokens) for r in reqs_p) < 2:
+        if fut.done() or time.time() > deadline:
+            raise AssertionError(f"the preempt run never decoded: {fut}")
+        time.sleep(0.005)
+    t0 = time.perf_counter()
+    ctl.request_preempt()
+    try:
+        fut.result(timeout=300)
+        raise AssertionError("the service was not preempted")
+    except ServicePreempted as e:
+        state = e.state
+    preempt_s = time.perf_counter() - t0
+    at_preempt = [len(r.tokens) for r in reqs_p]
+    t0 = time.perf_counter()
+    state_bytes = len(dumps(state))
+    pickle_s = time.perf_counter() - t0
+    resume_ctl = ServiceControl()
+    resume_ctl.drain()
+    t0 = time.perf_counter()
+    fut2 = pool.submit(XT.serve, "cuda", **kw, resume_state=state, service_control=resume_ctl)
+    while sum(len(r.tokens) for r in reqs_p) == sum(at_preempt) and not fut2.done():
+        time.sleep(0.002)
+    resume_s = time.perf_counter() - t0
+    res2 = fut2.result(timeout=600)
+    exec_wait(reqs_p, "the resumed service")
+    counts_p = exec_streams_equal("the resumed service", reqs_p, work_p, want_p)
+    if res2["stats"]["resumes"] != 1 or res2["stats"]["preemptions"] != 1:
+        raise AssertionError(f"the resumed engine's stats: {res2['stats']}")
+    del params
+    torch.cuda.empty_cache()
+    preempt = {"requests": len(reqs_p), "tokens_per_request": counts_p,
+               "tokens_at_preemption": at_preempt, "streams_equal_in_process": True,
+               "state_bytes": state_bytes, "state_pickle_s": pickle_s,
+               "preempt_to_state_in_parent_s": preempt_s,
+               "resume_submit_to_first_token_s": resume_s,
+               "launches_in_resumed_worker": res2["launches"],
+               "compiled_in_worker": res2["compiled"]}
+    return service, preempt, res["launches"], res2["launches"]
+
+
+def exec_fleet(pool, cfg):
+    """The disaggregated 1 + 1 fleet in bf16 with its KV handoffs shipped
+    through a worker of the pool, against the same fleet with the
+    router's own threads."""
+    from repro_torch.serve import build_fleet
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         model_specs(cfg), "cuda")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(9, 17, EXEC_FLEET_REQUESTS)]
+
+    def run(transport, prefix):
+        kw = {"transport": transport} if transport is not None else {}
+        router = build_fleet(cfg, num_engines=2, disaggregate=True, params=params,
+                             name_prefix=prefix, device="cuda", seed=SEED,
+                             **{**SERVE, "max_slots": EXEC_FLEET_SLOTS},
+                             router_kwargs=kw).start()
+        try:
+            reqs = [router.submit(Request(p, max_new_tokens=EXEC_FLEET_GEN)) for p in prompts]
+            if not router.drain(timeout=600):
+                raise AssertionError(f"fleet {prefix} did not drain")
+            return reqs, router.stats()
+        finally:
+            router.close()
+
+    reqs, st = run(pool, "xwire")
+    ref, st_in = run(None, "xin")
+    work = [(p, EXEC_FLEET_GEN) for p in prompts]
+    exec_streams_equal("the fleet over the pool", reqs, work, [list(r.tokens) for r in ref])
+    n = st.get("handoff_wire_roundtrips", 0)
+    if not (n == st.get("handoffs_routed", -1) >= 1) or st_in.get("handoff_wire_roundtrips", 0):
+        raise AssertionError(f"the handoffs did not all cross the worker: {st}")
+    del params
+    torch.cuda.empty_cache()
+    return {"compute_dtype": str(cfg.compute_dtype), "requests": len(reqs),
+            "streams_equal_in_process_fleet": True,
+            "handoffs_routed": st["handoffs_routed"], "handoff_wire_roundtrips": n,
+            "handoff_bytes_per_request": st["handoff_wire_bytes"] / n,
+            "handoff_wire_ms_per_request": st["handoff_wire_s"] * 1e3 / n}
+
+
+def exec_faults(pool):
+    """A worker SIGKILLed mid-task, a checkpointed task retried on the
+    respawned pool with its resume step, a heartbeat stall caught by the
+    backstop, a dropped reply recovered by the attempt deadline; every
+    planned fault fires, and the pool serves a task after each."""
+    import signal
+
+    from repro_torch.core.agent import RemoteAgent
+    from repro_torch.core.exec import WorkerCrashed
+    from repro_torch.core.pilot import PilotDescription, PilotManager
+    from repro_torch.core.resilience import FaultPlan, inject
+    from repro_torch.core.task import TaskDescription, TaskState
+
+    def crashed(fut, match, what):
+        t0 = time.perf_counter()
+        try:
+            fut.result(timeout=120)
+        except WorkerCrashed as e:
+            if match not in str(e):
+                raise AssertionError(f"{what}: {e}") from e
+            return time.perf_counter() - t0
+        raise AssertionError(f"{what}: the task returned")
+
+    def serves():
+        if pool.submit(XT.add_one, 1).result(timeout=300) != 2:
+            raise AssertionError("the pool does not serve after a fault")
+
+    out = {}
+    fut = pool.submit(XT.sleep_for, 60)
+    deadline = time.time() + 60
+    busy = []
+    while not busy and time.time() < deadline:
+        busy = [w["pid"] for w in pool.worker_info().values() if w["state"] == "busy"]
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    os.kill(busy[0], signal.SIGKILL)
+    crashed(fut, "died while running", "SIGKILL")
+    out["sigkill_to_exception_s"] = time.perf_counter() - t0
+    serves()
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        pm = PilotManager()
+        pilot = pm.submit_pilot(PilotDescription(num_devices=1))
+        agent = RemoteAgent(pilot, transport=pool)
+        try:
+            t0 = time.perf_counter()
+            task, = agent.submit([TaskDescription(
+                name="train", fn=XT.train_then_die, args=(ckpt,), checkpoint_dir=ckpt,
+                max_retries=2, group="g")])
+        finally:
+            agent.close()
+            pm.cancel_pilot(pilot)
+        if task.state is not TaskState.DONE or task.result[:2] != ("resumed", 7) \
+                or task.attempts != 2:
+            raise AssertionError(f"checkpoint retry: {task.state} {task.result} "
+                                 f"{task.attempts} {task.error}")
+        out["checkpoint_retry"] = {"result": list(task.result[:2]), "attempts": task.attempts,
+                                   "seconds": time.perf_counter() - t0}
+
+    with inject(FaultPlan(seed=SEED).stall_heartbeat(60.0, at_task=1)) as inj:
+        fut = pool.submit(XT.sleep_for, 30)
+        out["heartbeat_stall_to_exception_s"] = crashed(fut, "no heartbeat", "stall")
+        if not inj.all_fired():
+            raise AssertionError(f"stall_heartbeat did not fire: {inj.pending()}")
+    serves()
+    with inject(FaultPlan(seed=SEED).drop_reply(nth=1)) as inj:
+        fut = pool.submit(XT.add_one, 1, attempt_timeout_s=EXEC_ATTEMPT_S)
+        out["dropped_reply_to_exception_s"] = crashed(fut, "deadline", "drop")
+        if not inj.all_fired():
+            raise AssertionError(f"drop_reply did not fire: {inj.pending()}")
+    serves()
+    out["attempt_deadline_s"] = EXEC_ATTEMPT_S
+    out["respawns"] = pool.stats()["respawns"]
+    return out
+
+
+def phase_exec(cfg):
+    """The cross-process runtime (``repro_torch.core.exec``) on the card:
+    the worker pool's boot, round trip and wire rate; the kernels of this
+    path in a worker against their plain versions; the pipeline (a 2^24-row
+    hash shuffle through kernel 7, then its reduction) in workers,
+    bitwise the in-process run's; the service stage in a worker, fp32 at
+    full width, streams and launches the in-process engine's, then a
+    service preempted and resumed across the wire; the disaggregated 1 + 1
+    fleet in bf16 with its handoffs through a worker; the faults.  Kernel
+    launches are counted in the workers and returned by their tasks: the
+    launches of the path's runs, summed per kernel."""
+    from repro_torch.core.exec import SubprocessTransport
+
+    t_phase = time.perf_counter()
+    pool = SubprocessTransport(max_workers=EXEC_WORKERS, worker_devices=1)
+    try:
+        info = pool.wait_ready(timeout=300)
+        if any(w["device_name"] != torch.cuda.get_device_name(0) for w in info.values()):
+            raise AssertionError(f"a worker is not on the card: {info}")
+        rtts = []
+        for i in range(EXEC_ECHOS):
+            t0 = time.perf_counter()
+            pool.submit(XT.echo, i).result(timeout=60)
+            rtts.append((time.perf_counter() - t0) * 1e3)
+        x = torch.randn(EXEC_WIRE_MB << 18, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pool.submit(XT.echo, x).result(timeout=300)
+        wire_s = time.perf_counter() - t0
+        if not torch.equal(y, x.cpu()):
+            raise AssertionError("the tensor came back different")
+        del x, y
+        kernels = exec_pool_kernels(pool, cfg)
+
+        results, shuffle_launches, overheads = {}, {}, {}
+        for spec in ("subprocess", "in-process"):
+            zero_counts()
+            results[spec], shuffle_launches[spec], overheads[spec] = exec_pipeline(spec)
+        in_process_hash = read_counts()
+        sub, inp = results["subprocess"], results["in-process"]
+        for k in ("counts", "key_sums"):
+            if not np.array_equal(sub["shuffle"][k], inp["shuffle"][k]):
+                raise AssertionError(f"the pipeline's {k} differ from the in-process run's")
+        if sub["reduce"] != {**inp["reduce"], "pid": sub["reduce"]["pid"]} \
+                or sub["reduce"]["rows"] != EXEC_ROWS or sub["reduce"]["dropped"]:
+            raise AssertionError(f"the pipeline's result: {sub['reduce']} vs {inp['reduce']}")
+        if os.getpid() in (sub["shuffle"]["pid"], sub["reduce"]["pid"]) or \
+                shuffle_launches["subprocess"] != {n: 2 * int(n == "hash_partition_histogram")
+                                                   for n in COUNTED} \
+                or in_process_hash != shuffle_launches["subprocess"]:
+            raise AssertionError(f"the shuffle stage: pid {sub['shuffle']['pid']}, launches "
+                                 f"in workers {shuffle_launches['subprocess']}, in process "
+                                 f"{in_process_hash}")
+        pipeline = {"rows": EXEC_ROWS, "shards": EXEC_SHARDS,
+                    "rows_per_shard": sub["shuffle"]["counts"].tolist(),
+                    "key_sum": sub["reduce"]["key_sum"], "equal_in_process": True,
+                    "worker_pids": [sub["shuffle"]["pid"], sub["reduce"]["pid"]],
+                    "shuffle_s_worker": sub["shuffle"]["seconds"],
+                    "shuffle_s_in_process": inp["shuffle"]["seconds"],
+                    "runs": 2, "launches_in_workers": shuffle_launches["subprocess"],
+                    "launches_in_process": in_process_hash,
+                    "overheads_s": overheads,
+                    "compiled_in_worker": sub["shuffle"]["compiled"]}
+
+        service, preempt, serve_launches, resumed_launches = exec_service(pool, cfg)
+        fleet_out = exec_fleet(pool, cfg)
+        heartbeat = {wid: w["max_heartbeat_gap_s"] for wid, w in pool.worker_info().items()}
+        faults = exec_faults(pool)
+        pids = pool.worker_pids()
+    finally:
+        pool.shutdown(wait=False)
+    deadline = time.time() + 10
+    while any(Path(f"/proc/{p}").exists() for p in pids) and time.time() < deadline:
+        time.sleep(0.05)
+    compiled = (kernels["compiled"] + pipeline["compiled_in_worker"]
+                + service["compiled_in_worker"] + preempt["compiled_in_worker"])
+    if compiled:
+        raise AssertionError(f"a worker compiled kernel libraries: {compiled}")
+    launches = {n: shuffle_launches["subprocess"][n] + serve_launches[n] + resumed_launches[n]
+                for n in COUNTED}
+    emit({"phase": "exec", "ok": True, "gpu": gpu_line(),
+          "workers": {wid: {k: w[k] for k in ("pid", "device_name", "ready_s", "boot_s")}
+                      for wid, w in info.items()},
+          "heartbeat": {"max_gap_s": heartbeat, "timeout_s": pool.heartbeat_timeout_s},
+          "echo_rtt_ms_p50": float(np.median(rtts)), "echo_rtt_ms_max": max(rtts),
+          "wire": {"bytes": EXEC_WIRE_MB << 20, "round_trip_s": wire_s,
+                   "mb_per_s": 2 * (EXEC_WIRE_MB << 20) / wire_s / 1e6, "bitwise": True},
+          "kernels_in_worker": kernels, "pipeline": pipeline, "service": service,
+          "preempt": preempt, "fleet": fleet_out, "faults": faults,
+          "launches_in_workers": launches, "workers_reaped": True,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def profile_paper_step(step, steps: int):
     """``steps`` calls of ``step()`` (one SGD step each) under
     torch.profiler: wall and device busy ms per step, the device's idle
@@ -3096,8 +3581,12 @@ def phase_paper():
     cylon_stage sort and a dl_stage inference under one pilot against
     sequential.  Every task DONE, every metric finite, validation NNSE
     above 0.5 for NNSE_TARGETS, no port kernel launched (the models reach
-    none).  Then a profile of PAPER_PROFILE_STEPS SGD steps of the GRU and
-    of the LSTM at the benchmark's shapes."""
+    none).  Then Fig. 4 (``bench_scaling_ops``, not ``full``): sort and
+    join over 1, 2, 4 and 8 logical shards of the card, strong and weak,
+    every row kept, nothing dropped, only the hash kernel launched (the
+    join's exchanges); its launches are returned.  Then a profile of
+    PAPER_PROFILE_STEPS SGD steps of the GRU and of the LSTM at the
+    benchmark's shapes."""
     from repro_torch.common import prng
     from repro_torch.launch import paper_tables as pt
     from repro_torch.models import forecasting as fm
@@ -3131,6 +3620,19 @@ def phase_paper():
            if not hy["metrics"][t]["val_nnse"] > 0.5}
     if low:
         raise AssertionError(f"validation NNSE not above 0.5: {low}")
+    zero_counts()
+    t0 = time.perf_counter()
+    fig4 = pt.bench_scaling_ops()
+    torch.cuda.synchronize()
+    fig4_s = time.perf_counter() - t0
+    fig4_launches = read_counts()
+    hash_name = "hash_partition_histogram"
+    bad = [(mode, w, op) for mode in ("strong", "weak") for w, ops in fig4[mode].items()
+           for op, r in ops.items()
+           if r["dropped"] or (op == "sort" and r["rows_out"] != r["rows"])]
+    if bad or fig4_launches[hash_name] <= 0 or any(
+            c for n, c in fig4_launches.items() if n != hash_name):
+        raise AssertionError(f"Fig. 4: rows lost or dropped at {bad}; launches {fig4_launches}")
 
     # the seeded draws on the card are JAX's: the ETT series against a
     # numpy reference built from threefry_np's bits
@@ -3160,9 +3662,17 @@ def phase_paper():
                                 "overhead_s", "task_overheads", "state", "metrics")}})
     emit({"phase": "paper_table4", "ok": True, "gpu": gpu_line(), "seconds": mp_s,
           **{k: mp[k] for k in ("n_pipelines", "bm_s", "rc_s", "saved_s", "meta")}})
+    emit({"phase": "paper_fig4", "ok": True, "gpu": gpu_line(), "seconds": fig4_s,
+          "scales": fig4["meta"]["scales"], "base_rows": fig4["meta"]["base_rows"],
+          "launches": fig4_launches,
+          "rows": [{"mode": mode, "shards": w, "op": op, "rows": r["rows"],
+                    "rows_out": r["rows_out"], "dropped": r["dropped"], "ms": r["s"] * 1e3}
+                   for mode in ("strong", "weak") for w, ops in fig4[mode].items()
+                   for op, r in ops.items()]})
     emit({"phase": "paper_profile", "ok": True, "gpu": gpu_line(), "launches": launches,
           "ett_series": ett, "profiles": profiles,
           "seconds": time.perf_counter() - t_phase})
+    return fig4_launches[hash_name]
 
 
 def check_ett_series(fm, n=4096, seeds=(0, 3)):
@@ -4158,13 +4668,18 @@ def main() -> int:
     lap("train_parity")
     rt_train, rt_serve = phase_runtime(cfg)
     lap("runtime")
+    exec_launches = phase_exec(cfg)
+    torch.cuda.empty_cache()
+    lap("exec")
     # the serving rows count the launches of every main path that runs
     # them: the fleet phase's disaggregated run, the runtime phase's
-    # service stage, the MLA and MoE phases; and carry their timings at
+    # service stage, the exec phase's service stages in worker processes
+    # (counted there), the MLA and MoE phases; and carry their timings at
     # the MLA and MoE serving shapes and the fleet's prefill widths
     for row in rows:
         by_phase = {"serve": row["launches"], "fleet": fleet_launches.get(row["name"], 0),
                     "runtime": rt_serve.get(row["name"], 0),
+                    "exec": exec_launches.get(row["name"], 0),
                     **{k: v[row["name"]] for k, v in family_launches.items()}}
         if any(v for k, v in by_phase.items() if k != "serve"):
             row["launches_by_phase"] = by_phase
@@ -4185,11 +4700,16 @@ def main() -> int:
     lap("pipeline")
     rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"],
                             new_us["rmsnorm_library"]))
-    rows.append(hash_row({"hash_partition_histogram": hash_launches},
+    exec_hash = exec_launches["hash_partition_histogram"]
+    rows.append(hash_row({"hash_partition_histogram": hash_launches + exec_hash},
                          new_us["hash_partition_histogram"]))
+    rows[-1]["launches_by_phase"] = {"dataframe": hash_launches, "exec": exec_hash}
     emit({"phase": "timing", "ok": True, "rows": rows[-3:]})
     lap("rmsnorm")
-    phase_paper()
+    fig4_hash = phase_paper()
+    hash_row_ = next(r for r in rows if r["name"] == "hash_partition_histogram")
+    hash_row_["launches_by_phase"]["paper_fig4"] = fig4_hash
+    hash_row_["launches"] += fig4_hash
     lap("paper")
     # the recurrent phase's launches join kernel 2's row, as its ring
     # decode line's count

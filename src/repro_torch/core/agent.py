@@ -12,10 +12,11 @@ actually possible.
 Execution is layered ``PilotManager -> Pilot -> Transport``: the agent
 owns *when* an attempt runs (this dispatcher), and a pluggable
 :class:`repro_torch.core.transport.Transport` owns *where* it runs — the
-default ``InProcessTransport`` is a thread pool in this process.  The JAX
-package's cross-process transports (their picklable task body and its
-result transitions) come with the port's ``core/exec/`` (ROADMAP.md
-queue 1, item 6).
+default ``InProcessTransport`` is a thread pool in this process, and a
+remote transport (``repro_torch.core.exec``: worker processes) runs the
+picklable module-level task body instead, with the result transitions
+applied here when its Future resolves; the scheduling logic is the same
+for both.
 
 Runnability features the brief requires at scale:
 
@@ -76,6 +77,9 @@ from concurrent.futures import Future
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from repro_torch.checkpoint import store as ckpt_store
+from repro_torch.core.communicator import device_type
+from repro_torch.core.exec.pickling import ensure_picklable
+from repro_torch.core.exec.remote import run_task_body
 from repro_torch.core.pilot import Pilot
 from repro_torch.core.task import (
     DeviceFailure, ServicePreempted, Task, TaskDescription, TaskState,
@@ -107,6 +111,11 @@ class RemoteAgent:
         self.max_workers = (self._transport.capacity
                             if self._transport.capacity is not None
                             else max_workers)
+        # a remote transport executes in worker *processes*: the agent
+        # ships the picklable module-level task body instead of its bound
+        # _run_one, and applies result/preemption transitions in
+        # _on_remote_exit when the transport's Future resolves
+        self._remote = bool(getattr(self._transport, "remote", False))
         self.straggler_factor = straggler_factor
         self.straggler_min_s = straggler_min_s
         self.straggler_check_s = straggler_check_s
@@ -258,6 +267,13 @@ class RemoteAgent:
     # -- scheduling core -------------------------------------------------------
 
     def _enqueue(self, tasks: List[Task]) -> None:
+        if self._remote:
+            # fail a contract violation HERE, in the submitter's stack,
+            # with the offending closure/capture named — not later as a
+            # worker-side pickle traceback
+            for t in tasks:
+                ensure_picklable(t.description.fn, t.description.args,
+                                 transport=self._transport.name)
         with self._cond:
             if self._closed:
                 raise RuntimeError("RemoteAgent is closed")
@@ -490,9 +506,86 @@ class RemoteAgent:
     # -- worker side -----------------------------------------------------------
 
     def _submit_to_transport(self, task: Task, devices, lease_uid: str):
-        """Hand one attempt (the bound ``_run_one`` worker) to the
-        transport."""
-        return self._transport.submit(self._run_one, task, devices, lease_uid)
+        """Hand one attempt to the transport.  In-process: the bound
+        ``_run_one`` worker.  Remote: the picklable module-level
+        ``run_task_body`` — scheduling state stays here (single master),
+        only the execution crosses the process boundary, with the leased
+        width and device type (the worker carves its own pool)."""
+        if not self._remote:
+            return self._transport.submit(self._run_one, task, devices,
+                                          lease_uid)
+        d = task.description
+        if lease_uid == task.uid:
+            # primary bookkeeping happens at dispatch (the worker process
+            # cannot touch Task objects); twins leave it alone, as in-process
+            task.attempts += 1
+            task.overhead_s["queue"] = time.time() - task.submitted_at
+            task.started_at = time.time()
+        kwargs = {}
+        if d.checkpoint_dir is not None:
+            kwargs["resume_step"] = d.resume_step
+        if d.service:
+            kwargs["resume_state"] = d.resume_state
+        # a service attempt runs until told to stop — per-attempt
+        # deadlines only apply to bounded task bodies
+        attempt_timeout = None if d.service else (
+            d.policy.attempt_timeout_s if d.policy is not None
+            else d.timeout_s)
+        return self._transport.submit(
+            run_task_body, d.fn, tuple(d.args), kwargs,
+            len(devices), d.mesh_shape, d.mesh_axes, device_type(devices[0]),
+            service_control=d.control if d.service else None,
+            on_done=lambda fut, t=task, lu=lease_uid:
+                self._on_remote_exit(t, lu, fut),
+            label=f"{task.uid} ({d.name})",
+            attempt_timeout_s=attempt_timeout)
+
+    def _on_remote_exit(self, task: Task, lease_uid: str, fut) -> None:
+        """Remote mirror of ``_run_one``'s state transitions, fired on a
+        transport thread when the worker's Future resolves.  A worker
+        crash (``WorkerCrashed``) and a remote task exception
+        (``RemoteTaskError``) both land in the generic failure path, so
+        the checkpoint-aware retry machinery takes over unchanged.  A
+        remote ``DeviceFailure`` is a plain failure too: worker-local
+        device ids don't map onto this pilot's inventory — for remote
+        execution the fault-detection unit is the worker process."""
+        d = task.description
+        try:
+            out = fut.result()  # noqa: TMO001 — done-callback: result is ready
+            result = out["result"] if isinstance(out, dict) else out
+            overhead = out.get("overhead", {}) if isinstance(out, dict) else {}
+            finished = time.time()
+            with self._result_lock:
+                if task.state == TaskState.DONE:
+                    return  # a speculative twin won
+                task.finished_at = finished
+                if lease_uid == task.uid:
+                    task.overhead_s.update(overhead)
+                task.result = result
+                task.error = None
+                task.state = TaskState.DONE
+        except ServicePreempted as e:
+            with self._result_lock:
+                if task.state == TaskState.DONE:
+                    return
+                task.finished_at = time.time()
+                d.resume_state = e.state
+                task.preemptions += 1
+                task.attempts -= 1  # preemption is a yield, not a failure
+                task.state = TaskState.PREEMPTED
+        except Exception as e:  # noqa: BLE001 — isolation boundary
+            with self._result_lock:
+                if task.state == TaskState.DONE:
+                    return
+                task.finished_at = time.time()
+                task.error = f"{type(e).__name__}: {e}"
+                task.state = TaskState.FAILED
+        finally:
+            if task.state == TaskState.FAILED and d.checkpoint_dir is not None:
+                # same off-lock resume-point resolution as _run_one
+                d.resume_step = ckpt_store.latest_step(d.checkpoint_dir)
+            self.pilot.release(lease_uid)
+            self._on_worker_exit(task, lease_uid)
 
     def _run_one(self, task: Task, devices, lease_uid: str) -> None:
         d = task.description

@@ -29,6 +29,14 @@ def device_id(device) -> int:
     return device.id
 
 
+def device_type(device) -> str:
+    """The device type of a leased device: ``torch.device.type``, or
+    ``"cpu"`` for a stand-in device (the tests' pools)."""
+    if isinstance(device, torch.device):
+        return device.type
+    return "cpu"
+
+
 @dataclasses.dataclass
 class Communicator:
     """What a task receives: its mesh plus metadata (cf. an MPI comm)."""

@@ -1,0 +1,809 @@
+"""SubprocessTransport: the worker-pool side of cross-process execution
+(mirror of ``repro.core.exec.transport``).
+
+Layering contract (unchanged from ``repro_torch.core.transport``): the
+RemoteAgent dispatcher is the single master — it decides *when* an
+attempt runs; this transport only executes.  Each worker is a long-lived
+``repro_torch.core.exec.worker`` daemon process with its own torch
+runtime (and, for ``device="cuda"``, its own CUDA context on its share
+of the machine's cards, ``CUDA_VISIBLE_DEVICES``), connected back over a
+localhost socket speaking the length-prefixed pickle protocol.  Workers
+start with ``subprocess.Popen``, never ``fork``: the parent holds a CUDA
+context and threads.  One task runs per worker at a time, so
+``capacity == max_workers`` and the agent's in-flight window maps 1:1
+onto processes.
+
+Fault model — a Future returned by ``submit`` always resolves:
+
+- worker returns → result / reconstructed ``RemoteTaskError`` /
+  ``ServicePreempted`` (typed result frames; exception *objects* never
+  cross the wire);
+- worker process exits (crash, SIGKILL, OOM) → the monitor's
+  ``proc.poll`` notices within one poll interval and fails the Future
+  with ``WorkerCrashed`` — no heartbeat-timeout wait on the fast path;
+- worker hangs without dying → missed heartbeats trip the
+  ``heartbeat_timeout_s`` backstop, same ``WorkerCrashed``.
+
+Crashed workers are respawned so the agent's checkpoint-aware retry
+finds a live pool — under the transport's :class:`FailurePolicy`:
+consecutive crashes of the same worker slot back off exponentially
+(deterministic jitter), so a crash-looping worker no longer burns the
+lifetime ``max_respawns`` cap in seconds, and every respawn (attempt,
+streak, delay) is visible in ``stats()``.  The policy's
+``attempt_timeout_s`` (or a per-submit override) is enforced by the
+monitor: a busy worker whose attempt outlives its deadline is treated
+as hung — which is also what rescues a dropped RPC reply.  ``shutdown``
+reaps every worker process either way: ``wait=True`` drains in-flight
+work first; ``wait=False`` terminates immediately and fails
+outstanding Futures.
+
+Chaos hooks: when a :mod:`repro_torch.core.resilience.faults` injector is
+armed, the dispatch path consults the ``transport.dispatch`` site after
+handing a worker its task (actions ``crash_worker`` / ``stall_heartbeat``
+become ``die`` / ``stall`` frames the worker honours), and each worker
+channel consults ``protocol.recv`` per inbound frame (``drop`` /
+``delay`` of result replies) — every fault mode above is reproducible
+from a seed, with detection and recovery exercising the real paths.
+
+Service tasks: ``submit(..., service_control=ctrl)`` bridges the
+caller-held :class:`~repro_torch.core.task.ServiceControl` to a replica
+in the worker — queued requests and stop/drain/preempt flags flow down;
+token streams and terminal request states flow back and are applied to
+the client-held Request objects, so streaming semantics match the
+in-process transport.  A token frame that arrives after its request's
+``finish`` frame is still applied (``_StreamTable``).
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import subprocess
+import sys
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+from repro_torch.core.exec import pickling, protocol
+from repro_torch.core.exec.remote import POOL_ENV
+from repro_torch.core.resilience import faults as rfaults
+from repro_torch.core.resilience.policy import FailurePolicy
+from repro_torch.core.task import ServicePreempted
+from repro_torch.core.transport import Transport
+
+
+class WorkerCrashed(RuntimeError):
+    """The worker process executing a task died (or stopped heartbeating)
+    before returning a result."""
+
+    def __init__(self, worker_id: int, pid: Optional[int], label: str,
+                 reason: str):
+        self.worker_id = worker_id
+        self.pid = pid
+        super().__init__(
+            f"worker {worker_id} (pid {pid}) died while running "
+            f"{label or 'a task'}: {reason}")
+
+
+class RemoteTaskError(RuntimeError):
+    """A task fn raised inside a worker.  Carries the remote exception's
+    type name and traceback text (the object itself never crosses the
+    wire — custom exception signatures don't survive pickling)."""
+
+    def __init__(self, etype: str, message: str, traceback_text: str = ""):
+        self.remote_type = etype
+        self.remote_traceback = traceback_text
+        detail = f"\n--- remote traceback ---\n{traceback_text}" \
+            if traceback_text else ""
+        super().__init__(f"{etype}: {message}{detail}")
+
+
+class _Job:
+    __slots__ = ("jid", "payload", "future", "label", "service_control",
+                 "on_done", "worker_id", "attempt_timeout_s", "deadline")
+
+    def __init__(self, jid: int, payload: bytes, label: str,
+                 service_control, on_done,
+                 attempt_timeout_s: Optional[float] = None):
+        self.jid = jid
+        self.payload = payload
+        self.label = label
+        self.service_control = service_control
+        self.on_done = on_done
+        self.future: Future = Future()
+        self.worker_id: Optional[int] = None
+        self.attempt_timeout_s = attempt_timeout_s
+        self.deadline: Optional[float] = None  # set at dispatch
+
+
+class _WorkerHandle:
+    __slots__ = ("wid", "proc", "chan", "state", "last_seen", "job",
+                 "spawned_at", "devices", "device_name", "boot_s",
+                 "ready_s", "max_gap_s")
+
+    def __init__(self, wid: int, proc: subprocess.Popen):
+        self.wid = wid
+        self.proc = proc
+        self.chan: Optional[protocol.Channel] = None
+        # starting (spawned) | booting (connected: torch, the CUDA
+        # context) | idle (ready) | busy | dead
+        self.state = "starting"
+        self.last_seen = time.time()
+        self.job: Optional[_Job] = None
+        self.spawned_at = time.time()
+        # from the ``ready`` frame: the pool the worker sees, its card's
+        # name, its torch import + CUDA context seconds, and the seconds
+        # from spawn to ready
+        self.devices: Optional[int] = None
+        self.device_name: Optional[str] = None
+        self.boot_s: Optional[float] = None
+        self.ready_s: Optional[float] = None
+        #: longest silence between two frames since the channel connected
+        self.max_gap_s = 0.0
+
+    def info(self) -> Dict[str, Any]:
+        return {"pid": self.proc.pid, "state": self.state,
+                "devices": self.devices, "device_name": self.device_name,
+                "boot_s": self.boot_s, "ready_s": self.ready_s,
+                "max_heartbeat_gap_s": self.max_gap_s}
+
+
+class _StreamTable:
+    """The client-held Requests a worker streams into (rid -> Request).
+
+    A ``finish`` frame moves its request to a bounded table of finished
+    ones instead of dropping it, so a token frame that arrives after it
+    is still applied rather than lost."""
+
+    _KEEP_FINISHED = 4096
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._live: Dict[str, Any] = {}  # guarded-by: _lock
+        self._finished: "collections.OrderedDict[str, Any]" = \
+            collections.OrderedDict()  # guarded-by: _lock
+
+    def track(self, req) -> None:
+        with self._lock:
+            self._live[req.rid] = req
+
+    def _get(self, rid, finish: bool):
+        with self._lock:
+            req = self._live.pop(rid, None) if finish else self._live.get(rid)
+            if req is None:
+                return self._finished.get(rid)
+            if finish:
+                self._finished[rid] = req
+                while len(self._finished) > self._KEEP_FINISHED:
+                    self._finished.popitem(last=False)
+            return req
+
+    def apply_stream(self, msg: Dict[str, Any]) -> None:
+        req = self._get(msg.get("rid"), finish=False)
+        if req is None:
+            return
+        from repro_torch.serve.request import RequestState
+        if req.admitted_at is None and msg.get("admitted_at") is not None:
+            req.admitted_at = msg["admitted_at"]
+        if req.first_token_at is None and msg.get("first_token_at") is not None:
+            req.first_token_at = msg["first_token_at"]
+        if req.state == RequestState.QUEUED:
+            req.state = RequestState.RUNNING
+        req.tokens.extend(msg.get("tokens", ()))
+        req.token_times.extend(msg.get("times", ()))
+
+    def apply_finish(self, msg: Dict[str, Any]) -> None:
+        req = self._get(msg.get("rid"), finish=True)
+        if req is None or req.done():
+            return
+        from repro_torch.serve.request import RequestState
+        req._finish(RequestState[msg["state"]], msg.get("error"))
+        if msg.get("finished_at") is not None:
+            req.finished_at = msg["finished_at"]
+
+
+def _visible_cards() -> List[str]:
+    """The card ids this process may hand out: its own
+    ``CUDA_VISIBLE_DEVICES`` when set, else every card of the machine."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c for c in env.split(",") if c.strip()]
+    import torch
+    return [str(i) for i in range(torch.cuda.device_count())]
+
+
+class SubprocessTransport(Transport):
+    """Pool of worker daemon processes executing pickled task calls."""
+
+    name = "subprocess"
+    #: marks transports whose submit crosses a process boundary — the
+    #: agent switches to the picklable remote-dispatch path on this flag
+    remote = True
+
+    _pool_seq = itertools.count()
+
+    def __init__(self, max_workers: int = 2, *,
+                 worker_devices: int = 2,
+                 device=None,
+                 heartbeat_s: float = 0.2,
+                 heartbeat_timeout_s: float = 3.0,
+                 poll_s: float = 0.05,
+                 start_timeout_s: float = 120.0,
+                 drain_timeout_s: float = 120.0,
+                 max_respawns: Optional[int] = None,
+                 policy: Optional[FailurePolicy] = None,
+                 env: Optional[Dict[str, str]] = None):
+        import socket as _socket
+
+        from repro_torch.launch.mesh import resolve_device
+        self.capacity = max_workers
+        self._worker_devices = worker_devices
+        #: the workers' device type: the card unless the caller asks for
+        #: the CPU (raises here, in the parent, without a GPU)
+        self.device = resolve_device(device).type
+        self._cards = _visible_cards() if self.device == "cuda" else []
+        self._heartbeat_s = heartbeat_s
+        #: silence after which the monitor declares a worker hung
+        self.heartbeat_timeout_s = max(heartbeat_timeout_s, 3 * heartbeat_s)
+        self._poll_s = poll_s
+        self._start_timeout_s = start_timeout_s
+        self._drain_timeout_s = drain_timeout_s
+        #: lifetime cap on respawns (default: 16, or 4 a worker slot)
+        self._respawn_cap = (max_respawns if max_respawns is not None
+                             else max(16, 4 * max_workers))
+        self._env = env
+        # respawn backoff + attempt deadlines; the default keeps the first
+        # respawn near-immediate but makes a crash-looping slot back off
+        # exponentially instead of burning the lifetime cap in seconds
+        self._policy = policy if policy is not None else FailurePolicy(
+            backoff_base_s=0.1, backoff_factor=2.0, backoff_max_s=5.0,
+            jitter=0.1)
+
+        self._cond = threading.Condition()
+        self._workers: Dict[int, _WorkerHandle] = {}  # guarded-by: _cond
+        self._queue: Deque[_Job] = collections.deque()  # guarded-by: _cond
+        self._inflight: Dict[int, _Job] = {}  # guarded-by: _cond (jid -> job)
+        self._closed = False  # guarded-by: _cond
+        self._respawns = 0  # guarded-by: _cond
+        self._crash_streak: Dict[int, int] = {}  # guarded-by: _cond
+        self._respawn_due: Dict[int, float] = {}  # guarded-by: _cond
+        self._respawn_log: List[Dict[str, Any]] = []  # guarded-by: _cond
+        self._jid = itertools.count()
+
+        #: rid -> client-held Request the worker streams into
+        self._streams = _StreamTable()
+
+        self._listener = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+        self._listener.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        self._listener.bind(("127.0.0.1", 0))
+        self._listener.listen(max_workers + 4)
+        self._listener.settimeout(0.2)
+        self._port = self._listener.getsockname()[1]
+
+        pool_id = next(self._pool_seq)
+        with self._cond:
+            for wid in range(max_workers):
+                self._workers[wid] = self._spawn_locked(wid)
+        self._threads = [
+            threading.Thread(target=self._accept_loop,
+                             name=f"rc-exec-accept-{pool_id}", daemon=True),
+            threading.Thread(target=self._dispatch_loop,
+                             name=f"rc-exec-dispatch-{pool_id}", daemon=True),
+            threading.Thread(target=self._monitor_loop,
+                             name=f"rc-exec-monitor-{pool_id}", daemon=True),
+        ]
+        for t in self._threads:
+            t.start()
+
+    # -- public --------------------------------------------------------------
+
+    def submit(self, fn: Callable, *args,
+               service_control=None,
+               on_done: Optional[Callable[[Future], None]] = None,
+               label: Optional[str] = None,
+               attempt_timeout_s: Optional[float] = None,
+               **kwargs) -> Future:
+        """Ship ``fn(*args, **kwargs)`` to an idle worker.
+
+        Raises ``TypeError`` (naming the offending closure/capture)
+        synchronously if the call is unpicklable, and ``RuntimeError`` if
+        the transport is shut down.  Execution errors travel through the
+        returned Future.  ``on_done`` fires exactly once on a transport
+        thread after the Future resolves — never on the submitter's
+        thread, so callers may hold scheduling locks while submitting.
+        ``attempt_timeout_s`` (default: the transport policy's) bounds
+        how long this attempt may run once dispatched before the monitor
+        declares the worker hung and fails the Future.
+        """
+        # the fn's contract first (cheap); the arguments are pickled once,
+        # for the payload, and only a failure walks them for the leaf
+        pickling.ensure_picklable(fn, transport=self.name)
+        try:
+            payload = pickling.format_payload(
+                fn, args, kwargs, service=service_control is not None)
+        except Exception:  # noqa: BLE001 — re-raised, the leaf named first
+            pickling.ensure_picklable(fn, args, kwargs, transport=self.name)
+            raise
+        if attempt_timeout_s is None:
+            attempt_timeout_s = self._policy.attempt_timeout_s
+        job = _Job(next(self._jid), payload,
+                   label or getattr(fn, "__qualname__", repr(fn)),
+                   service_control, on_done,
+                   attempt_timeout_s=attempt_timeout_s)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("SubprocessTransport is shut down")
+            self._queue.append(job)
+            self._cond.notify_all()
+        return job.future
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop the pool.  ``wait=True`` drains in-flight attempts (up to
+        ``drain_timeout_s``) then asks workers to exit; ``wait=False``
+        terminates worker processes immediately and fails their Futures.
+        Either way every worker process is reaped — no orphans."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            queued = list(self._queue)
+            self._queue.clear()
+            inflight = list(self._inflight.values())
+            workers = list(self._workers.values())
+            self._cond.notify_all()
+        for job in queued:
+            self._resolve(job, exc=RuntimeError(
+                "transport shut down before dispatch"))
+        if wait:
+            deadline = time.time() + self._drain_timeout_s
+            for job in inflight:
+                try:
+                    job.future.result(timeout=max(0.0,
+                                                  deadline - time.time()))
+                except Exception:  # noqa: BLE001 — outcome lives in the Future
+                    pass
+            for w in workers:
+                if w.chan is not None and w.state != "dead":
+                    try:
+                        w.chan.send({"type": "shutdown"})
+                    except (protocol.ConnectionClosed, OSError):
+                        pass
+        self._reap_all(workers, grace_s=2.0 if wait else 0.2)
+        # any Future still unresolved (wait=False, or a drain that timed
+        # out on a hung worker) must resolve now — never a hang
+        for job in inflight:
+            if not job.future.done():
+                self._resolve(job, exc=WorkerCrashed(
+                    job.worker_id if job.worker_id is not None else -1,
+                    None, job.label,
+                    "transport shutdown" + ("" if wait else "(wait=False)")))
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        for t in self._threads:
+            t.join(timeout=1.0)
+
+    def worker_pids(self) -> List[int]:
+        """PIDs of live worker processes (test/diagnostic surface)."""
+        with self._cond:
+            return [w.proc.pid for w in self._workers.values()
+                    if w.state != "dead" and w.proc.poll() is None]
+
+    def worker_info(self) -> Dict[int, Dict[str, Any]]:
+        """Per worker slot: pid, state, the pool and card it reported,
+        boot seconds (torch import + CUDA context) and seconds from spawn
+        to ``ready``, and the longest silence between two of its frames."""
+        with self._cond:
+            return {wid: w.info() for wid, w in self._workers.items()}
+
+    def wait_ready(self, timeout: float) -> Dict[int, Dict[str, Any]]:
+        """Block until every worker slot has sent ``ready``; returns
+        ``worker_info()``.  Raises TimeoutError after ``timeout`` s."""
+        deadline = time.time() + timeout
+        with self._cond:
+            while not all(w.ready_s is not None and w.state != "dead"
+                          for w in self._workers.values()):
+                left = deadline - time.time()
+                if left <= 0 or self._closed:
+                    raise TimeoutError(
+                        f"workers not ready after {timeout:.0f}s: "
+                        f"{ {wid: w.state for wid, w in self._workers.items()} }")
+                self._cond.wait(min(left, 0.1))
+            return {wid: w.info() for wid, w in self._workers.items()}
+
+    def stats(self) -> Dict[str, Any]:
+        """One-lock snapshot of pool health and the respawn history."""
+        with self._cond:
+            states = collections.Counter(
+                w.state for w in self._workers.values())
+            now = time.time()
+            return {
+                "respawns": self._respawns,
+                "respawn_log": [dict(r) for r in self._respawn_log],
+                "respawn_pending": {
+                    wid: max(0.0, due - now)
+                    for wid, due in self._respawn_due.items()},
+                "crash_streaks": {w: s for w, s in
+                                  self._crash_streak.items() if s},
+                "queued": len(self._queue),
+                "inflight": len(self._inflight),
+                "workers": dict(states),
+            }
+
+    # -- spawning / reaping ----------------------------------------------------
+
+    def _spawn_locked(self, wid: int) -> _WorkerHandle:
+        env = dict(os.environ if self._env is None else self._env)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
+        env[POOL_ENV] = str(self._worker_devices)
+        if self.device == "cuda":
+            # the worker's share: worker_devices cards round-robin over
+            # the visible ones (every worker gets card 0 on a one-card
+            # machine); its torch numbers them from 0
+            k = min(self._worker_devices, len(self._cards))
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                self._cards[(wid * k + j) % len(self._cards)] for j in range(k))
+        else:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        cmd = [sys.executable, "-m", "repro_torch.core.exec.worker",
+               "--host", "127.0.0.1", "--port", str(self._port),
+               "--worker-id", str(wid), "--device", self.device,
+               "--heartbeat-s", str(self._heartbeat_s)]
+        proc = subprocess.Popen(cmd, env=env)
+        return _WorkerHandle(wid, proc)
+
+    def _reap_all(self, workers: List[_WorkerHandle], grace_s: float) -> None:
+        for w in workers:
+            if w.proc.poll() is None:
+                w.proc.terminate()
+        deadline = time.time() + grace_s
+        for w in workers:
+            try:
+                w.proc.wait(timeout=max(0.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                w.proc.kill()
+                w.proc.wait()  # noqa: TMO001 — SIGKILL'd: reap cannot hang
+            if w.chan is not None:
+                w.chan.close()
+
+    # -- accept / receive ------------------------------------------------------
+
+    def _accept_loop(self) -> None:
+        import socket as _socket
+        while True:
+            with self._cond:
+                if self._closed:
+                    return
+            try:
+                sock, _ = self._listener.accept()
+            except _socket.timeout:
+                continue
+            except OSError:
+                return  # listener closed under us: shutting down
+            chan = protocol.Channel(sock)
+            try:
+                hello = chan.recv(timeout=10.0)
+            except (protocol.ConnectionClosed, _socket.timeout):
+                chan.close()
+                continue
+            wid = hello.get("worker_id")
+            with self._cond:
+                w = self._workers.get(wid)
+                if (w is None or w.state == "dead"
+                        or w.proc.pid != hello.get("pid")):
+                    stale = True  # a replaced worker's late connection
+                else:
+                    stale = False
+                    chan.fault_filter = self._fault_filter_for(wid)
+                    w.chan = chan
+                    # heartbeats are watched from here; tasks wait for
+                    # ``ready``, so no attempt's clock counts the boot
+                    w.state = "booting"
+                    w.last_seen = time.time()
+            if stale:
+                chan.close()
+            else:
+                threading.Thread(target=self._recv_loop, args=(w, chan),
+                                 name=f"rc-exec-recv-{wid}",
+                                 daemon=True).start()
+
+    @staticmethod
+    def _fault_filter_for(wid: int):
+        """Per-frame chaos filter for a worker channel: consults the
+        armed injector's ``protocol.recv`` site so a planned fault can
+        drop or delay an RPC reply (recovery then rides the attempt
+        deadline, like a real lost result would)."""
+        def _filter(msg: Dict[str, Any]):
+            inj = rfaults.active()
+            if inj is None:
+                return None
+            return inj.fire("protocol.recv", worker=wid,
+                            mtype=msg.get("type"), task=msg.get("task_id"))
+        return _filter
+
+    def _recv_loop(self, w: _WorkerHandle, chan: protocol.Channel) -> None:
+        while True:
+            try:
+                msg = chan.recv()  # noqa: TMO001 — heartbeat monitor backstops a dead peer
+            except protocol.ConnectionClosed:
+                self._worker_lost(w, "channel closed")
+                return
+            mtype = msg.get("type")
+            now = time.time()
+            with self._cond:
+                w.max_gap_s = max(w.max_gap_s, now - w.last_seen)
+                w.last_seen = now
+                if mtype == "ready":
+                    w.devices = msg.get("devices")
+                    w.device_name = msg.get("device_name")
+                    w.boot_s = msg.get("boot_s")
+                    w.ready_s = now - w.spawned_at
+                    if w.state == "booting":
+                        w.state = "idle"
+                    self._cond.notify_all()
+            if mtype == "result":
+                self._on_result(w, msg)
+            elif mtype == "stream":
+                self._streams.apply_stream(msg)
+            elif mtype == "finish":
+                self._streams.apply_finish(msg)
+
+    # -- dispatch --------------------------------------------------------------
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            to_send: Optional[tuple] = None
+            with self._cond:
+                while to_send is None:
+                    if self._closed:
+                        return
+                    job, w = self._pick_locked()
+                    if job is None:
+                        self._cond.wait(0.5)
+                        if self._closed:
+                            return
+                        continue
+                    if not job.future.set_running_or_notify_cancel():
+                        continue  # cancelled while queued (agent close)
+                    w.state = "busy"
+                    w.job = job
+                    job.worker_id = w.wid
+                    if job.attempt_timeout_s is not None:
+                        job.deadline = time.time() + job.attempt_timeout_s
+                    self._inflight[job.jid] = job
+                    to_send = (job, w)
+            job, w = to_send
+            try:
+                # chaos site first: an injected crash/stall frame lands
+                # before the task, so the fault deterministically hits
+                # the attempt being dispatched (no result/death race)
+                self._maybe_inject_dispatch_fault(job, w)
+                w.chan.send({"type": "task", "task_id": job.jid,
+                             "payload": job.payload})
+            except (protocol.ConnectionClosed, OSError):
+                self._worker_lost(w, "send failed")
+                continue
+            if job.service_control is not None:
+                threading.Thread(
+                    target=self._bridge_loop, args=(job, w),
+                    name=f"rc-exec-bridge-{job.jid}", daemon=True).start()
+
+    def _pick_locked(self):
+        if not self._queue:
+            return None, None
+        for w in self._workers.values():
+            if w.state == "idle" and w.chan is not None:
+                return self._queue.popleft(), w
+        return None, None
+
+    def _maybe_inject_dispatch_fault(self, job: _Job,
+                                     w: _WorkerHandle) -> None:
+        """``transport.dispatch`` chaos site: a planned fault frame is
+        sent just ahead of the task frame, so the crash (worker exits
+        with the attempt assigned but unfinished) or stall (worker goes
+        heartbeat-silent while the attempt runs) hits exactly the
+        dispatch the plan named."""
+        inj = rfaults.active()
+        if inj is None:
+            return
+        act = inj.fire("transport.dispatch", worker=w.wid, task=job.jid,
+                       label=job.label)
+        if act is None:
+            return
+        if act["action"] == "crash_worker":
+            w.chan.send({"type": "die"})
+        elif act["action"] == "stall_heartbeat":
+            w.chan.send({"type": "stall",
+                         "for_s": float(act.get("for_s", 1.0))})
+
+    # -- results / faults ------------------------------------------------------
+
+    def _on_result(self, w: _WorkerHandle, msg: Dict[str, Any]) -> None:
+        with self._cond:
+            w.last_seen = time.time()
+            self._crash_streak[w.wid] = 0  # a result proves the slot healthy
+            job = self._inflight.pop(msg["task_id"], None)
+            if w.job is job:
+                w.job = None
+            if w.state == "busy":
+                w.state = "idle"
+            self._cond.notify_all()
+        if job is None:
+            return  # already failed by the monitor (late result)
+        status = msg.get("status")
+        if status == "ok":
+            self._resolve(job, value=msg.get("value"))
+        elif status == "preempted":
+            self._resolve(job, exc=ServicePreempted(msg.get("state")))
+        else:
+            err = msg.get("error") or {}
+            self._resolve(job, exc=RemoteTaskError(
+                err.get("etype", "Exception"), err.get("message", ""),
+                err.get("traceback", "")))
+
+    def _worker_lost(self, w: _WorkerHandle, reason: str) -> None:
+        with self._cond:
+            if w.state == "dead":
+                return
+            if self._closed:
+                w.state = "dead"
+                return  # shutdown() owns reaping and future resolution
+            w.state = "dead"
+            job, w.job = w.job, None
+            if job is not None:
+                self._inflight.pop(job.jid, None)
+            pid = w.proc.pid
+            chan = w.chan
+            if self._respawns < self._respawn_cap:
+                self._respawns += 1
+                streak = self._crash_streak.get(w.wid, 0) + 1
+                self._crash_streak[w.wid] = streak
+                delay = self._policy.backoff_s(streak,
+                                               key=f"respawn.{w.wid}")
+                self._respawn_log.append({
+                    "worker": w.wid, "attempt": self._respawns,
+                    "streak": streak, "delay_s": delay})
+                if delay <= 0:
+                    self._workers[w.wid] = self._spawn_locked(w.wid)
+                else:
+                    # the monitor performs the spawn once the backoff
+                    # elapses; until then the dead handle holds the slot
+                    self._respawn_due[w.wid] = time.time() + delay
+            self._cond.notify_all()
+        if w.proc.poll() is None:
+            w.proc.terminate()
+        try:
+            w.proc.wait(timeout=2.0)
+        except subprocess.TimeoutExpired:
+            w.proc.kill()
+            w.proc.wait()  # noqa: TMO001 — SIGKILL'd: reap cannot hang
+        if chan is not None:
+            chan.close()
+        if job is not None:
+            self._resolve(job, exc=WorkerCrashed(w.wid, pid, job.label,
+                                                 reason))
+
+    def _monitor_loop(self) -> None:
+        while True:
+            with self._cond:
+                if self._closed:
+                    return
+                now = time.time()
+                for wid, due in list(self._respawn_due.items()):
+                    if due <= now:  # backoff elapsed: perform the respawn
+                        del self._respawn_due[wid]
+                        self._workers[wid] = self._spawn_locked(wid)
+                        self._cond.notify_all()
+                workers = [(w, w.job) for w in self._workers.values()]
+            for w, job in workers:
+                if w.state == "dead":
+                    continue
+                if w.proc.poll() is not None:
+                    # fast path: process exit (crash/SIGKILL) — detected at
+                    # poll cadence, without waiting out a heartbeat timeout
+                    self._worker_lost(
+                        w, f"process exited with code {w.proc.returncode}")
+                elif (w.chan is not None
+                      and now - w.last_seen > self.heartbeat_timeout_s):
+                    self._worker_lost(
+                        w, f"no heartbeat for "
+                           f"{now - w.last_seen:.1f}s (hung?)")
+                elif (w.state == "busy" and job is not None
+                      and job.deadline is not None and now > job.deadline):
+                    # per-attempt deadline (FailurePolicy.attempt_timeout_s):
+                    # also the recovery path for a dropped result reply
+                    self._worker_lost(
+                        w, f"attempt exceeded its "
+                           f"{job.attempt_timeout_s:.1f}s deadline")
+                elif (w.state in ("starting", "booting")
+                      and now - w.spawned_at > self._start_timeout_s):
+                    self._worker_lost(w, f"not ready after {self._start_timeout_s:.0f}s "
+                                         f"({w.state}: start timeout)")
+            time.sleep(self._poll_s)
+
+    def _resolve(self, job: _Job, value: Any = None,
+                 exc: Optional[BaseException] = None) -> None:
+        try:
+            if exc is not None:
+                job.future.set_exception(exc)
+            else:
+                job.future.set_result(value)
+        except Exception:  # noqa: BLE001 — future already cancelled/resolved
+            pass
+        if job.on_done is not None:
+            try:
+                job.on_done(job.future)
+            except Exception:  # noqa: BLE001 — callbacks must not kill the pool
+                import traceback
+                traceback.print_exc()
+
+    # -- service bridge --------------------------------------------------------
+
+    def _bridge_loop(self, job: _Job, w: _WorkerHandle) -> None:
+        """Pump the caller-held ServiceControl down to the worker replica
+        for the lifetime of one service attempt."""
+        control = job.service_control
+        sent_stop = sent_drain = sent_preempt = False
+        while not job.future.done():
+            entries = control.take_requests()
+            for entry in entries:
+                req = getattr(entry, "request", entry)
+                if getattr(req, "rid", None) is not None:
+                    self._streams.track(req)
+                try:
+                    w.chan.send({"type": "control", "op": "submit_request",
+                                 "data": protocol.dumps(entry)})
+                except (protocol.ConnectionClosed, OSError):
+                    return
+            try:
+                if control.stop_requested() and not sent_stop:
+                    sent_stop = True
+                    w.chan.send({"type": "control", "op": "stop"})
+                if control.drain_requested() and not sent_drain:
+                    sent_drain = True
+                    w.chan.send({"type": "control", "op": "drain"})
+                if control.preempt_requested() and not sent_preempt:
+                    sent_preempt = True
+                    w.chan.send({"type": "control", "op": "preempt"})
+            except (protocol.ConnectionClosed, OSError):
+                return
+            time.sleep(0.005)
+
+
+class DistributedTransport(SubprocessTransport):
+    """Cross-node flavour of the subprocess pool (the port's counterpart
+    of the JAX package's ``JaxDistributedTransport``, under its spec
+    string ``"jax-distributed"``).
+
+    The worker daemon has the multi-host hook (``repro_torch.core.exec.worker
+    --dist-init-method ...`` joins a ``torch.distributed`` process group),
+    but there is no fabric behind multi-host coordinates on one machine —
+    so requesting real multi-host init raises a specific error instead of
+    hanging on a rendezvous that will never answer.
+    Constructed with no coordinates it behaves exactly like
+    :class:`SubprocessTransport` (process-isolated workers on this host).
+    """
+
+    name = "jax-distributed"
+
+    def __init__(self, init_method: Optional[str] = None,
+                 world_size: Optional[int] = None,
+                 rank: Optional[int] = None, **kwargs):
+        multi_host = (init_method is not None
+                      or (world_size or 1) > 1
+                      or (rank or 0) != 0)
+        if multi_host:
+            raise NotImplementedError(
+                "cross-node multi-host init requested "
+                f"(init_method={init_method!r}, world_size={world_size}"
+                f", rank={rank}) but no multi-host fabric exists in this "
+                "build. The worker daemon already accepts "
+                "--dist-init-method/--dist-world-size/--dist-rank "
+                "(repro_torch.core.exec.worker) and calls "
+                "torch.distributed.init_process_group with them — point the "
+                "pool at real hosts to enable it. For process-isolated "
+                "workers on this host, construct without coordinates (or "
+                "use SubprocessTransport).")
+        super().__init__(**kwargs)

@@ -54,9 +54,9 @@ class PilotDescription:
     # CPU-worker pod that only takes "data_engineering" stages).
     task_kinds: Tuple[str, ...] = ()
     # where this pilot's agent executes attempts: None = the Session
-    # default, "in-process" = thread pool in this process; "subprocess"
-    # and "jax-distributed" (the JAX package's worker pools) raise until
-    # the port's core/exec/ lands.  Resolved by Session._ensure.
+    # default, "in-process" = thread pool in this process, "subprocess" =
+    # process-per-worker pool (repro_torch.core.exec), "jax-distributed" =
+    # the multi-host flavour.  Resolved by Session._ensure.
     transport: Optional[str] = None
 
 

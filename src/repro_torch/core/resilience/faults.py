@@ -27,13 +27,14 @@ Sites of the port:
                         action ``fail`` aborts the delivery
 ``engine.step``         a ServeEngine with work is about to step — action
                         ``crash`` raises :class:`InjectedFault`
+``transport.dispatch``  the subprocess transport handed a worker its task
+                        (``core/exec/transport.py``) — ``crash_worker``
+                        kills the worker mid-task, ``stall_heartbeat``
+                        silences its heartbeats for ``for_s`` seconds
+``protocol.recv``       a frame arrived on a worker channel
+                        (``core/exec/protocol.py`` ``Channel.fault_filter``)
+                        — ``drop`` swallows it, ``delay`` holds it
 ==================== ====================================================
-
-The JAX package's other two sites, ``transport.dispatch`` (``crash_worker``,
-``stall_heartbeat``) and ``protocol.recv`` (``drop``, ``delay``), sit in
-its cross-process transport; a plan may name them, but nothing in the
-port fires them until its ``core/exec/`` lands (ROADMAP.md queue 1,
-item 6).
 
 Hooks are module-global (``set_fault_injector`` / ``active()``) so the
 runtime pays one ``is None`` check per site when chaos is off.  Plans

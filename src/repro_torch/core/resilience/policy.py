@@ -3,8 +3,8 @@
 
 Every layer that meets a fault asks the same question — retry, when,
 and until when — and ``FailurePolicy`` is the one answer they consult
-(the agent's retry loop and the fleet router's breakers in the port; the
-JAX package's worker respawn waits for the port's ``core/exec/``):
+(the agent's retry loop, the fleet router's breakers and the subprocess
+transport's worker respawn):
 
 * **retry budget** — how many attempts a unit of work gets;
 * **exponential backoff + deterministic jitter** — how long to wait
@@ -12,8 +12,8 @@ JAX package's worker respawn waits for the port's ``core/exec/``):
   attempt)`` so a replayed schedule is bit-identical — no
   ``random.random()`` flakes in tests);
 * **per-attempt timeout** — how long a single attempt may run before
-  the runtime declares it hung (the JAX package's subprocess transport
-  enforces it; the port's in-process transport has no monitor);
+  the runtime declares it hung (the subprocess transport's monitor
+  enforces it; the in-process transport has no monitor);
 * **end-to-end deadline** — how long the whole unit of work may take
   across all attempts before it fails *cleanly* (devices released,
   quotas balanced) instead of retrying forever.

@@ -53,10 +53,11 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence, Tuple, Union)
 
 from repro_torch.core.agent import RemoteAgent
+from repro_torch.core.communicator import device_type
 from repro_torch.core.pilot import Pilot, PilotDescription, PilotManager
 from repro_torch.core.pipeline import Pipeline, Stage, aggregate_metrics
 from repro_torch.core.task import ServiceControl, Task
-from repro_torch.core.transport import make_transport
+from repro_torch.core.transport import check_spec, make_transport
 
 __all__ = [
     "Session", "ServiceHandle", "StageContext", "StageSpec", "StageGraph",
@@ -163,6 +164,45 @@ class StageSpec:
     def __ror__(self, other) -> "StageGraph":
         return StageGraph._lift(other) | self
 
+    # -- pickling ------------------------------------------------------------
+    # ``@stage`` rebinds the module attribute from the raw fn to this
+    # spec, so the fn can no longer pickle by reference (``module.name``
+    # resolves to the spec, not the function).  For the subprocess
+    # transport the fn travels as a _SpecFnRef instead and is recovered
+    # *through* the module-level spec on the worker side.
+
+    def __getstate__(self):
+        state = {f.name: getattr(self, f.name)
+                 for f in dataclasses.fields(self)}
+        fn = state["fn"]
+        mod = getattr(fn, "__module__", None)
+        qn = getattr(fn, "__qualname__", None)
+        if mod == "__main__":
+            # a ``python -m pkg.mod`` entry module: the worker's __main__
+            # is the worker daemon, so reference the importable name
+            from repro_torch.core.exec.protocol import main_module_name
+            mod = main_module_name() or mod
+        if mod is not None and qn is not None and "<locals>" not in qn:
+            try:
+                owner = _resolve_qualname(mod, qn)
+            except (ImportError, AttributeError):
+                owner = None
+            # identity for same-module resolution; qualname match for the
+            # __main__ remap (the re-imported module re-decorates, so its
+            # spec wraps an equal-but-distinct function object)
+            if isinstance(owner, StageSpec) and (
+                    owner.fn is fn
+                    or getattr(owner.fn, "__qualname__", None) == qn):
+                state["fn"] = _SpecFnRef(mod, qn)
+        return state
+
+    def __setstate__(self, state):
+        fn = state.get("fn")
+        if isinstance(fn, _SpecFnRef):
+            state["fn"] = fn.resolve()
+        for k, v in state.items():
+            object.__setattr__(self, k, v)
+
     # -- execution -----------------------------------------------------------
 
     def __call__(self, ctx: StageContext, *args, **kwargs) -> Any:
@@ -183,10 +223,34 @@ class StageSpec:
             checkpoint_dir=self.checkpoint, service=self.service)
 
 
+def _resolve_qualname(module: str, qualname: str) -> Any:
+    import importlib
+    obj: Any = importlib.import_module(module)
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+class _SpecFnRef:
+    """Pickle stand-in for a ``@stage``-decorated function: resolves the
+    module attribute (the StageSpec) and returns its raw fn."""
+
+    __slots__ = ("module", "qualname")
+
+    def __init__(self, module: str, qualname: str):
+        self.module = module
+        self.qualname = qualname
+
+    def resolve(self) -> Callable:
+        obj = _resolve_qualname(self.module, self.qualname)
+        return obj.fn if isinstance(obj, StageSpec) else obj
+
+
 class _StageRunner:
-    """Adapter from the raw ``(comm, upstream, **kw)`` stage contract to
-    :class:`StageContext` (a module-level class, as in the JAX package,
-    where DSL stages cross the subprocess transport's pickle boundary)."""
+    """Picklable adapter from the raw ``(comm, upstream, **kw)`` stage
+    contract to :class:`StageContext`.  A module-level class instead of a
+    closure so DSL stages cross the subprocess transport's pickle
+    boundary whenever the decorated fn and its bound args do."""
 
     __slots__ = ("spec",)
 
@@ -422,7 +486,8 @@ class Session:
                  pods: Union[None, int, Sequence[PilotDescription]] = None,
                  placement: Optional[PlacementPolicy] = None,
                  max_workers_per_pilot: Optional[int] = None,
-                 transport=None):
+                 transport=None,
+                 transport_options: Optional[Dict] = None):
         if manager is not None and devices is not None:
             raise ValueError("pass manager= or devices=, not both")
         self.manager = manager if manager is not None \
@@ -431,13 +496,13 @@ class Session:
         self._pods_spec = pods
         self._max_workers = max_workers_per_pilot
         # transport may be a Transport instance (shared, caller-owned) or
-        # a spec string resolved per pilot; PilotDescription(transport=...)
-        # overrides it per pod.  "in-process" is the only spec the port
-        # builds: "subprocess" / "jax-distributed" raise until core/exec/
-        # lands (ROADMAP.md queue 1, item 6), and with them the
-        # session-owned transports and the transport_options their
-        # constructors take.
+        # a spec string ("in-process" / "subprocess" / "jax-distributed")
+        # resolved per pilot; PilotDescription(transport=...) overrides it
+        # per pod.  transport_options are kwargs for spec-built transports
+        # (e.g. worker_devices= for subprocess pools).
         self._transport = transport
+        self._transport_options = dict(transport_options or {})
+        self._owned_transports: List = []  # guarded-by: _lock
         self._lock = threading.Lock()
         self._pilots: List[Pilot] = []  # guarded-by: _lock
         self._owned_pilots: List[Pilot] = []  # guarded-by: _lock
@@ -471,31 +536,62 @@ class Session:
             adopted = list(self.manager.pilots)
             if adopted and self._pods_spec is None:
                 pilots, owned = adopted, []
-                transports = [self._transport_for(None)] * len(pilots)
+                specs = [self._spec_for(None)] * len(pilots)
             else:
                 descs = self._pod_descriptions()
-                # resolved before any pilot exists: a spec that raises
-                # leaves no pilot behind
-                transports = [self._transport_for(d) for d in descs]
+                # checked before any pilot exists: an unknown spec leaves
+                # no pilot behind
+                specs = [self._spec_for(d) for d in descs]
                 pilots = self.manager.submit_pilots(descs)
                 owned = list(pilots)
-            agents = {}
-            for p, tr in zip(pilots, transports):
-                mw = self._max_workers if self._max_workers is not None \
-                    else max(2, p.size)
-                agents[p.uid] = RemoteAgent(p, max_workers=mw, transport=tr)
+            agents: Dict[str, RemoteAgent] = {}
+            built: List = []
+            try:
+                for p, spec in zip(pilots, specs):
+                    mw = self._max_workers if self._max_workers is not None \
+                        else max(2, p.size)
+                    tr = self._resolve_transport(spec, mw, p)
+                    if isinstance(spec, str) and tr is not None:
+                        built.append(tr)
+                    agents[p.uid] = RemoteAgent(p, max_workers=mw, transport=tr)
+            except BaseException:
+                # a transport that failed to start leaves nothing behind
+                for a in agents.values():
+                    a.close()
+                for tr in built:
+                    tr.shutdown(wait=False)
+                for p in owned:
+                    self.manager.cancel_pilot(p)
+                raise
             self._pilots = list(pilots)
             self._owned_pilots = owned
+            self._owned_transports = built
             self._agents = agents
             self._assigned = {p.uid: 0 for p in pilots}
 
-    def _transport_for(self, desc: Optional[PilotDescription]):
-        """A pod's transport: its description's spec, else the session's
-        (a caller-owned Transport instance, or None for the agent's own
-        in-process pool)."""
+    def _spec_for(self, desc: Optional[PilotDescription]):
+        """A pod's transport spec: its description's, else the session's;
+        an unknown spec string raises ValueError."""
         spec = desc.transport if desc is not None and \
             desc.transport is not None else self._transport
-        return make_transport(spec) if isinstance(spec, str) else spec
+        check_spec(spec)
+        return spec
+
+    def _resolve_transport(self, spec, max_workers: int, pilot: Pilot):
+        """One pilot's transport: a Transport instance passes through
+        (caller-owned); None and ``"in-process"`` keep the agent's own
+        thread pool (None); ``"subprocess"`` / ``"jax-distributed"``
+        build a worker pool the session owns and shuts down in close,
+        its workers on the pilot's device type."""
+        if not isinstance(spec, str):
+            return spec
+        opts = dict(self._transport_options)
+        if spec != "in-process":
+            # each worker carries a torch runtime (and a CUDA context):
+            # default the pool small instead of one process per device
+            opts.setdefault("max_workers", min(max_workers, 2))
+            opts.setdefault("device", device_type(pilot.alive_devices()[0]))
+        return make_transport(spec, **opts)
 
     def _pod_descriptions(self) -> List[PilotDescription]:
         pods = self._pods_spec
@@ -521,6 +617,7 @@ class Session:
             pipelines = list(self._pipelines)
             agents = list(self._agents.values())
             owned = list(self._owned_pilots)
+            owned_transports = list(self._owned_transports)
         for p in pipelines:
             for ctl in p.service_controls.values():
                 ctl.stop()
@@ -529,6 +626,11 @@ class Session:
                 a.close(timeout)
             except Exception as e:  # noqa: BLE001 — keep closing the rest
                 self.close_errors.append(f"agent {a.pilot.uid}: {e}")
+        for tr in owned_transports:
+            try:
+                tr.shutdown(wait=timeout is None or timeout > 0)
+            except Exception as e:  # noqa: BLE001 — keep closing the rest
+                self.close_errors.append(f"transport {tr.name}: {e}")
         for pilot in owned:
             try:
                 self.manager.cancel_pilot(pilot)

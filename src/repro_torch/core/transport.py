@@ -14,10 +14,11 @@ process: every worker shares one CUDA context).  ``submit`` takes a
 callable and returns a ``concurrent.futures.Future``, and ``capacity``
 bounds how many attempts the dispatcher keeps in flight.
 
-The JAX package's cross-process transports (``"subprocess"``, a pool of
-worker processes, and ``"jax-distributed"``, its multi-host flavour) come
-with the port's ``core/exec/`` (ROADMAP.md queue 1, item 6); asking for
-them raises ``NotImplementedError``.
+The cross-process transports live in ``repro_torch.core.exec``:
+``"subprocess"`` (``SubprocessTransport``, a pool of worker processes,
+each with its own CUDA context) and ``"jax-distributed"``
+(``DistributedTransport``, its multi-host flavour); ``make_transport``
+builds them from their spec strings.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional
 
 _REMOTE = ("subprocess", "jax-distributed")
+#: the spec strings a Session, a PilotDescription or make_transport takes
+SPECS = ("in-process",) + _REMOTE
 
 
 class Transport(abc.ABC):
@@ -66,16 +69,23 @@ class InProcessTransport(Transport):
         self._pool.shutdown(wait=wait)
 
 
-def make_transport(spec: str) -> Optional[Transport]:
+def make_transport(spec: str, **options) -> Optional[Transport]:
     """Resolve a transport spec string: ``"in-process"`` is the agent's
-    own default pool (None); the cross-process specs raise."""
+    own default pool (None); ``"subprocess"`` and ``"jax-distributed"``
+    build a worker pool from ``options`` (``max_workers``,
+    ``worker_devices``, ``device``, ...), which the caller owns and shuts
+    down."""
+    check_spec(spec)
     if spec == "in-process":
         return None
-    if spec in _REMOTE:
-        raise NotImplementedError(
-            f"transport {spec!r}: the cross-process transports come with the "
-            "port's core/exec/ (ROADMAP.md queue 1, item 6); the port runs "
-            "tasks in-process")
-    raise ValueError(
-        f"unknown transport spec {spec!r}: expected 'in-process', "
-        "'subprocess', 'jax-distributed', or a Transport instance")
+    from repro_torch.core.exec import DistributedTransport, SubprocessTransport
+    cls = SubprocessTransport if spec == "subprocess" else DistributedTransport
+    return cls(**options)
+
+
+def check_spec(spec) -> None:
+    """Raise ValueError for a spec string that names no transport."""
+    if isinstance(spec, str) and spec not in SPECS:
+        raise ValueError(
+            f"unknown transport spec {spec!r}: expected 'in-process', "
+            "'subprocess', 'jax-distributed', or a Transport instance")

@@ -135,6 +135,8 @@ def _finish(name: str, started) -> str:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a reader never sees a half-written library
     (BUILD_DIR / f"{name}.log").write_text(log)
+    with _COUNT_LOCK:
+        COMPILED.append(name)
     return log
 
 
@@ -151,6 +153,9 @@ def build_all() -> Dict[str, str]:
 # library builds it once, and every launch counter stays exact
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+#: the sources this process compiled (a worker process that finds every
+#: library built by the same hash compiles none)
+COMPILED: list = []
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,7 +7,10 @@
 * ``bench_multi_pipeline`` — Table 4: 11 pipelines of a ``cylon_stage``
   sort and a ``dl_stage`` inference under one pilot, against running
   them one after another;
-* ``bench_scaling_ops`` — Fig. 4 needs meshes over processes and raises.
+* ``bench_scaling_ops`` — Fig. 4: strong and weak scaling of the
+  distributed ``sort`` and ``join`` over meshes of 1, 2, 4 and 8 logical
+  shards.  On one device this scales the shard count of one card's
+  operators, not processes or cards.
 
 Everything runs on ``device`` (the card unless the caller asks for the
 CPU) under a ``PilotManager`` over that device.  Each function returns the
@@ -34,9 +37,10 @@ from repro_torch.core.bridge import cylon_stage, dl_stage
 from repro_torch.core.pilot import PilotDescription, PilotManager
 from repro_torch.core.pipeline import Pipeline, run_pipelines
 from repro_torch.core.task import Task, TaskDescription, TaskState
+from repro_torch.dataframe import ops_dist as D
 from repro_torch.dataframe import ops_local as L
 from repro_torch.dataframe.table import Table
-from repro_torch.launch.mesh import resolve_device
+from repro_torch.launch.mesh import make_mesh, resolve_device
 from repro_torch.models import forecasting as F
 from repro_torch.models import hydrology as Hy
 
@@ -225,11 +229,55 @@ def bench_hydrology(full: bool = False, *, steps=None, device=None) -> Dict[str,
 # ---------------------------------------------------------------------------
 
 
-def bench_scaling_ops(full: bool = False, *, device=None):
-    raise NotImplementedError(
-        "Fig. 4 scales sort and join over 1-8 worker processes: meshes over "
-        "processes come with core/exec/ and torch.distributed (ROADMAP.md "
-        "queue 1, item 6)")
+SCALING_SHARDS = (1, 2, 4, 8)
+
+
+def scaling_tables(rows: int, shards: int, device):
+    """The JAX benchmark's two tables on a mesh of ``shards`` logical
+    shards: ``rows`` keys uniform in [0, rows) with normal values (numpy
+    seed 0), and a right table of keys 0 .. rows/2 - 1 with weight 1."""
+    mesh = make_mesh((shards,), ("data",), device=device)
+    rng = np.random.default_rng(0)
+    t = Table.from_columns({"k": rng.integers(0, rows, rows).astype(np.int32),
+                            "v": rng.normal(size=rows).astype(np.float32)}, mesh)
+    r = Table.from_columns({"k": np.arange(rows // 2).astype(np.int32),
+                            "w": np.ones(rows // 2, np.float32)}, mesh)
+    return t, r
+
+
+def scaling_op(op: str, t: Table, r: Table):
+    """``(result table, dropped rows)`` of Fig. 4's ``op``."""
+    return D.sort(t, "k") if op == "sort" else D.join(t, r, "k")
+
+
+def bench_scaling_ops(full: bool = False, *, device=None) -> Dict[str, Any]:
+    """Fig. 4 in one process (torch needs no environment set before its
+    import, so every mesh width runs here): for each of 1, 2, 4 and 8
+    logical shards, ``sort`` and ``join`` on 40,000 rows (200,000 with
+    ``full``; strong scaling) and on that over 4 times the shards (weak
+    scaling), each run once to warm up and once timed, synchronized:
+    seconds, rows out and rows dropped."""
+    dev = resolve_device(device)
+    base_rows = 200_000 if full else 40_000
+    results: Dict[str, Any] = {"strong": {}, "weak": {}}
+    for mode in ("strong", "weak"):
+        for w in SCALING_SHARDS:
+            rows = base_rows if mode == "strong" else base_rows // 4 * w
+            t, r = scaling_tables(rows, w, dev)
+            per_op = {}
+            for op in ("sort", "join"):
+                scaling_op(op, t, r)  # warm-up: allocator, cuBLAS, libraries
+                _sync(dev)
+                t0 = time.time()
+                res, dropped = scaling_op(op, t, r)
+                _sync(dev)
+                per_op[op] = {"s": time.time() - t0, "rows": rows,
+                              "rows_out": int(res.valid.sum()), "dropped": int(dropped)}
+            results[mode][w] = per_op
+    results["meta"] = {"device": str(dev), "base_rows": base_rows,
+                       "shards": list(SCALING_SHARDS),
+                       "scales": "logical shards of one device"}
+    return results
 
 
 # ---------------------------------------------------------------------------

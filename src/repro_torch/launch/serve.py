@@ -11,11 +11,15 @@ over N engines (prefill/decode-disaggregated with ``--disaggregate``) and
 this driver becomes a streaming front-end: it polls each request's live
 token list and emits deltas as they land, the way a gateway would flush
 SSE chunks.  Everything runs on the card unless ``--device cpu``.
+``--transport subprocess`` (or ``jax-distributed``) runs the service
+stage in a worker process with its own torch runtime
+(``repro_torch.core.exec``), on the device the pilot leased; with
+``--fleet`` it ships every KV handoff through a worker and back.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --fleet 2 --disaggregate
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
-      --batch 4 --prompt-len 8 --gen 4
+      --batch 4 --prompt-len 8 --gen 4 --transport subprocess
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import Session, stage
 from repro_torch.core.pilot import PilotDescription, PilotManager
+from repro_torch.core.transport import make_transport
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.serve import Request, ServeEngine
 
@@ -73,10 +78,15 @@ def run_fleet(args, cfg) -> dict:
     from repro_torch.serve import build_fleet
 
     slots = args.slots or min(args.batch, 4)
+    dev = resolve_device(args.device)
+    # a worker pool the handoffs cross (None: the router's own threads)
+    transport = make_transport(args.transport, max_workers=1,
+                               worker_devices=1, device=dev)
     router = build_fleet(cfg, RunConfig(), num_engines=args.fleet,
                          disaggregate=args.disaggregate, seed=0,
                          max_slots=slots, max_len=args.prompt_len + args.gen + 1,
-                         name_prefix="gateway", device=resolve_device(args.device))
+                         name_prefix="gateway", device=dev,
+                         router_kwargs={"transport": transport})
     router.start()
     try:
         t0 = time.time()
@@ -86,6 +96,8 @@ def run_fleet(args, cfg) -> dict:
         stats = router.stats()
     finally:
         router.close()
+        if transport is not None:
+            transport.shutdown()
     n_tok = sum(len(r.tokens) for r in requests)
     ttft = sorted(r.ttft_s for r in requests)
     res = {
@@ -97,6 +109,7 @@ def run_fleet(args, cfg) -> dict:
         "ttft_p50_s": ttft[len(ttft) // 2],
         "routed": stats.get("routed", 0),
         "handoffs": stats.get("handoffs_routed", 0),
+        "handoff_wire_roundtrips": stats.get("handoff_wire_roundtrips", 0),
         "router": stats,
     }
     spread = {k.split("routed_to.")[1]: v for k, v in stats.items()
@@ -203,10 +216,11 @@ def build_parser():
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-request streaming deltas")
     ap.add_argument("--transport", default="in-process",
-                    choices=["in-process", "subprocess"],
-                    help="where the service stage executes (the port runs "
-                         "it in-process; 'subprocess' raises until the "
-                         "port's core/exec/ lands)")
+                    choices=["in-process", "subprocess", "jax-distributed"],
+                    help="where the service stage executes: this process, "
+                         "or a worker process with its own torch runtime "
+                         "(repro_torch.core.exec); with --fleet, what the "
+                         "KV handoffs cross")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run on "
                          "the CPU)")

@@ -243,9 +243,11 @@ class ServeEngine:
 
     def restore(self, state: Dict[str, Any]) -> None:
         with self._lock:
-            # clone: ``state`` may be restored again later, and the live
-            # pools are written in place
-            self.cache = map_tree(torch.clone, state["cache"])
+            # copy onto this engine's device: ``state`` may be restored
+            # again later, the live pools are written in place, and a
+            # state that crossed a process boundary arrives on the host
+            self.cache = map_tree(
+                lambda t: t.to(self.device, copy=True), state["cache"])
             self.lengths = state["lengths"].copy()
             self.last_tok = state["last_tok"].copy()
             self.slots = list(state["slots"])

@@ -86,13 +86,11 @@ from repro_torch.train.state import model_specs
 
 def _ship_wire(hand: KVHandoff) -> KVHandoff:
     """Shipping body for remote transports (a transport with ``remote =
-    True``): it runs in a worker process, so the handoff's page blocks
-    cross the process boundary pickled on the way in and bitwise back
-    out (``KVHandoff.__getstate__`` lowers them to numpy); the router
-    binds the round-tripped pages to the client-held request.  The port's
-    transports are in-process until its ``core/exec/`` lands (ROADMAP.md
-    queue 1, item 6), so today only a test's stand-in remote transport
-    takes this path."""
+    True``, e.g. ``repro_torch.core.exec.SubprocessTransport``): it runs
+    in a worker process, so the handoff's page blocks cross the process
+    boundary pickled on the way in and bitwise back out
+    (``KVHandoff.__getstate__`` lowers them to numpy); the router binds
+    the round-tripped pages to the client-held request."""
     return hand
 
 
@@ -511,7 +509,8 @@ class EngineRouter:
                     self._transport.submit(
                         _ship_wire, entry,
                         on_done=functools.partial(self._deliver_shipped,
-                                                  hand=entry, m=m))
+                                                  hand=entry, m=m,
+                                                  sent_at=time.perf_counter()))
                 else:
                     self._transport.submit(self._deliver, entry, m)
                 routed += 1
@@ -533,12 +532,14 @@ class EngineRouter:
                 self.queue = collections.deque(kept + list(self.queue))
         return routed > 0
 
-    def _deliver_shipped(self, fut, hand: KVHandoff, m: _Member) -> None:
+    def _deliver_shipped(self, fut, hand: KVHandoff, m: _Member,
+                         sent_at: float) -> None:
         """Remote-transport delivery: bind the wire-round-tripped handoff
         (whose page bytes crossed the process boundary) to the
-        client-held Request and deliver it.  A worker crash mid-ship
-        loses nothing — the original handoff is still parent-side and is
-        simply re-queued for another route."""
+        client-held Request and deliver it; the round trip's seconds and
+        page bytes add to ``handoff_wire_s`` and ``handoff_wire_bytes``.
+        A worker crash mid-ship loses nothing — the original handoff is
+        still parent-side and is simply re-queued for another route."""
         try:
             shipped = fut.result()  # noqa: TMO001 — done-callback: result is ready
         except Exception:  # noqa: BLE001 — WorkerCrashed/RemoteTaskError
@@ -549,6 +550,8 @@ class EngineRouter:
         shipped.request = hand.request
         with self._cond:
             self._stats["handoff_wire_roundtrips"] += 1
+            self._stats["handoff_wire_s"] += time.perf_counter() - sent_at
+            self._stats["handoff_wire_bytes"] += hand.kv_bytes
         self._deliver(shipped, m)
 
     def _deliver(self, hand: KVHandoff, m: _Member) -> None:

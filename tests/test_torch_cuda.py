@@ -5,12 +5,15 @@ card, at every head dim the attention kernels take (16, 32, 64, 96,
 128; the contiguous decode also 24), and at the shapes each served
 config's path gives them (the fleet's whole-prompt prefill widths too);
 the smoke MLA and MoE engines, the threefry sampler, a disaggregated
-fleet, and whisper's and qwen2-vl's paths on the card.  Every test here needs an
+fleet, whisper's and qwen2-vl's paths, and kernels 5 and 3 launched by a
+worker process of the subprocess transport, on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no jax, so it runs where only torch is installed."""
+import os
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1342,3 +1345,44 @@ def test_whisper_decode_step_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert tda.decode_attention_kernel.launches == 2 * cfg.num_decoder_layers * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_kernels_in_a_worker_process_match_plain(dtype, tol):
+    """Kernel 5 (the paged prefill and its cache scatter) and kernel 3
+    (the paged decode) launched by a worker process of the subprocess
+    transport, with its own CUDA context, on inputs made here: each held
+    to its plain version there, the pools written identically, and the
+    launches counted in the worker (the parent's counters stay 0)."""
+    _card()
+    import torch_exec_tasks as T
+    from repro_torch.core.exec import SubprocessTransport
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    B, T_, H, KV, D, page, mp = 3, 64, 32, 4, 64, 16, 8
+    num_pages = B * mp + 1
+    bt = rng.permutation(num_pages)[:B * mp].reshape(B, mp).astype(np.int32)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
+
+    base, clens = np.array([0, 37, 100], np.int32), np.array([64, 20, 1], np.int32)
+    case = {"q": randn(B, T_, H, D), "k_new": randn(B, T_, KV, D),
+            "v_new": randn(B, T_, KV, D), "k_pages": randn(num_pages, page, KV, D),
+            "v_pages": randn(num_pages, page, KV, D),
+            "block_table": torch.from_numpy(bt), "base": torch.from_numpy(base),
+            "chunk_lens": torch.from_numpy(clens), "q_dec": randn(B, H, D),
+            "lens": torch.from_numpy(base + clens)}
+    before = T.launch_counts()
+    pool = SubprocessTransport(max_workers=1, worker_devices=1)
+    try:
+        out = pool.submit(T.run_paged_kernels, case).result(timeout=600)
+    finally:
+        pool.shutdown()
+    assert out["pid"] != os.getpid()
+    assert out["prefill_err"] <= tol and out["decode_err"] <= tol and out["pages_equal"]
+    assert out["launches"] == {**{k: 0 for k in out["launches"]},
+                               "prefill_attention_paged": 1, "paged_scatter": 1,
+                               "decode_attention_paged": 1}
+    assert T.launch_counts() == before

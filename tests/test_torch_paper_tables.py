@@ -2,9 +2,10 @@
 training entry point ``launch.train.run`` as a stage graph (with checkpoint
 resume), ``ServeEngine.run_service`` as a service stage (stop, drain,
 preempt and resume, with streams equal to ``run_until_drained``), the
-paper's tables (``launch.paper_tables``) at a few steps, and the
+paper's tables (``launch.paper_tables``) at a few steps, Fig. 4 at its
+sizes and its operators against JAX's at 2 and 4 shards, and the
 refusals: no GPU without ``device='cpu'``, the JAX package's default
-architecture, Fig. 4.  Mirrors the service-stage tests of
+architecture.  Mirrors the service-stage tests of
 tests/test_serving.py."""
 import pytest
 
@@ -350,8 +351,73 @@ def test_paper_tables_run_every_task_to_done():
 
 
 def test_scaling_figure_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        P.bench_scaling_ops(device="cpu")
+    """Fig. 4 runs at its sizes in this process, every mesh width: strong
+    scaling keeps 40,000 rows, weak scaling 10,000 a shard; sort keeps
+    every row, the join matches the keys below 20,000 (their rows), and
+    nothing drops."""
+    out = P.bench_scaling_ops(device="cpu")
+    assert out["meta"]["device"] == "cpu" and out["meta"]["base_rows"] == 40_000
+    for mode in ("strong", "weak"):
+        assert sorted(out[mode]) == list(P.SCALING_SHARDS)
+        for w, ops in out[mode].items():
+            rows = 40_000 if mode == "strong" else 10_000 * w
+            assert ops["sort"]["rows"] == ops["sort"]["rows_out"] == rows
+            t, _ = P.scaling_tables(rows, 1, CPU)
+            want = int((t.col("k") < rows // 2).sum())
+            assert ops["join"]["rows_out"] == want, (mode, w)
+            assert ops["sort"]["dropped"] == ops["join"]["dropped"] == 0
+            assert all(ops[op]["s"] > 0 for op in ("sort", "join"))
+
+
+# the JAX benchmark's sort and join (benchmarks/paper_tables.py, Fig. 4) at
+# 2 and 4 host devices on its 40,000-row tables: the valid keys of each
+# result in shard order, the join's row count, the drops
+_JAX_SCALING = r"""
+import sys
+import jax, numpy as np
+from repro.dataframe import ops_dist as D
+from repro.dataframe.table import Table
+from repro.launch.mesh import make_mesh
+plain = D.shard_map
+D.shard_map = lambda f, **kw: jax.jit(plain(f, **kw))
+rows, out = 40_000, {}
+for w in (2, 4):
+    mesh = make_mesh((w,), ("data",))
+    rng = np.random.default_rng(0)
+    t = Table.from_columns({"k": rng.integers(0, rows, rows).astype(np.int32),
+                            "v": rng.normal(size=rows).astype(np.float32)}, mesh)
+    r = Table.from_columns({"k": np.arange(rows // 2).astype(np.int32),
+                            "w": np.ones(rows // 2, np.float32)}, mesh)
+    for op in ("sort", "join"):
+        res, dropped = D.sort(t, "k") if op == "sort" else D.join(t, r, "k")
+        valid = np.asarray(res.valid)
+        out[f"{op}/{w}/keys"] = np.asarray(res.columns["k"])[valid]
+        out[f"{op}/{w}/dropped"] = np.asarray(int(dropped))
+np.savez(sys.argv[1], **out)
+"""
+
+
+def test_scaling_ops_match_jax_at_2_and_4_shards(tmp_path):
+    """The port's Fig. 4 operators against JAX's ``ops_dist`` on the same
+    tables at 2 and 4 shards: the sorted keys, the joined rows' keys (so
+    the joined row count) and the drops, exactly."""
+    path = tmp_path / "scaling.npz"
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": str(REPO / "src"),
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    r = subprocess.run([sys.executable, "-c", _JAX_SCALING, str(path)],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with np.load(path) as f:
+        want = dict(f)
+    for w in (2, 4):
+        t, rt = P.scaling_tables(40_000, w, CPU)
+        for op in ("sort", "join"):
+            res, dropped = P.scaling_op(op, t, rt)
+            keys = res.col("k")[res.valid].numpy()
+            np.testing.assert_array_equal(keys, want[f"{op}/{w}/keys"], err_msg=f"{op} {w}")
+            assert int(dropped) == int(want[f"{op}/{w}/dropped"])
+        assert len(want[f"join/{w}/keys"]) == int((t.col("k") < 20_000).sum())
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,10 @@ device quotas, the pluggable task transport, and checkpoint-aware retry
 Like tests/test_torch_runtime.py, scheduling logic runs on FakePilots over
 plain-object devices (carve skips the port's Mesh).
 
-Left out: ``test_cross_node_transport_is_explicitly_unavailable``, a test
-of the JAX package's ``JaxDistributedTransport``, which comes with the
-port's ``core/exec/`` (ROADMAP.md queue 1, item 6); in its place,
-``test_cross_process_transports_raise_naming_their_item``.
+In place of ``test_cross_node_transport_is_explicitly_unavailable``:
+``test_cross_process_transports_raise_naming_their_item``, which holds
+the spec strings to the transports they build and multi-host init to its
+refusal (the worker pools themselves: tests/test_torch_exec_transport.py).
 """
 import threading
 import time
@@ -353,19 +353,28 @@ def test_dead_transport_fails_task_not_dispatcher():
 
 
 def test_cross_process_transports_raise_naming_their_item():
-    """The JAX package's cross-process transports are not ported yet:
-    asking for one raises and names the ROADMAP item that brings it,
-    before any pilot is submitted."""
-    for spec in ("subprocess", "jax-distributed"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            make_transport(spec)
+    """Each spec string builds its transport: the two cross-process specs
+    a worker pool (remote, one worker here), ``"in-process"`` the agent's
+    own pool; real multi-host init raises naming the missing fabric, and
+    an unknown spec raises before any pilot is submitted."""
+    from repro_torch.core.exec import DistributedTransport, SubprocessTransport
+    for spec, cls in (("subprocess", SubprocessTransport),
+                      ("jax-distributed", DistributedTransport)):
+        t = make_transport(spec, max_workers=1, worker_devices=1, device="cpu")
+        try:
+            assert type(t) is cls and t.name == spec and t.remote and t.capacity == 1
+        finally:
+            t.shutdown(wait=False)
+    with pytest.raises(NotImplementedError, match="no multi-host fabric"):
+        make_transport("jax-distributed", init_method="tcp://10.0.0.1:29500",
+                       world_size=2, rank=1, device="cpu")
     assert make_transport("in-process") is None
     with pytest.raises(ValueError, match="unknown transport"):
         make_transport("carrier-pigeon")
     from repro_torch.core import Session
     pm = make_manager(2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        Session(manager=pm, transport="subprocess").run(
+    with pytest.raises(ValueError, match="unknown transport"):
+        Session(manager=pm, transport="carrier-pigeon").run(
             Pipeline("p", [Stage("s", lambda c, u: 1)]))
     assert pm.pilots == [] and pm.free_devices() == 2
 

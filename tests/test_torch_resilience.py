@@ -9,11 +9,11 @@ eject, probe, re-admit: zero requests lost or duplicated, fp32 greedy
 streams token for token those of one JAX engine on the same weights, the
 same fault trace twice), a failed KV-handoff delivery re-routed and not
 lost, a deadline that fails a task cleanly, and
-``Request.reset_for_retry``.
-
-The JAX suite's worker-respawn test (``SubprocessTransport`` respawning
-a crashed worker with policy-driven backoff) waits for the port's
-cross-process transport, ``core/exec/`` (ROADMAP.md queue 1, item 6)."""
+``Request.reset_for_retry``; the subprocess transport respawning a
+crashed worker with policy-driven backoff, and its four fault sites
+(``transport.dispatch``: ``crash_worker``, ``stall_heartbeat``;
+``protocol.recv``: ``drop``, ``delay``) fired against real worker
+processes and recovered from."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -342,6 +342,73 @@ def test_deadline_expiry_fails_cleanly_devices_recycled():
             time.sleep(0.01)
         assert pilot.free_count() == 4
         assert agent.quota_violations() == {}
+
+
+# ---------------------------------------------------------------------------
+# the subprocess transport: respawn backoff and the exec fault sites
+# ---------------------------------------------------------------------------
+
+
+def test_worker_respawn_backoff_recorded():
+    import torch_exec_tasks as T
+    from repro_torch.core.exec import SubprocessTransport, WorkerCrashed
+
+    plan = FaultPlan(seed=1).crash_worker(worker=0, at_task=1)
+    sub = SubprocessTransport(max_workers=1, worker_devices=1, device="cpu",
+                              heartbeat_s=0.1, heartbeat_timeout_s=2.0)
+    try:
+        with inject(plan) as inj:
+            fut = sub.submit(T.add_one, 41, label="doomed-dispatch")
+            with pytest.raises(WorkerCrashed):
+                fut.result(timeout=120)
+            assert inj.all_fired()
+            # the respawned worker serves the retry
+            assert sub.submit(T.add_one, 41).result(timeout=120) == 42
+        st = sub.stats()
+    finally:
+        sub.shutdown(wait=True)
+    assert st["respawns"] >= 1
+    entry = st["respawn_log"][0]
+    assert entry["worker"] == 0 and entry["streak"] == 1
+    # policy-driven backoff: non-zero, bounded, jittered off the base
+    assert 0.01 <= entry["delay_s"] <= 5.0
+
+
+@pytest.mark.parametrize("site", ["crash_worker", "stall_heartbeat", "drop", "delay"])
+def test_exec_fault_site_fires_and_is_recovered(site):
+    """Each fault the transport's sites inject is detected by the path
+    that catches its real counterpart — process exit, the heartbeat
+    backstop, the attempt deadline — or only slows the reply; the pool
+    serves the next task either way."""
+    import torch_exec_tasks as T
+    from repro_torch.core.exec import SubprocessTransport, WorkerCrashed
+
+    plan = {"crash_worker": lambda p: p.crash_worker(worker=0, at_task=1),
+            "stall_heartbeat": lambda p: p.stall_heartbeat(30.0, worker=0, at_task=1),
+            "drop": lambda p: p.drop_reply(nth=1),
+            "delay": lambda p: p.delay_reply(0.5, nth=1)}[site](FaultPlan(seed=2))
+    sub = SubprocessTransport(
+        max_workers=1, worker_devices=1, device="cpu", heartbeat_s=0.1,
+        heartbeat_timeout_s=1.0,
+        policy=FailurePolicy(backoff_base_s=0.05, attempt_timeout_s=3.0))
+    try:
+        assert sub.wait_ready(timeout=120)
+        with inject(plan) as inj:
+            t0 = time.time()
+            fut = sub.submit(T.sleep_for, 0.2 if site != "stall_heartbeat" else 2.0)
+            if site == "delay":
+                assert fut.result(timeout=120) == 0.2
+                assert time.time() - t0 >= 0.7
+            else:
+                reason = {"crash_worker": "died while running", "drop": "deadline",
+                          "stall_heartbeat": "no heartbeat"}[site]
+                with pytest.raises(WorkerCrashed, match=reason):
+                    fut.result(timeout=120)
+            assert inj.all_fired(), inj.pending()
+            assert [e[2] for e in inj.trace()] == [site]
+        assert sub.submit(T.add_one, 1).result(timeout=120) == 2
+    finally:
+        sub.shutdown(wait=False)
 
 
 # ---------------------------------------------------------------------------

@@ -2,14 +2,25 @@
 tests of tests/test_system.py): the paper's pipeline (data engineering ->
 zero-copy bridge -> DL training -> postprocess) under the port's pilot
 runtime on the CPU, held to the JAX package's pipeline on the same table
-and unshuffled batches; N pipelines on a shared pilot; task isolation.
+and unshuffled batches; N pipelines on a shared pilot; task isolation;
+and in-process mirrors of two spawned suites of tests/test_system.py on
+an 8-device pilot of stand-in devices: ``test_runtime_fault_tolerance``
+(tests/spawn/runtime_ft.py: retries, the elastic re-carve after a
+DeviceFailure, disjoint pools, a DAG, checkpoints) and
+``test_subprocess_transport_multiprocess_e2e``
+(tests/spawn/subprocess_transport.py: concurrent 2-device tasks over a
+worker pool, a SIGKILL and the checkpoint retry, a pipeline across two
+pods over one pool, the reap).
 
-Left out: the spawned multi-device suites of tests/test_system.py
-(``test_distributed_dataframe_ops``, ``test_runtime_fault_tolerance``,
-``test_distributed_extras``, ``test_subprocess_transport_multiprocess_e2e``):
-they need meshes over processes, the distributed extras and the
-subprocess transport, which come with ROADMAP.md queue 1, item 6.
+Left out: ``test_distributed_dataframe_ops`` (the port's dataframe
+against JAX's at 8 devices is tests/test_torch_dataframe.py) and
+``test_distributed_extras`` (pipeline parallelism and int8 gradient
+compression, ROADMAP.md queue 1, item 6).
 """
+import os
+import time
+from types import SimpleNamespace
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,9 +40,10 @@ from repro.dataframe.ops_local import filter_rows as j_filter_rows  # noqa: E402
 from repro.dataframe.table import Table as JTable  # noqa: E402
 from repro_torch.core.agent import RemoteAgent  # noqa: E402
 from repro_torch.core.bridge import cylon_stage, data_bridge, dl_stage  # noqa: E402
-from repro_torch.core.pilot import PilotDescription, PilotManager  # noqa: E402
-from repro_torch.core.pipeline import Pipeline, run_pipelines  # noqa: E402
-from repro_torch.core.task import TaskDescription, TaskState  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.core.pilot import Pilot, PilotDescription, PilotManager  # noqa: E402
+from repro_torch.core.pipeline import Pipeline, Stage, run_pipelines  # noqa: E402
+from repro_torch.core.task import DeviceFailure, TaskDescription, TaskState  # noqa: E402
 from repro_torch.dataframe.ops_local import filter_rows  # noqa: E402
 from repro_torch.dataframe.table import Table  # noqa: E402
 
@@ -207,3 +219,170 @@ def test_task_isolation():
     assert by_name["good"].result["device_ids"] == [0]
     assert by_name["bad"].state == TaskState.FAILED
     assert "boom" in by_name["bad"].error
+
+
+# ---------------------------------------------------------------------------
+# in-process mirrors of the spawned suites, on 8 stand-in devices
+# ---------------------------------------------------------------------------
+
+
+class _StandIn:
+    """A device of the 8-device pilot (the spawned suites' emulated pool)."""
+
+    def __init__(self, i):
+        self.id = i
+        self.platform = "cpu"
+
+
+class _StandInPilot(Pilot):
+    """A pilot over stand-in devices: carve returns a mesh-free
+    communicator of the leased devices."""
+
+    def carve(self, devices, mesh_shape=None, mesh_axes=("data",)):
+        return SimpleNamespace(devices=tuple(devices), size=len(devices),
+                               backend="stand-in", build_time_s=0.0,
+                               pilot_uid=self.uid, device=CPU)
+
+
+def _stand_in_manager(n=8):
+    return PilotManager(devices=[_StandIn(i) for i in range(n)],
+                        pilot_factory=_StandInPilot)
+
+
+def _compute(comm, x):
+    return float(torch.ones(x, device=comm.device).sum())
+
+
+class _Flaky:
+    """Fails its first two calls (a transient fault), then recovers."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, comm):
+        self.n += 1
+        if self.n < 3:
+            raise RuntimeError("transient")
+        return "recovered"
+
+
+class _FailingDevices:
+    """The first attempt loses two of its devices; the retry reports the
+    width it was re-carved at."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, comm):
+        self.calls += 1
+        if self.calls == 1:
+            raise DeviceFailure([d.id for d in comm.devices[:2]])
+        return comm.size
+
+
+def test_runtime_fault_tolerance(tmp_path):
+    """tests/spawn/runtime_ft.py on 8 stand-in devices."""
+    pm = _stand_in_manager()
+    pilot = pm.submit_pilot(PilotDescription(num_devices=8))
+    agent = RemoteAgent(pilot, max_workers=4)
+    try:
+        tasks = agent.submit([TaskDescription(name=f"t{i}", fn=_compute, args=(100 + i,),
+                                              num_devices=2) for i in range(6)])
+        assert all(t.state is TaskState.DONE for t in tasks), [t.error for t in tasks]
+        assert [t.result for t in tasks] == [100.0 + i for i in range(6)]
+        assert set(tasks[0].overhead_s) >= {"queue", "communicator"}
+        t, = agent.submit([TaskDescription(name="flaky", fn=_Flaky(), max_retries=3)])
+        assert t.state is TaskState.DONE and t.result == "recovered" and t.attempts == 3
+        t, = agent.submit([TaskDescription(name="devfail", fn=_FailingDevices(),
+                                           num_devices=8, max_retries=2)])
+        assert t.state is TaskState.DONE, t.error
+        assert t.result == 6  # re-carved on the 6 survivors
+        assert len(pilot.alive_devices()) == 6
+        with pytest.raises(RuntimeError):
+            pm.submit_pilot(PilotDescription(num_devices=2))  # no overlapping pool
+    finally:
+        agent.close()
+    assert pm.cancel_pilot(pilot) == 6  # the 2 failed devices stay retired
+    pilot2 = pm.submit_pilot(PilotDescription(num_devices=4))
+    pilot3 = pm.submit_pilot(PilotDescription(num_devices=2))
+    ids2 = {d.id for d in pilot2.alive_devices()}
+    ids3 = {d.id for d in pilot3.alive_devices()}
+    assert not ids2 & ids3, f"pilot pools overlap: {ids2 & ids3}"
+    with RemoteAgent(pilot2, max_workers=2) as agent2:
+        out = Pipeline("demo", [Stage("produce", lambda comm, up: 21),
+                                Stage("consume", lambda comm, up: up["produce"] * 2,
+                                      deps=("produce",))]).run(agent2)
+    assert out["consume"] == 42
+    state = {"w": torch.arange(32, dtype=torch.float32).reshape(8, 4),
+             "step": torch.tensor(7)}
+    store.save(str(tmp_path / "ckpt"), 7, state)
+    restored = store.restore(str(tmp_path / "ckpt"), state)
+    assert torch.equal(restored["w"], state["w"]) and int(restored["step"]) == 7
+    ac = store.AsyncCheckpointer(str(tmp_path / "async"), keep=2)
+    for s in range(4):
+        ac.save(s, state)
+    ac.close()
+    assert store.latest_step(str(tmp_path / "async")) == 3
+    assert sorted(os.listdir(tmp_path / "async")) == ["step_00000002", "step_00000003"]
+
+
+def test_subprocess_transport_multiprocess_e2e(tmp_path):
+    """tests/spawn/subprocess_transport.py: an 8-device pilot of stand-in
+    devices whose attempts run in worker processes of 2 logical devices
+    each."""
+    import torch_exec_tasks as T
+    from repro_torch.core import Session
+    from repro_torch.core.exec import SubprocessTransport
+
+    transport = SubprocessTransport(max_workers=2, worker_devices=2, device="cpu")
+    try:
+        pm = _stand_in_manager()
+        pilot = pm.submit_pilot(PilotDescription(num_devices=8))
+        agent = RemoteAgent(pilot, transport=transport, max_workers=2)
+        tasks = agent.submit([TaskDescription(name=f"t{i}", fn=T.mesh_info,
+                                              args=(64 + i,), num_devices=2)
+                              for i in range(4)])
+        assert all(t.state is TaskState.DONE for t in tasks), [t.error for t in tasks]
+        pids = {t.result["pid"] for t in tasks}
+        assert os.getpid() not in pids and 1 <= len(pids) <= 2
+        for i, t in enumerate(tasks):
+            # the worker's pool is its own 2 logical devices, not the 8
+            assert t.result["worker_devices"] == 2 and t.result["comm_devices"] == 2
+            assert t.result["total"] == 64.0 + i
+        ckpt = str(tmp_path / "ckpt")
+        task, = agent.submit([TaskDescription(
+            name="train", fn=T.train_then_die, args=(ckpt,), checkpoint_dir=ckpt,
+            max_retries=2, group="g")])
+        assert task.state is TaskState.DONE, task.error
+        assert task.result[:2] == ("resumed", 7) and task.attempts == 2
+        assert agent.quota_violations() == {}
+        assert pilot.free_count() == 8, "lease leaked across worker death"
+        agent.close()
+        pm.cancel_pilot(pilot)
+        with Session(manager=pm, pods=[
+                PilotDescription(num_devices=4, name="pod-a",
+                                 task_kinds=("data_engineering",)),
+                PilotDescription(num_devices=4, name="pod-b", task_kinds=("train",))],
+                max_workers_per_pilot=1, transport=transport) as session:
+            out = session.run(T.shuffle_stage.bind(4096, 4, 0) >> T.reduce_stage,
+                              name="xpod")
+        assert out["reduce"]["rows"] == 4096 and out["reduce"]["dropped"] == 0
+        assert {out["shuffle"]["pid"], out["reduce"]["pid"]} <= set(transport.worker_pids())
+        pids = transport.worker_pids()
+    finally:
+        transport.shutdown(wait=False)
+    deadline = time.time() + 10
+    alive = pids
+    while alive and time.time() < deadline:
+        alive = [p for p in pids if _alive(p)]
+        time.sleep(0.05)
+    assert not alive, f"orphaned workers: {alive}"
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except (ProcessLookupError, OSError):
+        return False
