@@ -145,9 +145,10 @@ non-zero:
             it serves 4 greedy requests of the mixed workload on each KV
             layout, on the serve phase's engine settings; counters as in
             the serve phase: the layout's kernels launched, no other.
-   mla_moe  minicpm3-4b (MLA) at its published widths (62 layers,
-            d_model 2560, 40 heads padded to 48, q_lora 768, kv_lora 256,
-            nope 64, rope 32, v 64, vocab 73448; fp32 parameters, 4.40 B)
+   mla_moe  minicpm3-4b (MLA) at its published widths and 16 of its 62
+            layers (MLA_LAYERS; d_model 2560, 40 heads padded to 48,
+            q_lora 768, kv_lora 256, nope 64, rope 32, v 64, vocab 73448;
+            fp32 parameters)
             and then moonshot-v1-16b-a3b (MoE) at its (48 layers, d_model
             2048, 16 heads, head_dim 128, 64 experts top-6, d_ff 1408, the
             first layer dense with d_ff 11264, vocab 163840; bf16
@@ -175,8 +176,9 @@ non-zero:
             layers, and again in each layer's recompute under remat), the
             serving kernels never.  The mean loss of the last 5 steps must
             be below that of the first 5.  Then one profiled step, and the
-            state saved with AsyncCheckpointer and restored into a fresh
-            state, bitwise.
+            state, cut to its first 4 layers (CKPT_LAYERS, 3.7 GB of the
+            13.2), saved with AsyncCheckpointer and restored into a fresh
+            state of that depth, bitwise.
 8. parity   fp32 training (TF32 off) from one initial state: 3 steps on
             the kernel path and 3 on the plain path (``decode_impl="ref"``);
             loss and grad-norm must agree at every step within TRAIN_TOL.
@@ -227,6 +229,33 @@ non-zero:
             dropped reply (each planned fault fires); no worker compiled a
             library; every worker reaped.  The launches counted in the
             workers join rows 3, 5 and 7.
+   distributed  ``repro_torch.distributed`` and the dataframe on a process
+            mesh (phase_distributed): DIST_RANKS rank processes on the one
+            card, each with its own CUDA context, in a gloo group meeting
+            through a TCP store on 127.0.0.1 (NCCL refuses two ranks on
+            one device, "Duplicate GPU detected"; gloo takes the card's
+            tensors in every collective, and its point-to-point send of
+            one aborts the process, so the pipeline's messages go through
+            host copies), then one NCCL rank in this process, where every
+            collective must be the identity (tests/torch_dist_ranks.py
+            ``card``).  The dataframe over DIST_ROWS rows in all (an int32
+            key uniform in [0, 2^20), an fp32 value; the 2^20-row right
+            table): shuffle, sort, join, groupby_sum, reduce_sum on the
+            process mesh equal to the same table on a logical mesh of as
+            many shards in the rank (columns, masks and drops bitwise,
+            groupby sums within DF_PAIR_ATOL), kernel 7 exactly 1 / 0 / 2
+            / 1 / 0 times per rank, counted in the ranks; tinyllama-1.1b's
+            whole gradient tree (fp32, 1.1 B elements) from one B 2 x S
+            512 backward per rank on its own batch, synced with
+            ``compressed_grad_sync`` within INT8_REL_TOL of the fp32
+            all_reduce mean, bitwise the same on every rank, bytes handed
+            to the wire and ms of both; error feedback over DIST_EF_SYNCS
+            syncs of the embedding's gradient no further from the truth
+            than EF_RATIO x the plain syncs; GPipe over the ranks of
+            DIST_MICRO microbatches of [8, 512, 2048] (JAX's stage x * 2 +
+            w_i) equal to the sequential result within PIPE_RTOL on every
+            rank, ms per microbatch.  Each op's backend, world size and
+            tensor device are printed.  The ranks' launches join row 7.
 9. dataframe  a 2^26-row table (int32 keys uniform in [0, 2^20), float32
             v, x1, x2 and y = 3 x1 - 2 x2 + noise, from numpy at SEED) on 8
             logical shards of the card: shuffle, sort, join with a 2^20-row
@@ -272,7 +301,7 @@ non-zero:
             d_model 768, 4 heads, mLSTM and sLSTM blocks) through the
             training driver with no --arch (its default), B 8 x S 512,
             XLSTM_STEPS (6) steps: the loss falls and no port kernel launches (JAX's xlstm
-            path runs no Pallas kernel); one step profiled; 3 fp32 steps at
+            path runs no Pallas kernel); 3 fp32 steps at
             B 2 x S 64 from one state on the card and on the host CPU, loss
             and grad-norm within TRAIN_TOL.  recurrentgemma-9b (38 layers,
             d_model 4096, 12 local layers of H 16, KV 1, head dim 256 over
@@ -281,11 +310,23 @@ non-zero:
             last logits at S 64 against the decode replay's at position 63
             within 1e-3 of their max abs, then 32 greedy tokens, the kernel
             path's stream equal to the plain path's; then with bf16
-            parameters (19.1 GB), B 4 decoded through 2112 positions (the
-            ring wraps): kernel 2 exactly 12 times a step and nothing
-            else, every logit finite, the last step's next tokens equal to
+            parameters at 6 of its 38 layers (two units: 2 RG-LRU, 1
+            local each), B 4 decoded through 2112 positions (the ring
+            wraps): kernel 2 exactly twice a step and nothing else, every logit finite, the last step's next tokens equal to
             the plain path's on a clone of the cache (a near-tie recorded
-            with its gap); tokens/s, step p50, seconds.
+            with its gap); tokens/s, step p50, seconds.  Last,
+            recurrentgemma-9b trains under its published remat policy
+            (save_block_outputs) at full width and 3 of its 38 layers (one
+            unit: 2 RG-LRU, 1 local), fp32 parameters: GEMMA_TRAIN_STEPS
+            steps of B 2 x S 4096 in bf16 through the training driver
+            (``launch.train.run``; its final checkpoint write of the 32.2
+            GB state replaced by a stand-in: GEMMA_CKPT_NOTE), the loss
+            falling (postprocess ``improved``), no port kernel launched
+            (JAX's path for these blocks has no Pallas kernel); then
+            GEMMA_PARITY_STEPS fp32 steps (Adafactor: GEMMA_PARITY_OPTIMIZER)
+            from one state under no remat, "full" and "save_block_outputs",
+            loss and grad-norm within TRAIN_TOL, peak memory and step ms of
+            each and the memory its forward and backward hold.
 14. encdec  whisper-medium at its published widths (24 + 24 layers,
             d_model 1024, 16 heads, head dim 64, d_ff 4096 GELU, vocab
             51865; 0.81 B parameters in fp32, random from a seeded
@@ -331,8 +372,10 @@ table ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -343,6 +386,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
@@ -380,8 +424,10 @@ from repro_torch.launch.train import make_corpus  # noqa: E402
 from repro_torch.models.lm import lm_paged_cache_specs  # noqa: E402
 from repro_torch.serve import Request, RequestState, ServeEngine  # noqa: E402
 from repro_torch.train.state import init_train_state, model_specs  # noqa: E402
-from repro_torch.train.step import make_prefill_chunk_step, make_train_step  # noqa: E402
+from repro_torch.train.step import (make_loss_fn, make_prefill_chunk_step,  # noqa: E402
+                                    make_train_step)
 import paged_scatter_cases  # noqa: E402
+import torch_dist_ranks as DR  # noqa: E402
 import torch_exec_tasks as XT  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -399,6 +445,10 @@ PHI3, PHI3_REQUESTS = "phi3-mini-3.8b", 4
 # per layout; moonshot's parameters are bf16 (fp32 would be 110 GB)
 MLA, MOE, MLA_MOE_REQUESTS = "minicpm3-4b", "moonshot-v1-16b-a3b", 4
 MOE_PARAM_DTYPE = torch.bfloat16
+# minicpm3 serves at MLA_LAYERS of its 62 layers (cut in depth for the
+# 1200 s limit: at 62 the phase took 106-179 s, PERF.md section 7; the
+# kernel's shape does not depend on the depth)
+MLA_LAYERS = 16
 # the sampling phase: seeds of the threefry check (64, half >= 2^32), and
 # the temperature of the sampled serving run
 SAMPLE_SEEDS, SAMPLE_TEMPERATURE = 64, 1.0
@@ -462,6 +512,11 @@ TC_SASS = {"decode_attention": "HMMA", "decode_attention_paged": "HMMA",
 # TF32 off, but they sum in other orders (and the embedding gather's
 # backward adds with atomics), which AdamW's normalised steps carry on
 TRAIN_B, TRAIN_S, TRAIN_STEPS, PARITY_STEPS = 8, 512, 20, 3
+# the train phase's checkpoint round trip holds the trained state cut to
+# its first CKPT_LAYERS layers (the whole 13.2 GB state took 118-133 s to
+# write of the 1200 s limit, PERF.md section 7; the runtime phase's
+# driver writes its own state whole)
+CKPT_LAYERS = 4
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 # rmsnorm, kernel vs plain, as atol = rtol (tests/test_kernels.py's
 # tolerances): fp32 sums in another order; bf16 one ulp of the cast,
@@ -496,17 +551,23 @@ NNSE_TARGETS, PAPER_PROFILE_STEPS = ("mean_temperature", "streamflow"), 5
 # 6 steps since the exec phase joined the run (10 before: 65 s of the
 # 1200 s limit, PERF.md section 7): the driver's postprocess holds the
 # mean of the last 5 losses below that of the first 5, which needs 6.
+# No step is profiled since the distributed phase joined (the profiler
+# took 29.8 s over one step's 142,672 kernels; PERF.md section 5 keeps
+# the earlier profile, the xlstm code unchanged since).
 # recurrentgemma-9b with fp32 parameters and compute: the no-cache
 # prefill's last logits against the decode replay's at the same position
 # within GEMMA_PREFILL_TOL of their max abs, then GEMMA_GEN greedy tokens
 # on the kernel path and the plain path; then with bf16 parameters, B
 # GEMMA_RING_B decoded token by token through GEMMA_RING_STEPS positions,
-# past the 2048-slot ring of its local layers
+# past the 2048-slot ring of its local layers, at GEMMA_RING_LAYERS of its
+# 38 layers (two units, 2 local layers: the 38-layer run took 141.6 s of
+# the 1200 s limit, PERF.md section 7; the ring and kernel 2's shape do
+# not depend on the depth)
 XLSTM, GEMMA = "xlstm-125m", "recurrentgemma-9b"
 XLSTM_B, XLSTM_S, XLSTM_STEPS = 8, 512, 6
 XLSTM_PARITY_B, XLSTM_PARITY_S, XLSTM_PARITY_STEPS = 2, 64, 3
 GEMMA_B, GEMMA_PREFILL_S, GEMMA_GEN, GEMMA_PREFILL_TOL = 2, 64, 32, 1e-3
-GEMMA_RING_B, GEMMA_RING_STEPS = 4, 2112
+GEMMA_RING_B, GEMMA_RING_STEPS, GEMMA_RING_LAYERS = 4, 2112, 6
 # kernel 2 at recurrentgemma's ring decode: B rows over a full ring of S
 # slots (the checks' lengths in ring_decode_cases)
 RING_B, RING_S = 8, 2048
@@ -556,6 +617,35 @@ EXEC_ROWS, EXEC_SHARDS = 1 << 24, 8
 EXEC_REQUESTS, EXEC_PREEMPT_REQUESTS = 8, 4
 EXEC_FLEET_REQUESTS, EXEC_FLEET_GEN, EXEC_FLEET_SLOTS = 4, 6, 2
 EXEC_ATTEMPT_S = 5.0
+# the distributed phase: DIST_RANKS gloo rank processes on the one card,
+# then one NCCL rank in this process; tables of DIST_ROWS rows in all
+# (groupby slots for every key on a shard); tinyllama's whole gradient
+# tree from one backward of B DIST_GRAD_B x S TRAIN_S per rank; DIST_EF_SYNCS syncs of
+# the embedding's gradient with error feedback; GPipe of DIST_MICRO
+# microbatches of [TRAIN_B, TRAIN_S, d_model]; the quantized sync within
+# INT8_REL_TOL of the exact mean (max abs error over max abs, per leaf:
+# JAX's bound), error feedback no worse than EF_RATIO x the plain syncs
+# (JAX's check), GPipe within PIPE_RTOL of the sequential result
+DIST_RANKS, DIST_ROWS, DIST_GRAD_B, DIST_EF_SYNCS, DIST_MICRO = 2, 1 << 25, 2, 8, 8
+DIST_TIMEOUT_S = 400
+INT8_REL_TOL, EF_RATIO, PIPE_RTOL, DF_REDUCE_RTOL = 0.02, 1.05, 1e-5, 1e-5
+# recurrentgemma-9b trained under its published remat policy: 3 of its 38
+# layers (one unit), B x S in bf16 through the driver for as many steps,
+# then fp32 steps at GEMMA_PARITY_B x S under each remat mode
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_B, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 3, 2, 4096, 6
+GEMMA_PARITY_B, GEMMA_PARITY_STEPS = 1, 2
+# the fp32 steps' optimizer: Adafactor's factored moments, so that three
+# runs of the 2.69 B-parameter model stay on the card beside what this
+# process holds by then (AdamW's two moments and its temporaries on the
+# 4.2 GB embedding peaked at 72.4 GB alone and ran out of memory in the
+# whole script); the remat policy is a property of the forward and
+# backward, which the optimizer does not touch
+GEMMA_PARITY_OPTIMIZER = "adafactor"
+GEMMA_CKPT_NOTE = ("the driver's final checkpoint of the 32.2 GB train state (the "
+                   "untied 256000 x 4096 embedding and head, AdamW's moments) would "
+                   "take ~250 s at the ~127 MB/s the train phase's write runs; the "
+                   "stand-in records the step the driver saves; the runtime phase "
+                   "writes the driver's checkpoint for real")
 
 
 def emit(obj) -> None:
@@ -2094,9 +2184,10 @@ def phase_sampling(cfg, params):
 # -- MLA and MoE serving at full width -----------------------------------------------
 
 
-def serve_family(arch, param_dtype=torch.float32, stream=False):
-    """``arch`` at its published widths (random weights from a seeded
-    torch.Generator, stored in ``param_dtype``): its path's kernels held
+def serve_family(arch, param_dtype=torch.float32, stream=False, layers=None):
+    """``arch`` at its published widths and ``layers`` of its layers (all
+    by default; random weights from a seeded torch.Generator, stored in
+    ``param_dtype``): its path's kernels held
     against their plain versions at the shapes its serving path gives
     them (fp32 and bf16); MLA_MOE_REQUESTS greedy requests per layout,
     the layout's path kernels launched and no other (phase_serve); with
@@ -2107,6 +2198,8 @@ def serve_family(arch, param_dtype=torch.float32, stream=False):
     cases = [c for dtype in (torch.float32, torch.bfloat16)
              for c in serving_shape_cases(gen, arch, dtype)]
     cfg = get_config(arch).with_overrides(param_dtype=param_dtype)
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers)
     specs = map_tree(lambda p: Param(p.shape, p.axes, param_dtype, p.init, p.scale),
                      model_specs(cfg))
     params = init_params(torch.Generator(device="cuda").manual_seed(SEED), specs, "cuda")
@@ -2472,7 +2565,7 @@ def phase_mla_moe():
     kernel 2 timed at the MLA serving shape and kernels 3 and 5 at
     moonshot's (shape_rows).  Returns each phase's launches per kernel
     and the rows."""
-    cfg, launches, shapes = serve_family(MLA, stream=True)
+    cfg, launches, shapes = serve_family(MLA, stream=True, layers=MLA_LAYERS)
     mla_launches = {k: sum(launches[layout][k] for layout in LAYOUTS) for k in COUNTED}
     rows = shape_rows(cfg, mla_launches, shapes, ("decode_attention",))
     cfg, launches, shapes = serve_family(MOE, param_dtype=MOE_PARAM_DTYPE)
@@ -2532,10 +2625,21 @@ def profile_train_step(step_fn, state, batch):
     return state, out
 
 
+def cut_depth(state, layers: int):
+    """``state`` with every stacked leaf under a ``"unit"`` key (the
+    parameters' and the optimizer's) cut to its first ``layers`` layers."""
+    def walk(t, in_unit):
+        if isinstance(t, dict):
+            return {k: walk(v, in_unit or k == "unit") for k, v in t.items()}
+        return t[:layers] if in_unit else t
+    return walk(state, False)
+
+
 def phase_train(cfg):
     """The training path at full width: 20 steps with every counter zeroed
     just before and read just after, one profiled step, then a checkpoint
-    round trip.  Returns the flash launches and device us per launch."""
+    round trip of the trained state cut to CKPT_LAYERS layers.  Returns
+    the flash launches and device us per launch."""
     t_phase = time.perf_counter()
     run_cfg = RunConfig()
     state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg,
@@ -2582,8 +2686,10 @@ def phase_train(cfg):
     state, prof = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
     out["profile"] = prof
 
-    # checkpoint round trip: snapshot + background write, then restore into
-    # a fresh state, every leaf bitwise
+    # checkpoint round trip of the trained state's first CKPT_LAYERS layers:
+    # snapshot + background write, then restore into a fresh state of that
+    # depth, every leaf bitwise
+    state = cut_depth(state, CKPT_LAYERS)
     ckdir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckdir, ignore_errors=True)
     t0 = time.perf_counter()
@@ -2593,7 +2699,7 @@ def phase_train(cfg):
     ckpt.close()
     save_s = time.perf_counter() - t0
     fresh = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 1),
-                             cfg, run_cfg)
+                             cfg.with_overrides(num_layers=CKPT_LAYERS), run_cfg)
     t0 = time.perf_counter()
     restored = store.restore(str(ckdir), fresh)
     torch.cuda.synchronize()
@@ -2605,7 +2711,7 @@ def phase_train(cfg):
            if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
     if bad:
         raise AssertionError(f"restored leaves differ: {bad}")
-    out["checkpoint"] = {"leaves": len(leaves), "bitwise_equal": True,
+    out["checkpoint"] = {"layers": CKPT_LAYERS, "leaves": len(leaves), "bitwise_equal": True,
                          "state_bytes": sum(a.numel() * a.element_size()
                                             for a, _ in leaves),
                          "disk_bytes": disk_bytes, "snapshot_s": snapshot_s,
@@ -3542,6 +3648,134 @@ def phase_exec(cfg):
     return launches
 
 
+def dist_spec(cfg):
+    """The card scenario's sizes (tests/torch_dist_ranks.py ``card``)."""
+    return {"device": "cuda", "seed": SEED, "df_rows": DIST_ROWS, "df_keys": DF_KEYS,
+            "df_atol": DF_PAIR_ATOL, "reduce_rtol": DF_REDUCE_RTOL,
+            "arch": ARCH, "smoke": False,
+            "grad_b": DIST_GRAD_B, "grad_s": TRAIN_S, "ef_syncs": DIST_EF_SYNCS,
+            "pipe_micro": DIST_MICRO, "pipe_shape": [TRAIN_B, TRAIN_S, cfg.d_model]}
+
+
+def dist_problems(res, backend, world):
+    """What fails in one rank's card scenario: the dataframe pairs and
+    kernel 7's launches, the int8 sync's error, error feedback, GPipe,
+    and each op's backend, world and device (the pipeline's messages on
+    the host under gloo, every other tensor on the card)."""
+    bad = []
+    for name, row in res["dataframe"].items():
+        if not row["equal"] or row["dropped"] or row["dropped_logical"]:
+            bad.append(f"dataframe {name}: {row}")
+        if row["hash_launches"] != DF_LAUNCHES[name]:
+            bad.append(f"{name}: kernel 7 launched {row['hash_launches']}, "
+                       f"expected {DF_LAUNCHES[name]}")
+    g = res["grads"]
+    if not g["max_rel_err"] < INT8_REL_TOL:
+        bad.append(f"int8 sync error {g['max_rel_err']}")
+    if not g["ef_err"] <= EF_RATIO * g["plain_err"]:
+        bad.append(f"error feedback {g['ef_err']} vs plain {g['plain_err']}")
+    if not res["pipeline"]["max_rel_diff"] <= PIPE_RTOL:
+        bad.append(f"pipeline {res['pipeline']}")
+    for op, entries in res["wire"].items():
+        host = backend == "gloo" and op in ("send", "recv")
+        want = {"backend": backend, "world": world,
+                "device": "cpu" if host else "cuda:0"}
+        if entries != [want]:
+            bad.append(f"{op} ran on {entries}, expected {want}")
+    if world == 1 and not (res["identity"] and g["identity"]):
+        bad.append("a collective at world 1 was not the identity")
+    return bad
+
+
+def phase_distributed(cfg):
+    """The process mesh, the collectives and GPipe on the card: DIST_RANKS
+    gloo rank processes, then one NCCL rank in this process (every
+    collective the identity), the same scenario in each (module
+    docstring).  Every rank reaped on every exit path; a failed rank fails
+    the phase.  Returns kernel 7's launches, counted in the ranks and
+    here."""
+    t_phase = time.perf_counter()
+    spec = dist_spec(cfg)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        t0 = time.perf_counter()
+        ranks = DR.launch("card", DIST_RANKS, workdir, spec=spec,
+                          timeout=DIST_TIMEOUT_S, threads=4)
+        ranks_s = time.perf_counter() - t0
+    # world 1 on NCCL, in this process
+    dist.init_process_group("nccl", store=DR.host_store(1), rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        one = DR.card(spec)
+        one_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    bad = [f"rank {r['rank']}: {b}" for r in ranks for b in dist_problems(r, "gloo", DIST_RANKS)]
+    bad += [f"nccl world 1: {b}" for b in dist_problems(one, "nccl", 1)]
+    if len({tuple(r["grads"]["checksums"]) for r in ranks}) != 1:
+        bad.append("the ranks' int8-synced gradients differ")
+    wire = {"gloo_world_2": {op: e for r in ranks for op, e in r["wire"].items()},
+            "nccl_world_1": one["wire"]}
+    for world, ops_ in wire.items():
+        for op, entries in sorted(ops_.items()):
+            print(f"distributed: {world} {op}: " + ", ".join(
+                f"backend {e['backend']}, world {e['world']}, tensors on {e['device']}"
+                for e in entries), flush=True)
+    launches = sum(row["hash_launches"] for r in ranks + [one]
+                   for row in r["dataframe"].values())
+    per_rank = lambda key: [{n: row[key] for n, row in r["dataframe"].items()}  # noqa: E731
+                            for r in ranks]
+    g = [r["grads"] for r in ranks]
+    out = {"phase": "distributed", "ok": not bad, "gpu": gpu_line(),
+           "torch": torch.__version__, "ranks": DIST_RANKS,
+           "backends": {"world_2": "gloo (NCCL: 'Duplicate GPU detected' for two ranks "
+                                   "on one device); the pipeline's send/recv through "
+                                   "host copies (gloo's send of a card tensor aborts)",
+                        "world_1": "nccl"},
+           "wire": wire,
+           "dataframe": {"rows": DIST_ROWS, "rows_per_rank": DIST_ROWS // DIST_RANKS,
+                         "right_rows": DF_KEYS, "ms_process": per_rank("ms_process"),
+                         "ms_logical": per_rank("ms_logical"),
+                         "hash_launches": per_rank("hash_launches"),
+                         "equal": per_rank("equal"),
+                         "groupby_sum_max_abs_diff": [r["dataframe"]["groupby"][
+                             "groupby_sum_max_abs_diff"] for r in ranks],
+                         "tolerance": {"groupby sums abs": DF_PAIR_ATOL,
+                                       "reduce rel": DF_REDUCE_RTOL, "else": "bitwise"}},
+           "grads": {"arch": ARCH, "layers": g[0]["layers"], "params": g[0]["params"],
+                     "leaves": g[0]["leaves"], "batch_per_rank": [DIST_GRAD_B, TRAIN_S],
+                     "fp32_ms": [x["fp32_ms"] for x in g],
+                     "int8_ms": [x["int8_ms"] for x in g],
+                     "fp32_bytes": g[0]["fp32_bytes"], "int8_bytes": g[0]["int8_bytes"],
+                     "max_rel_err": [x["max_rel_err"] for x in g], "tol": INT8_REL_TOL,
+                     "ranks_bitwise_equal": len({tuple(x["checksums"]) for x in g}) == 1,
+                     "ef_err": [x["ef_err"] for x in g],
+                     "plain_err": [x["plain_err"] for x in g], "ef_ratio_max": EF_RATIO,
+                     "ef_ms_per_sync": [x["ef_ms_per_sync"] for x in g],
+                     "embed_elems": g[0]["embed_elems"]},
+           "pipeline": {"stages": DIST_RANKS, "microbatches": DIST_MICRO,
+                        "microbatch_shape": spec["pipe_shape"],
+                        "max_rel_diff": [r["pipeline"]["max_rel_diff"] for r in ranks],
+                        "ms_per_microbatch": [r["pipeline"]["ms_per_microbatch"]
+                                              for r in ranks],
+                        "bytes_per_message": ranks[0]["pipeline"]["bytes_per_message"],
+                        "tol_rel": PIPE_RTOL},
+           "nccl_world_1": {"identity": one["identity"], "grads_identity":
+                            one["grads"]["identity"],
+                            "dataframe_equal": {n: row["equal"] for n, row in
+                                                one["dataframe"].items()},
+                            "hash_launches": {n: row["hash_launches"] for n, row in
+                                              one["dataframe"].items()},
+                            "pipeline_max_rel_diff": one["pipeline"]["max_rel_diff"],
+                            "seconds": one_s},
+           "hash_launches": launches, "ranks_s": ranks_s, "problems": bad,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bad:
+        raise AssertionError(f"the distributed phase failed: {bad}")
+    return launches
+
+
 def profile_paper_step(step, steps: int):
     """``steps`` calls of ``step()`` (one SGD step each) under
     torch.profiler: wall and device busy ms per step, the device's idle
@@ -3880,7 +4114,7 @@ def recurrent_xlstm():
     """xlstm-125m at its published widths through the training driver's
     default arch (no --arch), XLSTM_STEPS steps of XLSTM_B x XLSTM_S: the
     loss falls (postprocess ``improved``) and no port kernel launches
-    (JAX's xlstm path runs no Pallas kernel); one step profiled; then
+    (JAX's xlstm path runs no Pallas kernel); then
     XLSTM_PARITY_STEPS fp32 steps at XLSTM_PARITY_B x XLSTM_PARITY_S from
     one state on the card and on the host CPU, loss and grad-norm within
     TRAIN_TOL (relative)."""
@@ -3907,16 +4141,6 @@ def recurrent_xlstm():
     torch.cuda.empty_cache()
 
     run_cfg = RunConfig()
-    corpus = make_corpus(cfg.vocab_size, XLSTM_B * XLSTM_S, SEED)
-    tok = torch.from_numpy(corpus.reshape(XLSTM_B, XLSTM_S)).cuda()
-    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
-    state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg, run_cfg)
-    step_fn = make_train_step(cfg, run_cfg)
-    t0 = time.perf_counter()
-    prof = step_profile(lambda: step_fn(state, batch))  # the driver has warmed cuBLAS
-    profile_s = time.perf_counter() - t0
-    del state
-    torch.cuda.empty_cache()
 
     # fp32 (TF32 off, set in main) on the card and on the host, one state
     cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
@@ -3950,7 +4174,7 @@ def recurrent_xlstm():
            "improved": res["improved"], "train_s": res["train_s"], "wall_s": wall_s,
            "step_s": res["train_s"] / res["steps"],
            "tokens_per_s": XLSTM_B * XLSTM_S * res["steps"] / res["train_s"],
-           "launches": "none (asserted)", "profiled_step": prof, "profile_s": profile_s,
+           "launches": "none (asserted)",
            "parity": {"compute_dtype": "torch.float32", "tf32": False, "batch": pb,
                       "seq": XLSTM_PARITY_S, "card": metrics["cuda"], "host": metrics["cpu"],
                       "max_rel_diff": rel, "tol_rel": TRAIN_TOL, "seconds": parity_s},
@@ -3961,10 +4185,13 @@ def recurrent_xlstm():
         raise AssertionError("xlstm's fp32 steps on the card and the host disagree")
 
 
-def gemma_params(param_dtype):
-    """recurrentgemma-9b at its published widths, random weights from a
-    seeded torch.Generator stored in ``param_dtype``."""
+def gemma_params(param_dtype, layers=None):
+    """recurrentgemma-9b at its published widths (and ``layers`` of its
+    layers, all by default), random weights from a seeded torch.Generator
+    stored in ``param_dtype``."""
     cfg = get_config(GEMMA).with_overrides(param_dtype=param_dtype)
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers)
     specs = map_tree(lambda p: Param(p.shape, p.axes, param_dtype, p.init, p.scale),
                      model_specs(cfg))
     params = init_params(torch.Generator(device="cuda").manual_seed(SEED), specs, "cuda")
@@ -4056,8 +4283,8 @@ def recurrent_gemma_fp32():
 
 
 def recurrent_gemma_ring():
-    """recurrentgemma-9b with bf16 parameters, GEMMA_RING_B rows decoded
-    token by token (greedy, scalar lengths on the card) through
+    """recurrentgemma-9b with bf16 parameters at GEMMA_RING_LAYERS layers,
+    GEMMA_RING_B rows decoded token by token (greedy, scalar lengths on the card) through
     GEMMA_RING_STEPS positions, past its local layers' 2048-slot ring:
     kernel 2 exactly once per local layer a step and no other kernel,
     every logit finite; at the last step one decode on a clone of the
@@ -4069,7 +4296,7 @@ def recurrent_gemma_ring():
     from repro_torch.train.step import make_decode_step
 
     t_phase = time.perf_counter()
-    cfg, params, n_params = gemma_params(torch.bfloat16)
+    cfg, params, n_params = gemma_params(torch.bfloat16, GEMMA_RING_LAYERS)
     B, steps = GEMMA_RING_B, GEMMA_RING_STEPS
     cache = zero_cache(cfg, B, steps)
     slots = {t.shape[2] for key, t in cache["unit"]["b2"].items()}
@@ -4120,7 +4347,7 @@ def recurrent_gemma_ring():
                      "plain_gap_to_kernel_token": gap, "max_abs_logit_diff": diff,
                      "near_tie": gap <= 2 * diff})
     out = {"phase": "recurrent", "part": "recurrentgemma_ring_bf16", "arch": GEMMA,
-           "params": n_params, "param_gb": n_params * 2 / 1e9, "param_dtype": "torch.bfloat16",
+           "layers": cfg.num_layers, "params": n_params, "param_gb": n_params * 2 / 1e9, "param_dtype": "torch.bfloat16",
            "compute_dtype": str(cfg.compute_dtype), "batch": B, "positions": steps,
            "ring_slots": cfg.window, "wraps": steps // cfg.window,
            "launches": launches, "kernel2_per_step": launches["decode_attention"] / steps,
@@ -4138,13 +4365,140 @@ def recurrent_gemma_ring():
     return launches["decode_attention"]
 
 
+class CheckpointStandIn:
+    """The training driver's ``AsyncCheckpointer`` for a run whose state is
+    too large to write inside the time limit (GEMMA_CKPT_NOTE): records
+    the steps it is asked to save, writes nothing."""
+
+    saved: list = []
+
+    def __init__(self, directory, keep=3):
+        CheckpointStandIn.saved = []
+
+    def save(self, step, state):
+        CheckpointStandIn.saved.append(step)
+
+    def close(self):
+        pass
+
+
+def recurrent_gemma_remat():
+    """recurrentgemma-9b trained under its published remat policy (module
+    docstring, phase 13): the driver's bf16 run, then fp32 steps under
+    each remat mode."""
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    cut = lambda arch, smoke=False: get_config(arch, smoke=smoke).with_overrides(  # noqa: E731
+        num_layers=GEMMA_TRAIN_LAYERS)
+    cfg = cut(GEMMA)
+    if cfg.remat_policy != "save_block_outputs" or cfg.param_dtype != torch.float32:
+        raise AssertionError(f"recurrentgemma's policy {cfg.remat_policy}, "
+                             f"parameters {cfg.param_dtype}")
+    full_config, checkpointer = launch_train.get_config, launch_train.store.AsyncCheckpointer
+    launch_train.get_config, launch_train.store.AsyncCheckpointer = cut, CheckpointStandIn
+    try:
+        args = launch_train.build_parser().parse_args(
+            ["--arch", GEMMA, "--device", "cuda", "--steps", str(GEMMA_TRAIN_STEPS),
+             "--batch", str(GEMMA_TRAIN_B), "--seq", str(GEMMA_TRAIN_S),
+             "--ckpt-dir", str(ROOT / "build" / "gemma_ckpt")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = launch_train.run(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        no_launches("recurrentgemma's training driver")
+        driver_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        launch_train.get_config, launch_train.store.AsyncCheckpointer = full_config, checkpointer
+    torch.cuda.empty_cache()
+    if not (res["improved"] and res["steps"] == GEMMA_TRAIN_STEPS
+            and CheckpointStandIn.saved == [GEMMA_TRAIN_STEPS]
+            and np.isfinite([res["first_loss"], res["last_loss"]]).all()):
+        raise AssertionError(f"recurrentgemma's training driver did not learn: {res}")
+
+    # fp32 (TF32 off) from one seeded state under each remat mode, with
+    # Adafactor (GEMMA_PARITY_OPTIMIZER)
+    cfg32 = cfg.with_overrides(compute_dtype=torch.float32)
+    run_cfg = RunConfig(optimizer=GEMMA_PARITY_OPTIMIZER)
+    rows = torch.from_numpy(make_corpus(
+        cfg.vocab_size, GEMMA_PARITY_B * GEMMA_TRAIN_S * GEMMA_PARITY_STEPS, SEED + 1)).reshape(
+            -1, GEMMA_TRAIN_S).cuda()
+    pb = GEMMA_PARITY_B
+    batches = [{"tokens": rows[i * pb:(i + 1) * pb],
+                "labels": torch.roll(rows[i * pb:(i + 1) * pb], -1, dims=1)}
+               for i in range(GEMMA_PARITY_STEPS)]
+    modes = {"none": (cfg32, RunConfig(optimizer=GEMMA_PARITY_OPTIMIZER, remat="none")),
+             "full": (cfg32.with_overrides(remat_policy="full"), run_cfg),
+             "save_block_outputs": (cfg32, run_cfg)}
+    metrics, step_ms, peak_gb, grad_peak_gb = {}, {}, {}, {}
+    zero_counts()
+    for mode, (c, rc) in modes.items():
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), c, rc)
+        fn = make_train_step(c, rc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, norms, ms = train_metrics(state, fn, batches)
+        peak_gb[mode] = torch.cuda.max_memory_allocated() / 1e9
+        metrics[mode] = [{"loss": a, "grad_norm": b} for a, b in zip(losses, norms)]
+        step_ms[mode] = ms
+        # the forward and backward alone: what each mode holds above the
+        # state (the step's peak is AdamW's, the same in every mode)
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(state["params"])]
+        it = iter(leaves)
+        torch.cuda.synchronize()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = make_loss_fn(c, rc)(map_tree(lambda _: next(it), state["params"]), batches[0])
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        grad_peak_gb[mode] = (torch.cuda.max_memory_allocated() - resting) / 1e9
+        del state, leaves, loss
+        torch.cuda.empty_cache()
+    no_launches("recurrentgemma's fp32 steps")
+    rel = {m: max_rel(metrics[m], metrics["none"]) for m in ("full", "save_block_outputs")}
+    out = {"phase": "recurrent", "part": "gemma_remat", "arch": GEMMA,
+           "remat_policy": cfg.remat_policy, "layers": GEMMA_TRAIN_LAYERS,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(math.prod(p.shape) for p in tree_leaves(model_specs(cfg))),
+           "entry": "repro_torch.launch.train.run (get_config cut to 3 layers)",
+           "checkpoint": {"stand_in": True, "saved_steps": CheckpointStandIn.saved,
+                          "why": GEMMA_CKPT_NOTE},
+           "batch": GEMMA_TRAIN_B, "seq": GEMMA_TRAIN_S, "steps": res["steps"],
+           "first_loss": res["first_loss"], "last_loss": res["last_loss"],
+           "improved": res["improved"], "train_s": res["train_s"], "wall_s": wall_s,
+           "step_s": res["train_s"] / res["steps"], "peak_memory_gb": driver_peak_gb,
+           "launches": "none (asserted)",
+           "resident_gb_before": resident_gb,
+           "modes": {"compute_dtype": "torch.float32", "tf32": False, "batch": pb,
+                     "optimizer": GEMMA_PARITY_OPTIMIZER,
+                     "seq": GEMMA_TRAIN_S, "metrics": metrics, "step_ms": step_ms,
+                     "peak_memory_gb": peak_gb,
+                     "forward_backward_gb_above_state": grad_peak_gb,
+                     "max_rel_diff_vs_none": rel,
+                     "tol_rel": TRAIN_TOL},
+           "seconds": time.perf_counter() - t_phase}
+    out["ok"] = all(rel[m][k] <= TRAIN_TOL[k] for m in rel for k in TRAIN_TOL)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("recurrentgemma's remat modes disagree")
+
+
 def phase_recurrent():
     """The recurrent families at their published widths: xlstm-125m
     through the training driver's default arch, then recurrentgemma-9b in
-    fp32 (prefill == replay, kernel == plain streams) and in bf16 through
-    its ring.  Returns kernel 2's launches of the phase."""
+    fp32 (prefill == replay, kernel == plain streams), in bf16 through
+    its ring, and trained under its remat policy.  Returns kernel 2's
+    launches of the phase."""
     recurrent_xlstm()
-    return recurrent_gemma_fp32() + recurrent_gemma_ring()
+    launches = recurrent_gemma_fp32() + recurrent_gemma_ring()
+    recurrent_gemma_remat()
+    return launches
 
 
 def whisper_batches(cfg, B, steps, seed):
@@ -4671,6 +5025,8 @@ def main() -> int:
     exec_launches = phase_exec(cfg)
     torch.cuda.empty_cache()
     lap("exec")
+    dist_hash = phase_distributed(cfg)
+    lap("distributed")
     # the serving rows count the launches of every main path that runs
     # them: the fleet phase's disaggregated run, the runtime phase's
     # service stage, the exec phase's service stages in worker processes
@@ -4701,9 +5057,10 @@ def main() -> int:
     rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"],
                             new_us["rmsnorm_library"]))
     exec_hash = exec_launches["hash_partition_histogram"]
-    rows.append(hash_row({"hash_partition_histogram": hash_launches + exec_hash},
+    rows.append(hash_row({"hash_partition_histogram": hash_launches + exec_hash + dist_hash},
                          new_us["hash_partition_histogram"]))
-    rows[-1]["launches_by_phase"] = {"dataframe": hash_launches, "exec": exec_hash}
+    rows[-1]["launches_by_phase"] = {"dataframe": hash_launches, "exec": exec_hash,
+                                     "distributed": dist_hash}
     emit({"phase": "timing", "ok": True, "rows": rows[-3:]})
     lap("rmsnorm")
     fig4_hash = phase_paper()

@@ -3,12 +3,12 @@
 
 In Deep RC (paper), the RemoteAgent builds an MPI/GLOO/NCCL communicator
 with N ranks for each task *at runtime, in constant time* — the measured
-3–8 s overhead of Table 2.  The port carves the port's 1-D
+3–8 s overhead of Table 2.  The port carves a logical
 ``launch.mesh.Mesh`` over the leased device: host-side metadata, built in
-constant time.  A communicator across several distinct cards needs
-collectives between processes, which come with ``core/exec/`` and a
-``torch.distributed`` process group (ROADMAP.md queue 1, item 6); asking
-for one raises.
+constant time.  A communicator across several distinct cards is one task
+ganged over as many worker processes (``core/exec/``), one card each,
+meeting in a ``launch.mesh.ProcessMesh``; the agent does not lease such
+gangs yet (ROADMAP.md queue 1, item 6), so asking for one raises.
 """
 from __future__ import annotations
 
@@ -85,9 +85,9 @@ def build_communicator(
         raise ValueError(f"mesh shape {mesh_shape} needs {want} devices, got {n}")
     if len(set(devices)) != 1:
         raise NotImplementedError(
-            f"a communicator over {n} devices needs collectives between "
-            "processes: they come with core/exec/ and a torch.distributed "
-            "process group (ROADMAP.md queue 1, item 6)")
+            f"a communicator over {n} devices is a task ganged over {n} "
+            "worker processes in a process mesh, which the agent does not "
+            "lease yet (ROADMAP.md queue 1, item 6)")
     dev = torch.device(devices[0])
     mesh = Mesh(dict(zip(mesh_axes, mesh_shape)), dev)
     backend = "nccl" if dev.type == "cuda" else "host"

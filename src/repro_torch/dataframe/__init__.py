@@ -1,3 +1,3 @@
-"""The port's dataframe: a mask-aware columnar ``Table`` over a 1-D mesh
-of logical shards, local operators and distributed operators (mirror of
-``repro.dataframe``)."""
+"""The port's dataframe: a mask-aware columnar ``Table`` over a mesh of
+logical shards on one device or of processes, local operators and
+distributed operators (mirror of ``repro.dataframe``)."""

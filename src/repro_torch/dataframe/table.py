@@ -3,27 +3,29 @@
 A :class:`Table` is a dict of equal-length column tensors plus a bool
 ``valid`` row mask, on one device.  With a mesh of ``n`` logical shards
 (``repro_torch.launch.mesh``), shard ``i`` owns rows ``[i*per,
-(i+1)*per)`` of every column, as in JAX's layout; ragged partitions are
-``valid`` masks over the fixed capacity, and the distributed operators
-(:mod:`repro_torch.dataframe.ops_dist`) exchange rows between the shards
-with tensor operations.
+(i+1)*per)`` of every column, as in JAX's layout.  On a process mesh
+(``ProcessMesh``) a Table holds only this rank's shard, on the rank's
+device, and every rank's shard has the same number of rows.  Ragged
+partitions are ``valid`` masks over the fixed capacity, and the
+distributed operators (:mod:`repro_torch.dataframe.ops_dist`) exchange
+rows between the shards.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import Mesh, resolve_device
+from repro_torch.launch.mesh import Mesh, ProcessMesh, resolve_device
 
 
 @dataclasses.dataclass
 class Table:
     columns: Dict[str, torch.Tensor]
     valid: torch.Tensor  # bool [N]
-    mesh: Optional[Mesh] = None
+    mesh: Optional[Union[Mesh, ProcessMesh]] = None
     axis: str = "data"
 
     # -- construction -------------------------------------------------------
@@ -51,8 +53,9 @@ class Table:
 
     def reshard(self, mesh: Mesh, axis: str = "data") -> "Table":
         """Distribute rows over the mesh axis: pad with invalid rows to a
-        multiple of the shard count, on the mesh's device."""
-        pad = (-self.num_rows) % mesh.shape[axis]
+        multiple of the shard count, on the mesh's device.  On a process
+        mesh the rows are this rank's shard: moved, never padded."""
+        pad = 0 if isinstance(mesh, ProcessMesh) else (-self.num_rows) % mesh.shape[axis]
 
         def place(c):
             if pad:

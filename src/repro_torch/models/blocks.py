@@ -14,7 +14,9 @@ are updated in place (the JAX blocks return new ones).
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -35,6 +37,50 @@ from repro_torch.kernels.ref import _gather_pages, as_rows, prefill_attend_ref
 
 def rmsnorm_specs(d: int) -> Dict[str, Param]:
     return {"scale": Param((d,), (None,), init="ones")}
+
+
+class _Naming(threading.local):
+    selecting = False  # inside a save_block_outputs unit (selecting_block_outputs)
+    inside = False     # inside block_out, while selecting
+
+
+_NAMING = _Naming()
+
+
+def block_out(fn, *args):
+    """``fn(*args)``, its ops named ``block_out`` as JAX's
+    ``checkpoint_name(y, "block_out")`` names a block's output projection
+    (attention, MLA, MLP and RG-LRU blocks).  The name is set only inside
+    :func:`selecting_block_outputs`, the unit that ``models.lm``
+    checkpoints under ``remat_policy="save_block_outputs"``, whose policy
+    saves the matmuls so named and recomputes everything else; elsewhere
+    this is a plain call."""
+    if not _NAMING.selecting:
+        return fn(*args)
+    _NAMING.inside = True
+    try:
+        return fn(*args)
+    finally:
+        _NAMING.inside = False
+
+
+def naming_block_out() -> bool:
+    """Whether this thread runs inside a named :func:`block_out`."""
+    return _NAMING.inside
+
+
+def selecting_block_outputs(fn):
+    """``fn`` with :func:`block_out` naming on while it runs, on whichever
+    thread runs it: the checkpointed unit's forward and its recompute in
+    the backward."""
+    @functools.wraps(fn)
+    def run(*args):
+        was, _NAMING.selecting = _NAMING.selecting, True
+        try:
+            return fn(*args)
+        finally:
+            _NAMING.selecting = was
+    return run
 
 
 def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -413,7 +459,7 @@ def attn_apply(
         o = _windowed_attention(cfg, q, k, v, window)
     else:
         o = _self_attention(cfg, q, k, v, causal)
-    y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
+    y = block_out(torch.einsum, "bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 
 
@@ -544,7 +590,7 @@ def mla_apply(
         o = _mla_expanded_decode(cfg, params, q_nope, q_pe, ckv_c, kpe_c, idx + 1, cdt)
     else:
         o = _mla_full_attention(cfg, params, q_nope, q_pe, c_kv, k_pe, cdt)
-    y = torch.einsum("bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
+    y = block_out(torch.einsum, "bshk,hkd->bsd", o.to(cdt), params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 
 
@@ -625,7 +671,7 @@ def mlp_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         u = _act(cfg.mlp_act, u) * (h @ params["w3"].to(cdt))
     else:
         u = _act(cfg.mlp_act, u)
-    y = u @ params["w2"].to(cdt)
+    y = block_out(torch.matmul, u, params["w2"].to(cdt))
     return x + y.to(x.dtype)
 
 

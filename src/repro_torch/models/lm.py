@@ -11,7 +11,10 @@ Each layer is a temporal block (GQA ``attn``, windowed ``local``,
 optional channel block (``mlp``, or ``moe`` whose auxiliary load-balance
 losses are summed over the layers).  Where JAX scans the unit,
 ``lm_apply`` loops over that dim (under ``remat``, each repetition is
-checkpointed, as JAX checkpoints the scan body); the per-layer cache
+checkpointed, as JAX checkpoints the scan body: everything recomputed in
+the backward, or under ``remat_policy="save_block_outputs"`` everything
+but the blocks' output projections, saved as JAX's
+``save_only_these_names("block_out")`` saves them); the per-layer cache
 slices are views, so the in-place cache writes land in the stacked
 tensors.  Two cache layouts, as in JAX: the contiguous slot cache
 (``lm_cache_specs``: ``[batch, max_len, KV, D]`` K/V per GQA layer, a
@@ -22,10 +25,12 @@ only).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common.params import Param, map_tree
 from repro_torch.configs.base import ModelConfig, block_pattern
@@ -281,6 +286,29 @@ def _unpack_cache(kind: str, cache: Dict) -> Dict:
     raise ValueError(kind)
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_block_outputs(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy: save the matmuls run inside
+    ``blocks.block_out``, recompute every other op."""
+    if op in _MATMULS and B.naming_block_out():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_unit(cfg: ModelConfig, run_unit):
+    """The unit checkpoint's function and ``context_fn`` for
+    ``cfg.remat_policy``: ``"save_block_outputs"`` names the blocks'
+    output projections inside the unit and keeps them; any other policy
+    (``"full"``) recomputes everything, as in JAX."""
+    if cfg.remat_policy == "save_block_outputs":
+        return B.selecting_block_outputs(run_unit), functools.partial(
+            create_selective_checkpoint_contexts, _save_block_outputs)
+    return run_unit, torch.utils.checkpoint.noop_context_fn
+
+
 def lm_apply(
     cfg: ModelConfig,
     params: Dict[str, Any],
@@ -320,10 +348,6 @@ def lm_apply(
     ``last_only`` keeps only the last position's logits."""
     if (cache is None) != (cache_len is None):
         raise ValueError("cache and cache_len go together")
-    if remat and cache is None and cfg.remat_policy == "save_block_outputs":
-        raise NotImplementedError(
-            "remat_policy='save_block_outputs' only matters under sharding: "
-            "the distributed slice (ROADMAP.md queue 1, item 6)")
     head, unit, reps, tail = block_pattern(cfg)
     Bsz, S = inputs.shape[:2]
     if cache is not None and S > 1 and chunk_lens is None:
@@ -379,7 +403,9 @@ def lm_apply(
         if cache is not None:  # views: caches written in place
             x, aux = run_unit(x, p_r, map_tree(lambda t: t[r], cache["unit"]))
         elif remat:
-            x, aux = checkpoint(run_unit, x, p_r, None, use_reentrant=False)
+            fn, context_fn = _remat_unit(cfg, run_unit)
+            x, aux = checkpoint(fn, x, p_r, None, use_reentrant=False,
+                                context_fn=context_fn)
         else:
             x, aux = run_unit(x, p_r, None)
         aux_total = aux_total + aux

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.params import Param
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import rmsnorm_apply, rmsnorm_specs
+from repro_torch.models.blocks import block_out, rmsnorm_apply, rmsnorm_specs
 
 
 def _check_step(kind: str, S: int) -> None:
@@ -176,7 +176,7 @@ def rglru_block_apply(cfg: ModelConfig, params, x: torch.Tensor,
         cache["conv"].copy_(conv_state)
         cache["h"].copy_(h_state)
         new_cache = {"conv": cache["conv"], "h": cache["h"]}
-    y = (r * gate) @ params["wo"].to(cdt)
+    y = block_out(torch.matmul, r * gate, params["wo"].to(cdt))
     return x + y.to(x.dtype), new_cache
 
 

@@ -1,5 +1,5 @@
 """Model, cache and train-state specs (mirror of ``repro.train.state``),
-and the concrete train state."""
+the concrete train state and its sharding specs."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.common.params import Param, init_params, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed.sharding import param_specs_tree
 from repro_torch.models import encdec
 from repro_torch.models.lm import lm_cache_specs, lm_specs
 from repro_torch.train.optimizer import opt_specs
@@ -49,3 +50,9 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
     for the CPU), its random leaves drawn from ``generator``, which lives
     on that device."""
     return init_params(generator, train_state_specs(cfg, run_cfg), device)
+
+
+def state_shardings(cfg: ModelConfig, run_cfg: RunConfig, mesh, rules=None):
+    """The train state's partition specs on ``mesh`` (anything with a
+    ``shape`` dict of axis sizes) under the default rules and ``rules``."""
+    return param_specs_tree(train_state_specs(cfg, run_cfg), mesh, rules)

@@ -80,11 +80,9 @@ def make_train_step(cfg: ModelConfig, run_cfg: RunConfig):
     summed in ``cfg.grad_accum_dtype``, then averaged.  They are clipped to
     ``grad_clip`` by global norm and applied by ``opt_update``.  **The
     parameters and optimizer states are updated in place**; the returned
-    state holds them and a new step."""
-    if run_cfg.grad_compression == "int8":
-        raise NotImplementedError(
-            "int8 gradient compression rides on the data-parallel "
-            "all-reduce: the distributed slice (ROADMAP.md queue 1, item 6)")
+    state holds them and a new step.  ``run_cfg.grad_compression`` is not
+    read, as JAX's step does not read it: a data-parallel loop syncs its
+    gradients with ``distributed.collectives.compressed_grad_sync``."""
     loss_fn = make_loss_fn(cfg, run_cfg)
     n_micro = run_cfg.num_microbatches
 

@@ -201,10 +201,8 @@ def _deferred_refusals():
     import torch
 
     from repro_torch.core.communicator import build_communicator
-    from repro_torch.launch.mesh import make_mesh
 
     return {
-        "multi_axis_mesh": (6, lambda: make_mesh((2, 2), ("data", "model"), device="cpu")),
         "communicator_across_cards": (6, lambda: build_communicator(
             [torch.device("cuda", 0), torch.device("cuda", 1)])),
     }

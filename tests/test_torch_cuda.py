@@ -1386,3 +1386,53 @@ def test_paged_kernels_in_a_worker_process_match_plain(dtype, tol):
                                "prefill_attention_paged": 1, "paged_scatter": 1,
                                "decode_attention_paged": 1}
     assert T.launch_counts() == before
+
+
+# the process mesh's collectives at world 2 on the card: two gloo rank
+# processes, each with its own CUDA context (tests/torch_dist_ranks.py
+# ``card`` at a small size: the smoke config's gradient tree, tables of
+# 2^16 rows)
+CARD2_SPEC = {"device": "cuda", "seed": 0, "df_rows": 1 << 16, "df_keys": 1 << 10,
+              "df_atol": 1e-4, "reduce_rtol": 1e-5,
+              "arch": "tinyllama-1.1b", "smoke": True, "grad_b": 2,
+              "grad_s": 64, "ef_syncs": 8, "pipe_micro": 8, "pipe_shape": [2, 16, 64]}
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    _card()
+    import torch_dist_ranks as DR
+    return DR.launch("card", 2, tmp_path_factory.mktemp("ranks"), spec=CARD2_SPEC,
+                     timeout=600)
+
+
+@pytest.mark.cuda
+def test_int8_all_reduce_across_two_ranks_on_the_card(card_ranks):
+    """The smoke gradient tree synced with compressed_grad_sync between two
+    ranks on the card: within 0.02 of the fp32 all-reduce mean, bitwise
+    the same on both ranks, error feedback no worse than 1.05x plain; the
+    all-reduces took the card's tensors on gloo."""
+    for res in card_ranks:
+        g = res["grads"]
+        assert g["max_rel_err"] < 0.02 and g["ef_err"] <= 1.05 * g["plain_err"]
+        assert res["wire"]["all_reduce"] == [{"backend": "gloo", "world": 2,
+                                              "device": "cuda:0"}]
+    assert card_ranks[0]["grads"]["checksums"] == card_ranks[1]["grads"]["checksums"]
+
+
+@pytest.mark.cuda
+def test_dataframe_exchange_across_two_ranks_on_the_card(card_ranks):
+    """Each rank's shard of shuffle, sort, join, groupby_sum and reduce_sum
+    on the process mesh equals the 2-shard logical mesh's, kernel 7
+    counted in the ranks (shuffle 1, join 2, groupby 1); the buckets
+    crossed as card tensors (all_to_all_single on gloo); GPipe's messages
+    through host copies."""
+    want = {"shuffle": 1, "sort": 0, "join": 2, "groupby": 1, "reduce": 0}
+    for res in card_ranks:
+        assert {n: row["equal"] for n, row in res["dataframe"].items()} == \
+            {n: True for n in want}
+        assert {n: row["hash_launches"] for n, row in res["dataframe"].items()} == want
+        assert res["wire"]["all_to_all_single"] == [{"backend": "gloo", "world": 2,
+                                                     "device": "cuda:0"}]
+        assert res["pipeline"]["max_rel_diff"] <= 1e-5
+    assert card_ranks[0]["wire"]["send"] == [{"backend": "gloo", "world": 2, "device": "cpu"}]

@@ -6,7 +6,10 @@ JAX's distributed operators need 8 host devices, and this process's jax
 already sees one: the module runs itself as a script in a subprocess with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` and writes JAX's
 results to an ``.npz`` (``python tests/test_torch_dataframe.py OUT.npz``).
-The port runs the same operators over 8 logical shards of one device.
+The port runs the same operators over 8 logical shards of one device,
+and over a process mesh of 8 gloo ranks on localhost, each holding one
+shard (``tests/torch_dist_ranks.py``): rank ``i``'s results are JAX's
+shard ``i``.
 
 Exactness: shard-by-shard columns, masks and drop counts bitwise (the
 rows of each shard in their order, padding and dropped slots included);
@@ -35,68 +38,9 @@ from repro_torch.dataframe.table import Table as TTable  # noqa: E402
 from repro_torch.kernels import hash_partition as thp  # noqa: E402
 from repro_torch.launch.mesh import make_mesh as tmake_mesh  # noqa: E402
 
-SHARDS = 8
-SUM_TOL = dict(atol=2e-5, rtol=2e-5)  # float32 sums in another order
-REDUCE_RTOL = 1e-5
-OPS = ("shuffle", "sort", "join", "groupby", "reduce")
-# the spawn test's inputs; the same shapes filtered (only the mask
-# differs) and with skewed keys (only the keys differ), so JAX compiles
-# its shard_map bodies once for the three; then a row count that 8 does
-# not divide
-CASES = ("base", "filtered", "skewed", "ragged")
-
-
-def case_inputs(name):
-    """(left columns, left valid, right columns) as numpy arrays."""
-    rng = np.random.default_rng(0)
-    n = 4100 if name == "ragged" else 4096
-    keys = rng.integers(0, 1000, n).astype(np.int32)
-    vals = rng.normal(size=n).astype(np.float32)
-    valid = np.ones(n, bool)
-    if name == "filtered":
-        valid = np.abs(vals) < 1.0
-    if name == "skewed":  # 3 of 4 rows share one key: buckets overflow
-        keys = np.where(rng.random(n) < 0.75, 7, keys).astype(np.int32)
-    nr = 999 if name == "ragged" else 1000
-    rkeys = np.arange(nr).astype(np.int32)
-    right = {"k": rkeys, "w": (rkeys * 10).astype(np.float32)}
-    return {"k": keys, "v": vals}, valid, right
-
-
-def pad_rows(cols, valid, size):
-    """Columns zero-padded and ``valid`` False-padded to a multiple of
-    ``size`` rows: what ``Table.reshard`` means to do."""
-    pad = (-len(valid)) % size
-    cols = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
-            for k, v in cols.items()}
-    return cols, np.concatenate([valid, np.zeros(pad, bool)])
-
-
-def run_ops(mesh, table_cls, ops, name, prepad=False):
-    """Every distributed operator on one case -> {result name: array}.
-    ``prepad``: hand the Table rows already padded to the shard count."""
-    left, valid, right = case_inputs(name)
-    rvalid = np.ones(len(right["k"]), bool)
-    if prepad:
-        size = mesh.shape["data"]
-        left, valid = pad_rows(left, valid, size)
-        right, rvalid = pad_rows(right, rvalid, size)
-    t = table_cls.from_columns(left, mesh, valid=valid)
-    r = table_cls.from_columns(right, mesh, valid=rvalid)
-    out = {}
-    for op, (tb, dropped) in (("shuffle", ops.shuffle(t, "k")),
-                              ("sort", ops.sort(t, "k")),
-                              ("join", ops.join(t, r, "k")),
-                              ("groupby", ops.groupby_sum(t, "k", ["v"]))):
-        out[f"{op}/dropped"] = np.asarray(dropped)
-        out[f"{op}/valid"] = np.asarray(tb.valid)
-        for col, v in tb.columns.items():
-            out[f"{op}/{col}"] = np.asarray(v)
-    out["reduce/v"] = np.asarray(ops.reduce_sum(t, ["v"])["v"])
-    out["table/valid"] = np.asarray(t.valid)
-    for col, v in t.columns.items():
-        out[f"table/{col}"] = np.asarray(v)
-    return out
+import torch_dist_ranks as R  # noqa: E402
+from torch_df_cases import (CASES, OPS, REDUCE_RTOL, SHARDS, SUM_TOL,  # noqa: E402
+                            case_inputs, run_ops)
 
 
 def _jax_main(path):
@@ -176,6 +120,36 @@ def test_distributed_op_matches_jax(jax8, port8, case, op):
         assert int(got["dropped"]) == 0
 
 
+@pytest.fixture(scope="module")
+def ranks8(tmp_path_factory):
+    return R.launch("dataframe_cases", SHARDS, tmp_path_factory.mktemp("ranks8"))
+
+
+@pytest.mark.parametrize("op", OPS + ("table",))
+@pytest.mark.parametrize("case", CASES)
+def test_process_mesh_op_matches_jax_shard_by_shard(jax8, ranks8, case, op):
+    """Each of 8 gloo ranks holds JAX's shard of its rank: columns, masks
+    and drop counts bitwise, groupby sums at SUM_TOL, reduce sums (every
+    rank's all_reduce) at REDUCE_RTOL."""
+    want = {k.split("/", 2)[2]: v for k, v in jax8.items()
+            if k.startswith(f"{case}/{op}/")}
+    for rank, res in enumerate(ranks8):
+        got = {k.split("/", 1)[1]: v for k, v in res[case].items() if k.startswith(op + "/")}
+        assert sorted(got) == sorted(want)
+        for col, w in want.items():
+            g = got[col]
+            if op == "reduce":
+                np.testing.assert_allclose(g, w, rtol=REDUCE_RTOL, atol=0)
+                continue
+            if col != "dropped":  # a total, on every rank
+                w = w.reshape((SHARDS, -1) + w.shape[1:])[rank]
+            assert g.shape == w.shape, (col, g.shape, w.shape)
+            if op == "groupby" and col == "v":
+                np.testing.assert_allclose(g, w, **SUM_TOL)
+            else:
+                np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=f"{col} rank {rank}")
+
+
 def test_distributed_ops_meet_the_spawn_checks(port8):
     """The port's own results pass tests/spawn/dataframe_ops.py's checks."""
     left, _, _ = case_inputs("base")
@@ -217,6 +191,24 @@ def test_linspace_indices_match_jnp(n, m):
     computes it; torch.linspace is off by one at (512, 64) index 27."""
     want = jax.jit(lambda: jnp.linspace(0, n - 1, m).astype(jnp.int32))()
     np.testing.assert_array_equal(TD.linspace_indices(n, m), np.asarray(want))
+
+
+def test_sort_samples_stay_inside_a_shard_past_2_24_rows():
+    """A shard of 2^25 rows: the float32 linspace's last index is 2^25,
+    past the end, where jnp.take reads its fill value (INT32_MIN) as a
+    splitter sample; the port samples the shard's last key there and
+    JAX's keys everywhere else (a shard of 2^24 rows stays inside, equal
+    to JAX's throughout)."""
+    for n, m in ((1 << 25, 8), (1 << 24, 16)):
+        idx = TD.linspace_indices(n, m)
+        eff = np.arange(n, dtype=np.int32)[::-1].copy()
+        want = np.asarray(jnp.take(jnp.asarray(eff), jnp.asarray(idx.astype(np.int32))))
+        got = TD.sample_keys(torch.from_numpy(eff)[None], m)[0].numpy()
+        past = n > 1 << 24
+        assert (idx[-1] == n) == past
+        np.testing.assert_array_equal(got[:-1], want[:-1])
+        assert got[-1] == eff[-1]
+        assert want[-1] == (np.iinfo(np.int32).min if past else eff[-1])
 
 
 # -- the Table ----------------------------------------------------------------------

@@ -524,10 +524,99 @@ def test_serving_refusals_are_jaxs(arch):
         assert "queue 1" not in want
 
 
-def test_recurrentgemma_under_remat_still_names_item_6():
-    """The full config's remat policy (save_block_outputs) belongs to the
-    distributed slice."""
-    cfg = tcfg.get_config("recurrentgemma-9b")
-    assert cfg.remat_policy == "save_block_outputs"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        tlm.lm_apply(cfg, None, torch.zeros((1, 4), dtype=torch.int64))
+# -- recurrentgemma under its published remat policy --------------------------
+
+
+def _gemma_loss_and_grads(tc, tp, tok, remat):
+    """The port's loss and grads of ``tp`` (the train step's loss)."""
+    run = tcfg.RunConfig(remat="full" if remat else "none")
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(tp)]
+    it = iter(leaves)
+    loss = tstep.make_loss_fn(tc, run)(map_tree(lambda _: next(it), tp), {
+        "tokens": torch.from_numpy(tok), "labels": torch.from_numpy(np.roll(tok, -1, 1))})
+    return loss.item(), [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.fixture(scope="module")
+def gemma_save():
+    """recurrentgemma's smoke config (fp32, two repetitions of its unit)
+    under save_block_outputs, on JAX-initialised weights, and its batch."""
+    jc, tc = JG.with_overrides(num_layers=6), TG.with_overrides(num_layers=6)
+    jc, tc = [c.with_overrides(remat_policy="save_block_outputs") for c in (jc, tc)]
+    jp = jinit(jax.random.PRNGKey(2), jstate.model_specs(jc))
+    return jc, tc, jp, from_jax_params(jax.tree.map(np.asarray, jp), "cpu"), \
+        _tokens(50, 2, 32, jc.vocab_size)
+
+
+def test_recurrentgemma_save_block_outputs_matches_jax(gemma_save):
+    """The published config's policy; its smoke config under it: loss and
+    every grad within 1e-4 of JAX's under ``save_only_these_names(
+    "block_out")``."""
+    assert tcfg.get_config("recurrentgemma-9b").remat_policy == "save_block_outputs"
+    jc, tc, jp, tp, tok = gemma_save
+    batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(np.roll(tok, -1, 1))}
+    jl, jg = jax.value_and_grad(jstep.make_loss_fn(jc, jcfg.RunConfig()))(jp, batch)
+    tl, tg = _gemma_loss_and_grads(tc, tp, tok, remat=True)
+    np.testing.assert_allclose(tl, float(jl), rtol=1e-4)
+    jleaves = [leaf for _, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]]
+    # the port's dict order is JAX's sorted order at every level of this tree
+    assert len(jleaves) == len(tg)
+    for g, w in zip(tg, jleaves):
+        _close(g, w, SCAN_TOL)
+
+
+def test_remat_modes_agree(gemma_save):
+    """No remat, "full" and "save_block_outputs" compute one function:
+    the same loss and grads, bitwise on the CPU."""
+    _, tc, _, tp, tok = gemma_save
+    base = _gemma_loss_and_grads(tc, tp, tok, remat=False)
+    for policy in ("full", "save_block_outputs"):
+        loss, grads = _gemma_loss_and_grads(tc.with_overrides(remat_policy=policy), tp, tok,
+                                            remat=True)
+        assert loss == base[0], policy
+        for g, w in zip(grads, base[1]):
+            np.testing.assert_array_equal(g, w, err_msg=policy)
+
+
+def test_save_block_outputs_recomputes_no_named_projection(gemma_save):
+    """The policy saves what JAX's saves: the forward runs each block's
+    output projection (named block_out: 2 x 3 a repetition, 12 in all)
+    once; the backward of "full" recomputes every one the backward reads
+    past (all but the last of each repetition: the recompute stops once
+    it has what the backward needs), that of save_block_outputs none.
+    The name is set only inside a save_block_outputs unit: under "full"
+    it is counted with naming forced on, and without that nothing is
+    named."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import blocks as TB
+
+    class Named(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in tlm._MATMULS and TB.naming_block_out()
+            return func(*args, **(kwargs or {}))
+
+    _, tc, _, tp, tok = gemma_save
+    reps = 2
+    counts = {}
+    for policy, forced in (("full", False), ("save_block_outputs", False), ("full", True)):
+        cfg = tc.with_overrides(remat_policy=policy)
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(tp)]
+        it = iter(leaves)
+        fwd, bwd = Named(), Named()
+        TB._NAMING.selecting = forced  # the CPU backward runs on this thread
+        try:
+            with fwd:
+                logits, _, _ = tlm.lm_apply(cfg, map_tree(lambda _: next(it), tp),
+                                            torch.from_numpy(tok))
+            with bwd:
+                torch.autograd.grad(logits.float().square().mean(), leaves)
+        finally:
+            TB._NAMING.selecting = False
+        counts[policy, forced] = (fwd.n, bwd.n)
+    assert counts == {("full", False): (0, 0), ("save_block_outputs", False): (6 * reps, 0),
+                      ("full", True): (6 * reps, 5 * reps)}

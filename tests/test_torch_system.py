@@ -12,10 +12,12 @@ DeviceFailure, disjoint pools, a DAG, checkpoints) and
 worker pool, a SIGKILL and the checkpoint retry, a pipeline across two
 pods over one pool, the reap).
 
-Left out: ``test_distributed_dataframe_ops`` (the port's dataframe
-against JAX's at 8 devices is tests/test_torch_dataframe.py) and
-``test_distributed_extras`` (pipeline parallelism and int8 gradient
-compression, ROADMAP.md queue 1, item 6).
+Left out here, covered elsewhere: ``test_distributed_dataframe_ops``
+(the port's dataframe against JAX's at 8 devices, on logical shards and
+on 8 gloo ranks, is tests/test_torch_dataframe.py) and
+``test_distributed_extras`` (pipeline parallelism over 4 gloo ranks and
+the int8 gradient all-reduce over 8, against JAX's under ``shard_map``,
+is tests/test_torch_distributed.py).
 """
 import os
 import time

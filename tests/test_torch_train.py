@@ -246,16 +246,33 @@ def test_mla_and_moe_train_steps_match(arch):
     _assert_trees(ts, js, atol=1e-4, rtol=1e-4)
 
 
-def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        tstep.make_train_step(TCFG, tcfg.RunConfig(grad_compression="int8"))
-    cfg = TCFG.with_overrides(remat_policy="save_block_outputs")
-    params = tstate.init_train_state(torch.Generator().manual_seed(0), cfg,
-                                     tcfg.RunConfig(), device="cpu")["params"]
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        tlm.lm_apply(cfg, params, tok)
-    tlm.lm_apply(cfg, params, tok, remat=False)  # only matters under remat
+@pytest.mark.parametrize("remat_policy", ["full", "save_block_outputs"])
+def test_int8_grad_compression_and_remat_policy_steps_match(remat_policy):
+    """``grad_compression="int8"`` is read by neither package's step: both
+    compute the uncompressed step (a data-parallel loop syncs with
+    ``distributed.collectives.compressed_grad_sync``).  Three AdamW steps
+    under each remat policy: loss and grad-norm at each step, and the whole
+    state after the third, against JAX's on the same weights."""
+    jc = dataclasses.replace(JCFG, remat_policy=remat_policy)
+    tc = TCFG.with_overrides(remat_policy=remat_policy)
+    run_j = jcfg.RunConfig(grad_compression="int8")
+    run_t = tcfg.RunConfig(grad_compression="int8")
+    js = jstate.init_train_state(jax.random.PRNGKey(0), jc, run_j)
+    ts = from_jax_params(jax.tree.map(np.asarray, js), "cpu")
+    jfn = jax.jit(jstep.make_train_step(jc, run_j))
+    tfn = tstep.make_train_step(tc, run_t)
+    plain = tstep.make_train_step(tc, tcfg.RunConfig())
+    tp = from_jax_params(jax.tree.map(np.asarray, js), "cpu")
+    for i in range(3):
+        tok, lab = _batch(i)
+        js, jm = jfn(js, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)})
+        batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)}
+        ts, tm = tfn(ts, batch)
+        tp, pm = plain(tp, batch)
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), **TOL)
+        np.testing.assert_allclose(tm["grad_norm"].item(), float(jm["grad_norm"]), **TOL)
+        assert tm["loss"].item() == pm["loss"].item()  # the field changes nothing
+    _assert_trees(ts, js, **STATE_TOL)
 
 
 # -- prefills ----------------------------------------------------------------
