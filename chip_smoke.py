@@ -179,6 +179,18 @@ non-zero:
             state, cut to its first 4 layers (CKPT_LAYERS, 3.7 GB of the
             13.2), saved with AsyncCheckpointer and restored into a fresh
             state of that depth, bitwise.
+   dryrun   ``repro_torch.launch.dryrun`` on the meta device, no card: the
+            train phase's own step (tinyllama-1.1b, B 8 x S 512, fp32
+            parameters, bf16 compute, AdamW, remat) run once through the
+            plain ops; its FLOPs with and without remat, the attention
+            share, the peak of live storages, and beside them the train
+            phase's step p50 and peak memory; the step's share of the bf16
+            peak (model FLOPs / p50 / 989e12) with the card's name and
+            power limit.  The card's peak above what was allocated before
+            the train state must lie within DRYRUN_BAND of the estimate.
+            Then tinyllama-1.1b's full-width train_4k and decode_32k cells
+            on both production meshes (DRYRUN_CELLS), every roofline term
+            finite and ``dominant`` set; the phase under DRYRUN_LIMIT_S.
 8. parity   fp32 training (TF32 off) from one initial state: 3 steps on
             the kernel path and 3 on the plain path (``decode_impl="ref"``);
             loss and grad-norm must agree at every step within TRAIN_TOL.
@@ -419,11 +431,13 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hash_partition as hp  # noqa: E402
 from repro_torch.kernels import prefill_attention as pf  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import make_corpus  # noqa: E402
 from repro_torch.models.lm import lm_paged_cache_specs  # noqa: E402
 from repro_torch.serve import Request, RequestState, ServeEngine  # noqa: E402
-from repro_torch.train.state import init_train_state, model_specs  # noqa: E402
+from repro_torch.train.state import (abstract_train_state, init_train_state,  # noqa: E402
+                                     model_specs)
 from repro_torch.train.step import (make_loss_fn, make_prefill_chunk_step,  # noqa: E402
                                     make_train_step)
 import paged_scatter_cases  # noqa: E402
@@ -518,6 +532,12 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, PARITY_STEPS = 8, 512, 20, 3
 # driver writes its own state whole)
 CKPT_LAYERS = 4
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+# the dryrun phase: the card's train-step peak over the meta run's estimate
+# must lie in DRYRUN_BAND; the full-width cells it dry-runs on both
+# production meshes; its time limit (the meta runs stay on the host)
+DRYRUN_BAND = (0.8, 1.25)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "decode_32k"))
+DRYRUN_LIMIT_S = 30.0
 # rmsnorm, kernel vs plain, as atol = rtol (tests/test_kernels.py's
 # tolerances): fp32 sums in another order; bf16 one ulp of the cast,
 # which is 2^-7 of the value's power of two, so it grows with the value
@@ -2642,6 +2662,8 @@ def phase_train(cfg):
     the flash launches and device us per launch."""
     t_phase = time.perf_counter()
     run_cfg = RunConfig()
+    torch.cuda.synchronize()
+    before_state = torch.cuda.memory_allocated()
     state = init_train_state(torch.Generator(device="cuda").manual_seed(SEED), cfg,
                              run_cfg)
     step_fn = make_train_step(cfg, run_cfg)
@@ -2657,7 +2679,8 @@ def phase_train(cfg):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         norms.append(metrics["grad_norm"].item())
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     if launches["flash_attention"] != 2 * cfg.num_layers * TRAIN_STEPS:
         raise AssertionError(f"flash launches {launches['flash_attention']}, "
                              f"expected {2 * cfg.num_layers} per step")
@@ -2680,7 +2703,8 @@ def phase_train(cfg):
            "step_ms_p50": float(np.percentile(steady, 50)),
            "step_ms_p95": float(np.percentile(steady, 95)),
            "tokens_per_s": TRAIN_B * TRAIN_S * len(steady) / (sum(steady) / 1e3),
-           "peak_memory_gb": peak_gb, "launches": launches,
+           "peak_memory_gb": peak_gb, "peak_memory_bytes": peak_bytes,
+           "allocated_before_state_bytes": before_state, "launches": launches,
            "flash_launches_per_step": launches["flash_attention"] / TRAIN_STEPS}
 
     state, prof = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
@@ -2718,7 +2742,67 @@ def phase_train(cfg):
                          "save_s": save_s, "restore_s": restore_s}
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return launches["flash_attention"], prof["flash_us_per_launch"]
+    return launches["flash_attention"], prof["flash_us_per_launch"], out
+
+
+def phase_dryrun(cfg, train):
+    """The train phase's own step dry-run on the meta device (the plain
+    ops, as the dry run runs every step), held to what the train phase
+    measured on the card; then DRYRUN_CELLS through ``dryrun.run_cell`` on
+    both production meshes."""
+    t_phase = time.perf_counter()
+    run_cfg = RunConfig()
+    c = cfg.with_overrides(decode_impl="ref")
+    batch = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    got = dryrun.count_step(c, run_cfg, "train", (abstract_train_state(c, run_cfg), batch))
+    got.pop("outputs")
+    p50_s = train["step_ms_p50"] / 1e3
+    card_peak = train["peak_memory_bytes"] - train["allocated_before_state_bytes"]
+    ratio = card_peak / got["peak_live_bytes"]
+    out = {"phase": "dryrun", "arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_S,
+           "gpu": gpu_line(), "flops": got["flops"], "model_flops": got["model_flops"],
+           "matmul_flops": got["matmul_flops"], "attention_flops": got["attention_flops"],
+           "model_matmul_flops": got["model_matmul_flops"],
+           "peak_live_bytes_estimate": got["peak_live_bytes"],
+           "argument_bytes": got["argument_bytes"], "host_bytes": got["host_bytes"],
+           "meta_run_s": got["seconds"],
+           "train_step_ms_p50": train["step_ms_p50"],
+           "max_memory_allocated_bytes": train["peak_memory_bytes"],
+           "allocated_before_state_bytes": train["allocated_before_state_bytes"],
+           "card_peak_bytes": card_peak, "card_peak_over_estimate": ratio,
+           "band": DRYRUN_BAND,
+           "step_share_of_bf16_peak": got["model_flops"] / p50_s / BF16_FLOPS_PER_S,
+           "step_flops_share_of_bf16_peak": got["flops"] / p50_s / BF16_FLOPS_PER_S,
+           "flop_rule": dryrun.FLOP_RULE, "cells": {}}
+    problems = []
+    if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+        problems.append(f"card peak {card_peak} is {ratio:.3f}x the estimate "
+                        f"{got['peak_live_bytes']}, outside {DRYRUN_BAND}")
+    if got["host_bytes"]:
+        problems.append(f"the meta run wrote {got['host_bytes']} bytes to the host")
+    for arch, shape in DRYRUN_CELLS:
+        for mesh in ("single", "multi"):
+            r = dryrun.run_cell(arch, shape, mesh)
+            terms = [r["roofline"][k] for k in ("compute_s", "memory_s", "collective_s")]
+            nums = terms + [r[k] for k in ("flops", "model_flops", "attention_flops")] \
+                + [r["memory"]["peak_live_bytes_per_device_estimate"]]
+            if not all(math.isfinite(x) and x >= 0 for x in nums) \
+                    or r["roofline"].get("dominant") not in r["roofline"]:
+                problems.append(f"{arch} {shape} {mesh}: roofline {r['roofline']}")
+            out["cells"][f"{arch}/{shape}/{mesh}"] = {
+                "kind": r["kind"], "n_chips": r["n_chips"], "flops": r["flops"],
+                "model_flops": r["model_flops"], "attention_flops": r["attention_flops"],
+                "bytes": r["bytes"], "memory": r["memory"],
+                "collective_bytes_per_device": r["collective_bytes_per_device"],
+                "roofline": r["roofline"], "run_s": r["run_s"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    if out["seconds"] > DRYRUN_LIMIT_S:
+        problems.append(f"the phase took {out['seconds']:.1f} s, over {DRYRUN_LIMIT_S}")
+    out["ok"], out["problems"] = not problems, problems
+    emit(out)
+    if problems:
+        raise AssertionError(f"dryrun: {problems}")
 
 
 def phase_train_parity(cfg):
@@ -5015,9 +5099,11 @@ def main() -> int:
     lap("phi3")
     family_launches, family_rows = phase_mla_moe()
     lap("mla_moe")
-    flash_launches, flash_us = phase_train(cfg)
+    flash_launches, flash_us, train = phase_train(cfg)
     torch.cuda.empty_cache()
     lap("train")
+    phase_dryrun(cfg, train)
+    lap("dryrun")
     phase_train_parity(cfg)
     lap("train_parity")
     rt_train, rt_serve = phase_runtime(cfg)

@@ -356,7 +356,9 @@ class AsyncCheckpointer:
 
     def wait(self):
         """Block until every queued save is on disk; re-raise a failure."""
-        self._q.join()
+        # deliberate: waits for the writes themselves (a caller restores or
+        # exits next), however long the disk takes
+        self._q.join()  # noqa: TMO001
         if self._err:
             raise self._err
 

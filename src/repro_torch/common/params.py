@@ -136,5 +136,24 @@ def to_numpy(tree: PyTree) -> PyTree:
     return map_tree(one, tree)
 
 
+def abstract_params(specs: PyTree) -> PyTree:
+    """Param tree -> tensors of the declared shapes and dtypes on the meta
+    device: the dry run's arguments, no memory allocated."""
+    return map_tree(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                    specs)
+
+
+def param_count(specs: PyTree) -> int:
+    return int(sum(math.prod(p.shape) for p in tree_leaves(specs)))
+
+
+def param_bytes(specs: PyTree) -> int:
+    return int(sum(math.prod(p.shape) * p.dtype.itemsize for p in tree_leaves(specs)))
+
+
+def map_params(fn: Callable[[Param], Any], specs: PyTree) -> PyTree:
+    return map_tree(fn, specs)
+
+
 def tree_bytes(tree: PyTree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))

@@ -28,6 +28,18 @@ ARCHS = {
     "whisper-medium": "whisper_medium",
 }
 
+# archs whose attention is fully quadratic: long_500k is skipped for them
+FULL_ATTENTION_ARCHS = {
+    "phi3-medium-14b", "tinyllama-1.1b", "minicpm3-4b", "phi3-mini-3.8b",
+    "moonshot-v1-16b-a3b", "arctic-480b", "qwen2-vl-72b", "whisper-medium",
+}
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    """Whether the (arch x shape) cell is run: every cell but long_500k
+    on a fully quadratic stack."""
+    return not (shape == "long_500k" and arch in FULL_ATTENTION_ARCHS)
+
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCHS:

@@ -554,7 +554,7 @@ class Session:
                     if isinstance(spec, str) and tr is not None:
                         built.append(tr)
                     agents[p.uid] = RemoteAgent(p, max_workers=mw, transport=tr)
-            except BaseException:
+            except BaseException:  # noqa: BLE001 — cleanup, then re-raise
                 # a transport that failed to start leaves nothing behind
                 for a in agents.values():
                     a.close()

@@ -78,6 +78,17 @@ class ProcessMesh:
         return torch.device("cpu") if self.backend == GLOO else self.device
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry run's logical mesh on the meta device.  Single pod: (16,
+    16) = (data, model), a stand-in for 256 H100s, 8 a node; multi-pod:
+    (2, 16, 16) = (pod, data, model), 512 of them.  No such cluster was
+    ever run: only the sharding rules read the mesh (``spec_for`` reads
+    ``mesh.shape``), so no device stands behind a shard."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device="meta")
+
+
 def make_process_mesh(shape: Sequence[int], axes: Sequence[str],
                       device=None) -> ProcessMesh:
     """A mesh over the ranks of the initialized default group, whose size

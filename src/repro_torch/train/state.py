@@ -6,7 +6,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.common.params import Param, init_params, map_tree
+from repro_torch.common.params import Param, abstract_params, init_params, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed.sharding import param_specs_tree
 from repro_torch.models import encdec
@@ -50,6 +50,11 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
     for the CPU), its random leaves drawn from ``generator``, which lives
     on that device."""
     return init_params(generator, train_state_specs(cfg, run_cfg), device)
+
+
+def abstract_train_state(cfg: ModelConfig, run_cfg: RunConfig) -> Dict[str, Any]:
+    """The train state as meta tensors: the dry run's argument."""
+    return abstract_params(train_state_specs(cfg, run_cfg))
 
 
 def state_shardings(cfg: ModelConfig, run_cfg: RunConfig, mesh, rules=None):

@@ -134,6 +134,52 @@ def test_speculative_lease_released():
     agent.close()
 
 
+@pytest.mark.parametrize("package", ["repro_torch", "repro"])
+def test_straggler_twin_runs_at_width_one(package):
+    """A straggling 2-device task's speculative twin leases
+    ``min(num_devices, 1)`` devices (``agent._check_stragglers_locked``,
+    JAX's ``repro/core/agent.py:486``) and may win: the task's result is
+    then the width-1 attempt's.  Both packages' agents, one scenario."""
+    if package == "repro":
+        from repro.core.agent import RemoteAgent as Agent
+        from repro.core.pilot import Pilot as PilotBase
+        from repro.core.task import TaskDescription as Desc, TaskState as State
+    else:
+        Agent, PilotBase, Desc, State = RemoteAgent, Pilot, TaskDescription, TaskState
+
+    class StandIn(PilotBase):
+        def carve(self, devices, mesh_shape=None, mesh_axes=("data",)):
+            return SimpleNamespace(devices=tuple(devices), size=len(devices),
+                                   backend="fake", build_time_s=0.0)
+
+    pilot = StandIn("fake.4", [FakeDevice(i) for i in range(4)])
+    agent = Agent(pilot, max_workers=4, straggler_factor=1.0,
+                  straggler_min_s=0.05, straggler_check_s=0.02)
+    release = threading.Event()
+    widths = []
+
+    def body(comm):
+        widths.append(comm.size)
+        if comm.size == 2:
+            release.wait(10.0)  # the primary straggles until released
+        return comm.size
+
+    try:
+        # three finished tasks of the kind give the straggler median
+        agent.submit([Desc(name=f"h{i}", fn=lambda comm: comm.size, kind="k",
+                           num_devices=2) for i in range(3)])
+        task, = agent.submit([Desc(name="s", fn=body, kind="k", num_devices=2)])
+        assert task.state == State.DONE and task.result == 1
+        assert widths == [2, 1]  # the primary at 2, its twin at 1
+    finally:
+        release.set()
+        deadline = time.time() + 5.0
+        while pilot.free_count() != 4 and time.time() < deadline:
+            time.sleep(0.02)
+        agent.close()
+    assert pilot.free_count() == 4
+
+
 def test_retry_success_clears_error():
     """A task that fails then succeeds on retry must not keep its stale
     error — error-checking callers would reject a DONE task."""

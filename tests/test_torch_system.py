@@ -341,8 +341,12 @@ def test_subprocess_transport_multiprocess_e2e(tmp_path):
         pm = _stand_in_manager()
         pilot = pm.submit_pilot(PilotDescription(num_devices=8))
         agent = RemoteAgent(pilot, transport=transport, max_workers=2)
+        # no speculative twins: a twin leases one device, so one that beat
+        # a primary held up by a booting worker would report width 1
+        # (test_torch_runtime.py::test_straggler_twin_runs_at_width_one)
         tasks = agent.submit([TaskDescription(name=f"t{i}", fn=T.mesh_info,
-                                              args=(64 + i,), num_devices=2)
+                                              args=(64 + i,), num_devices=2,
+                                              speculative=False)
                               for i in range(4)])
         assert all(t.state is TaskState.DONE for t in tasks), [t.error for t in tasks]
         pids = {t.result["pid"] for t in tasks}
