@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare 3 [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --gang
 
 The second form builds the kernels, runs only the serve phase's rounds
 (3 rounds of both layouts in turn) and times the serving kernels'
 wrappers at the serving shape, both decodes also in fp32
 (``compare_kernels``); --src drives another checkout's package with this
 script.  Run parent, change, change, parent in one call to compare two
-trees on one card.
+trees on one card.  The third builds the kernels and runs only the gang
+phase: on a machine with two or more cards, its ranks on distinct cards
+over NCCL.
 
 Phases, each printing one JSON line per layout or run; any failure exits
 non-zero:
@@ -77,7 +80,12 @@ non-zero:
             Then torch.profiler's device time
             per launch of rmsnorm and the hash at their paths' shapes
             (taken here: windows opened late in the run came back without
-            device events).
+            device events).  Once tinyllama-1.1b's serving weights exist
+            (before the serve phase), its warm decode step and chunk step
+            at full width, on both layouts, run under sync-debug "error"
+            beside the host-sync pass's verdict on the same roots
+            (``repro_torch.analysis.host_sync``, the ``jit`` pass): both
+            must be clean (check_step_syncs).
 3. serve    full-width tinyllama-1.1b (random weights from a seeded
             torch.Generator, bf16 compute) serves 16 greedy requests shaped
             like the repo's mixed workload through ``submit`` +
@@ -163,7 +171,12 @@ non-zero:
             minicpm3's fp32 streams, kernel path against plain path, token
             for token (the stream phase's checks); a profile of a window of
             PROFILE_WINDOW paged decode steps each (the profile phase's
-            line).  Then kernel 2 timed at
+            line).  Then arctic-480b the same way at ARCTIC_LAYERS (2) of
+            its 35 layers (d_model 7168, 128 experts top-2 with the dense
+            residual through its published gather dispatch, 56 heads
+            padded to 64, KV 8, D 128, bf16 parameters, 55.8 GB): its four
+            kernels at H 64, KV 8, D 128, 4 requests per layout, tokens/s
+            and step p50 recorded.  Then kernel 2 timed at
             the MLA serving shape and kernels 3 and 5 at moonshot's, in the
             timing rows' format with SDPA beside (each row's
             ``at_other_shapes``).
@@ -268,6 +281,26 @@ non-zero:
             w_i) equal to the sequential result within PIPE_RTOL on every
             rank, ms per microbatch.  Each op's backend, world size and
             tensor device are printed.  The ranks' launches join row 7.
+   gang     a task ganged over worker processes (phase_gang): a
+            RemoteAgent on a SubprocessTransport of GANG_RANKS workers of
+            one card each, over a pilot that lists the one card twice
+            (cards 0 and 1 on a machine with two or more), runs one
+            dataframe task at num_devices=2; the agent leases 2 devices,
+            wider than a worker holds, so the transport runs it as a gang
+            of 2 gloo ranks (NCCL ranks on distinct cards) meeting in a
+            ProcessMesh
+            (tests/torch_exec_tasks.py ``gang_dataframe``: shuffle, join,
+            groupby, reduce over DIST_ROWS rows, an int32 key uniform in
+            [0, 2^20), an fp32 value, the 2^20-row right table).  Rank 0's
+            result (every rank's result rows gathered to it) is held
+            against the same table on a 2-shard logical mesh here:
+            columns, masks and drops bitwise, groupby sums within
+            DF_PAIR_ATOL, reduce within DF_REDUCE_RTOL; kernel 7 exactly 1
+            / 2 / 1 / 0 times per rank, counted in the ranks.  Worker boot
+            and rendezvous seconds, ms per operator per rank against the
+            logical mesh and the backend are printed; on a one-card
+            machine, where NCCL between distinct cards cannot run, an
+            earlier line says so.  The ranks' launches join row 7.
 9. dataframe  a 2^26-row table (int32 keys uniform in [0, 2^20), float32
             v, x1, x2 and y = 3 x1 - 2 x2 + noise, from numpy at SEED) on 8
             logical shards of the card: shuffle, sort, join with a 2^20-row
@@ -409,6 +442,9 @@ def parse_args(argv):
     ap.add_argument("--compare", type=int, default=0, metavar="R",
                     help="run only R rounds of the serve phase on both layouts "
                          "and time the serving kernels' wrappers")
+    ap.add_argument("--gang", action="store_true",
+                    help="build the kernels and run only the gang phase (on "
+                         "distinct cards over NCCL where the machine has two)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the package to drive (another checkout's src/)")
     return ap.parse_args(argv)
@@ -463,6 +499,9 @@ MOE_PARAM_DTYPE = torch.bfloat16
 # 1200 s limit: at 62 the phase took 106-179 s, PERF.md section 7; the
 # kernel's shape does not depend on the depth)
 MLA_LAYERS = 16
+# arctic-480b (its published gather MoE dispatch, bf16 parameters) serves
+# at ARCTIC_LAYERS of its 35 layers: 55.8 GB, about moonshot's 55.1
+ARCTIC, ARCTIC_LAYERS = "arctic-480b", 2
 # the sampling phase: seeds of the threefry check (64, half >= 2^32), and
 # the temperature of the sampled serving run
 SAMPLE_SEEDS, SAMPLE_TEMPERATURE = 64, 1.0
@@ -648,6 +687,11 @@ EXEC_ATTEMPT_S = 5.0
 # (JAX's check), GPipe within PIPE_RTOL of the sequential result
 DIST_RANKS, DIST_ROWS, DIST_GRAD_B, DIST_EF_SYNCS, DIST_MICRO = 2, 1 << 25, 2, 8, 8
 DIST_TIMEOUT_S = 400
+# the gang phase: GANG_RANKS worker processes of one card each, ganged by
+# the agent over a pilot that lists the one card twice, or distinct cards
+# where the machine has them (the distributed phase's tables); the
+# attempt's deadline
+GANG_RANKS, GANG_ATTEMPT_S = 2, 600.0
 INT8_REL_TOL, EF_RATIO, PIPE_RTOL, DF_REDUCE_RTOL = 0.02, 1.05, 1e-5, 1e-5
 # recurrentgemma-9b trained under its published remat policy: 3 of its 38
 # layers (one unit), B x S in bf16 through the driver for as many steps,
@@ -2580,11 +2624,12 @@ def shape_rows(cfg, launches, shapes, kernels):
 
 def phase_mla_moe():
     """minicpm3-4b (MLA, fp32 parameters, fp32 streams held kernel path
-    to plain path) and moonshot-v1-16b-a3b (MoE, bf16 parameters) served
-    at their published widths, one after the other (serve_family); then
-    kernel 2 timed at the MLA serving shape and kernels 3 and 5 at
-    moonshot's (shape_rows).  Returns each phase's launches per kernel
-    and the rows."""
+    to plain path), moonshot-v1-16b-a3b (MoE, bf16 parameters) and
+    arctic-480b (MoE through its gather dispatch, bf16, ARCTIC_LAYERS
+    layers) served at their published widths, one after the other
+    (serve_family); kernel 2 timed at the MLA serving shape and kernels
+    3 and 5 at moonshot's (shape_rows).  Returns each config's launches
+    per kernel and the rows."""
     cfg, launches, shapes = serve_family(MLA, stream=True, layers=MLA_LAYERS)
     mla_launches = {k: sum(launches[layout][k] for layout in LAYOUTS) for k in COUNTED}
     rows = shape_rows(cfg, mla_launches, shapes, ("decode_attention",))
@@ -2593,7 +2638,13 @@ def phase_mla_moe():
     rows += shape_rows(cfg, moe_launches, shapes,
                        ("decode_attention_paged", "prefill_attention_paged"))
     torch.cuda.empty_cache()
-    return {"mla": mla_launches, "moe": moe_launches}, rows
+    cfg, launches, _ = serve_family(ARCTIC, param_dtype=torch.bfloat16, layers=ARCTIC_LAYERS)
+    if cfg.moe_impl != "gather":
+        raise AssertionError(f"arctic-480b served through {cfg.moe_impl!r}, not its gather "
+                             "dispatch")
+    arctic_launches = {k: sum(launches[layout][k] for layout in LAYOUTS) for k in COUNTED}
+    torch.cuda.empty_cache()
+    return {"mla": mla_launches, "moe": moe_launches, "arctic": arctic_launches}, rows
 
 
 def corpus_batches(cfg, steps: int):
@@ -3860,6 +3911,180 @@ def phase_distributed(cfg):
     return launches
 
 
+def check_step_syncs(cfg, params):
+    """tinyllama's warm decode step and chunk step at full width on both
+    layouts (the engine's own step closures, inputs built beforehand,
+    after a few engine steps with every slot decoding), each called once
+    under sync-debug "error", beside the host-sync pass's verdict on the
+    same roots (``make_decode_step``, ``make_prefill_chunk_step``).  Both
+    must be clean; a disagreement fails the phase, whichever side reports
+    the sync."""
+    from repro_torch.analysis import host_sync
+
+    names = ("make_decode_step", "make_prefill_chunk_step")
+    roots = [r for r in host_sync.ROOTS if r.name in names]
+    static = [f.render() for f in host_sync.run(
+        host_sync.src_modules(ARGS.src.resolve() / "repro_torch"), ROOT, roots=roots)]
+    B, T = SERVE["max_slots"], 16
+    runs = {}
+    for layout in LAYOUTS:
+        engine = serve_engine(cfg, params, kv_layout=layout)
+        # long generations, so every slot still decodes when the steps run
+        for prompt, _ in mixed_requests(B, cfg.vocab_size, SEED + 13):
+            engine.submit(prompt, max_new_tokens=MAX_LEN // 2)
+        for _ in range(400):  # until every slot decodes, then two more steps
+            engine.step()
+            if all(r is not None for r in engine.slots) and (engine.prefill_pos < 0).all():
+                break
+        engine.step()
+        engine.step()
+        lens = engine.lengths.astype(np.int32)
+        t = engine._tensor
+        bt = t(engine.block_table) if layout == "paged" else None
+        dec_args = (engine._run_params, t(engine.last_tok)[:, None], engine.cache,
+                    t(lens), bt)
+        base = np.minimum(lens, MAX_LEN - T).astype(np.int32)
+        chunk_args = (engine._run_params, t(np.ones((B, T), np.int32)), t(base),
+                      t(np.full(B, T, np.int32)), engine.cache, bt)
+        torch.cuda.synchronize()
+        raised = {}
+        for step, (fn, args) in (("decode_step", (engine._decode, dec_args)),
+                                 ("chunk_step", (engine._prefill_chunk, chunk_args))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+            except RuntimeError as e:
+                raised[step] = str(e).splitlines()[0][:300]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        runs[layout] = {"raised": raised, "slots_decoding": int((engine.lengths > 0).sum())}
+        del engine, dec_args, chunk_args
+        torch.cuda.empty_cache()
+    ok = not static and not any(r["raised"] for r in runs.values())
+    out = {"phase": "kernels", "check": "step host syncs", "ok": ok, "arch": cfg.name,
+           "sync_debug_mode": "error", "runs": runs, "chunk_T": T,
+           "host_sync_pass": {"roots": list(names), "findings": static}}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"a serving step syncs the host, or the pass and the card "
+                             f"disagree: {out}")
+
+
+def phase_gang():
+    """A task ganged over worker processes (module docstring): the agent
+    leases 2 devices of a pilot that lists the one card twice (distinct
+    cards where the machine has them), wider than a worker of the pool
+    holds, so the transport runs the task as a gang of 2 gloo ranks (NCCL
+    on distinct cards); rank 0's result against the same tables on a
+    2-shard logical mesh here.  Returns kernel 7's launches, counted in
+    the ranks."""
+    from repro_torch.core.agent import RemoteAgent
+    from repro_torch.core.exec import SubprocessTransport
+    from repro_torch.core.pilot import Pilot
+    from repro_torch.core.task import TaskDescription, TaskState
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    distinct = n_cards >= GANG_RANKS
+    backend = "nccl" if distinct else "gloo"
+    if distinct:
+        print(f"gang: this machine has {n_cards} cards: the gang's {GANG_RANKS} ranks "
+              f"run on cards 0-{GANG_RANKS - 1} over NCCL", flush=True)
+    else:
+        print(f"gang: this machine has {n_cards} card, so NCCL between distinct cards "
+              f"cannot run here: the gang's {GANG_RANKS} ranks share the card on gloo",
+              flush=True)
+    spec = {"seed": SEED, "rows": DIST_ROWS, "keys": DF_KEYS, "groups_cap": DF_KEYS,
+            "warmup": True}
+    pool = SubprocessTransport(max_workers=GANG_RANKS, worker_devices=1)
+    pids = []
+    try:
+        info = pool.wait_ready(timeout=300)
+        pids = pool.worker_pids()
+        pilot = Pilot("gang.0000", [torch.device("cuda", i if distinct else 0)
+                                    for i in range(GANG_RANKS)])
+        with RemoteAgent(pilot, transport=pool) as agent:
+            t0 = time.perf_counter()
+            task, = agent.submit([TaskDescription(
+                name="gang_dataframe", fn=XT.gang_dataframe, args=(spec,),
+                num_devices=GANG_RANKS, speculative=False, max_retries=0,
+                timeout_s=GANG_ATTEMPT_S)])
+            task_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=False)
+    deadline = time.time() + 10
+    while any(Path(f"/proc/{p}").exists() for p in pids) and time.time() < deadline:
+        time.sleep(0.05)
+    if task.state is not TaskState.DONE:
+        raise AssertionError(f"the gang's attempt failed: {task.error}")
+    out = task.result
+    bad = []
+    if out["world"] != GANG_RANKS or out["backend"] != backend or out["device"] != "cuda:0":
+        bad.append(f"gang of {out['world']} on {out['backend']}, {out['device']}")
+    if sorted(out["pids"]) != sorted(pids) or os.getpid() in out["pids"]:
+        bad.append(f"ranks ran in {out['pids']}, the pool's workers are {pids}")
+    want = {n: DF_LAUNCHES[n] for n in XT.GANG_OPS}
+    for r, got in enumerate(out["launches"]):
+        if got != want:
+            bad.append(f"rank {r}: kernel 7 launched {got}, expected {want}")
+    # the same tables on a 2-shard logical mesh in this process
+    left, right = XT.gang_tables(spec)
+    mesh = make_mesh((GANG_RANKS,), ("data",), device="cuda")
+    calls = XT.gang_calls(Table.from_columns(left, mesh), Table.from_columns(right, mesh),
+                          dfo, spec["groups_cap"])
+    logical_ms, diffs = {}, {}
+    for name in XT.GANG_OPS:
+        calls[name]()  # warm-up, as in the ranks
+        res, dropped, logical_ms[name] = timed(calls[name])
+        got = out["results"][name]
+        if name == "reduce":
+            diffs[name] = abs(got["v"] - res["v"]) / abs(res["v"])
+            if not diffs[name] <= DF_REDUCE_RTOL:
+                bad.append(f"reduce: {got['v']} vs {res['v']}")
+            continue
+        ok = got["dropped"] == int(dropped) and got["dropped"] == 0 \
+            and np.array_equal(got["valid"], res.valid.cpu().numpy()) \
+            and sorted(got["cols"]) == sorted(res.column_names)
+        diffs[name] = 0.0
+        for col in res.column_names if ok else ():
+            want_col = res.col(col).cpu().numpy()
+            if name == "groupby" and col == "v":
+                diffs[name] = float(np.abs(got["cols"][col] - want_col).max())
+                ok = ok and diffs[name] <= DF_PAIR_ATOL
+            else:
+                ok = ok and np.array_equal(got["cols"][col], want_col)
+        if not ok:
+            bad.append(f"{name}: rank 0's result differs from the logical mesh's "
+                       f"(dropped {got['dropped']} vs {int(dropped)})")
+        del res
+    del calls, mesh
+    torch.cuda.empty_cache()
+    result_mb = sum(a.nbytes for r in out["results"].values() if "cols" in r
+                    for a in [*r["cols"].values(), r["valid"]]) / 1e6
+    line = {"phase": "gang", "ok": not bad, "gpu": gpu_line(), "ranks": GANG_RANKS,
+            "backend": out["backend"], "device": out["device"],
+            "cards": n_cards,
+            "nccl_between_cards": ("measured: ranks on distinct cards" if distinct
+                                   else "not measured: one card on this machine"),
+            "workers": {wid: {k: w[k] for k in ("pid", "ready_s", "boot_s")}
+                        for wid, w in info.items()},
+            "rendezvous_s": task.overhead_s.get("rendezvous"),
+            "communicator_s": task.overhead_s.get("communicator"),
+            "queue_s": task.overhead_s.get("queue"), "task_s": task_s,
+            "rank_pids": out["pids"], "rows": DIST_ROWS, "right_rows": DF_KEYS,
+            "ms_per_rank": out["ms"], "ms_logical": logical_ms,
+            "hash_launches_per_rank": out["launches"], "diffs": diffs,
+            "tolerance": {"groupby sums abs": DF_PAIR_ATOL, "reduce rel": DF_REDUCE_RTOL,
+                          "else": "bitwise"},
+            "result_mb_to_rank_0": result_mb, "problems": bad,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if bad:
+        raise AssertionError(f"the gang phase failed: {bad}")
+    return sum(sum(r.values()) for r in out["launches"])
+
+
 def profile_paper_step(step, steps: int):
     """``steps`` calls of ``step()`` (one SGD step each) under
     torch.profiler: wall and device busy ms per step, the device's idle
@@ -5058,6 +5283,14 @@ def main() -> int:
     if ARGS.compare:
         phase_compare(ARGS.compare)
         return 0
+    if ARGS.gang:
+        phase_build()
+        phase_gang()
+        print(gpu_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     wall = {}
     clock = [time.perf_counter()]
 
@@ -5074,6 +5307,8 @@ def main() -> int:
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(gen, model_specs(cfg), "cuda")
+    check_step_syncs(cfg, params)
+    lap("step_syncs")
     launches, shapes = serve_rounds(cfg, params, SERVE_ROUNDS)
     lap("serve")
     rows = phase_timing(cfg, launches, shapes)
@@ -5113,6 +5348,9 @@ def main() -> int:
     lap("exec")
     dist_hash = phase_distributed(cfg)
     lap("distributed")
+    gang_hash = phase_gang()
+    torch.cuda.empty_cache()
+    lap("gang")
     # the serving rows count the launches of every main path that runs
     # them: the fleet phase's disaggregated run, the runtime phase's
     # service stage, the exec phase's service stages in worker processes
@@ -5143,10 +5381,10 @@ def main() -> int:
     rows.append(rmsnorm_row({"rmsnorm": phase_rmsnorm(cfg)}, new_us["rmsnorm"],
                             new_us["rmsnorm_library"]))
     exec_hash = exec_launches["hash_partition_histogram"]
-    rows.append(hash_row({"hash_partition_histogram": hash_launches + exec_hash + dist_hash},
-                         new_us["hash_partition_histogram"]))
+    rows.append(hash_row({"hash_partition_histogram": hash_launches + exec_hash + dist_hash
+                          + gang_hash}, new_us["hash_partition_histogram"]))
     rows[-1]["launches_by_phase"] = {"dataframe": hash_launches, "exec": exec_hash,
-                                     "distributed": dist_hash}
+                                     "distributed": dist_hash, "gang": gang_hash}
     emit({"phase": "timing", "ok": True, "rows": rows[-3:]})
     lap("rmsnorm")
     fig4_hash = phase_paper()

@@ -10,6 +10,10 @@ package's):
   declarations on shared attributes (:mod:`repro_torch.analysis.locks`),
   paired with a runtime lock-order recorder for tests
   (:mod:`repro_torch.analysis.lockorder`).
+- ``jit``      — host syncs and Python branches on tensor values in
+  everything a step reaches, from a declared table of the counterparts
+  of JAX's jit roots (:mod:`repro_torch.analysis.host_sync`, the twin of
+  JAX's ``jit_boundary``).
 - ``kernels``  — the serving steps run on meta tensors across the config
   matrix and both KV layouts, and the kernels' head dims and grids
   checked statically, no accelerator required
@@ -21,10 +25,6 @@ package's):
   cannot cross a subprocess transport (:mod:`repro_torch.analysis.pickles`).
 - ``timeouts`` — blocking calls without a timeout
   (:mod:`repro_torch.analysis.timeouts`).
-
-JAX's ``jit`` pass (host syncs under ``jax.jit``) is not ported: its
-counterpart, a pass over the step factories' closures, is ROADMAP.md
-queue 1 item 6.
 """
 from repro_torch.analysis.findings import Finding, load_baseline, write_baseline
 

@@ -1,13 +1,12 @@
 """CLI: ``python -m repro_torch.analysis [--baseline analysis-baseline-torch.json]``
 (mirror of ``python -m repro.analysis``).
 
-Runs the lock-discipline, kernel-contract, broad-except, picklable-task
-and timeout passes over ``src/repro_torch`` and diffs the findings
-against the checked-in baseline.  Exit status 0 = clean (no finding
-outside the baseline), 1 = dirty.  Stale baseline keys (fixed findings
-still listed) are reported but do not fail the run: prune them with
-``--write-baseline``.  ``jit`` is named but not ported; asking for it
-says so.
+Runs the lock-discipline, host-sync (``jit``), kernel-contract,
+broad-except, picklable-task and timeout passes over ``src/repro_torch``
+and diffs the findings against the checked-in baseline.  Exit status 0 =
+clean (no finding outside the baseline), 1 = dirty.  Stale baseline keys
+(fixed findings still listed) are reported but do not fail the run:
+prune them with ``--write-baseline``.
 """
 from __future__ import annotations
 
@@ -17,7 +16,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-from repro_torch.analysis import excepts, kernel_contracts, locks, pickles, timeouts
+from repro_torch.analysis import (excepts, host_sync, kernel_contracts, locks, pickles,
+                                  timeouts)
 from repro_torch.analysis.findings import (
     Finding,
     diff_against_baseline,
@@ -49,20 +49,17 @@ TIMEOUT_FILES = LOCK_FILES + [
     SRC_ROOT / "checkpoint" / "store.py",
 ]
 
-ALL_PASSES = ("locks", "kernels", "excepts", "pickles", "timeouts")
-NOT_PORTED = {"jit": "JAX's jit-boundary pass is not ported (ROADMAP.md queue 1 "
-                     "item 6: a host-sync pass over the step factories' closures)"}
+ALL_PASSES = ("locks", "jit", "kernels", "excepts", "pickles", "timeouts")
 
 
 def run_passes(names) -> List[Finding]:
     findings: List[Finding] = []
     for name in names:
         t0 = time.perf_counter()
-        if name in NOT_PORTED:
-            print(f"pass {name:8s}: not ported: {NOT_PORTED[name]}")
-            continue
         if name == "locks":
             got = locks.run([p for p in LOCK_FILES if p.exists()], REPO_ROOT)
+        elif name == "jit":
+            got = host_sync.run(host_sync.src_modules(SRC_ROOT), REPO_ROOT)
         elif name == "kernels":
             got = kernel_contracts.run()
         elif name == "excepts":

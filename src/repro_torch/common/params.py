@@ -89,11 +89,23 @@ def _init_one(generator: torch.Generator, p: Param, device) -> torch.Tensor:
     # the fp32 draws of a whole stacked expert tensor would be twice its
     # size again, and then some (moonshot's in bf16: 17 GB, 35 GB of draws)
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
-    for i in range(p.shape[0]):
-        x = torch.randn(p.shape[1:], generator=generator, dtype=torch.float32,
-                        device=device)
-        out[i] = (x * std).to(p.dtype)
+    _draw_slices(out, generator, std)
     return out
+
+
+# a slice of more elements is drawn by its own first dim in turn: one layer
+# of arctic-480b's experts, [128, 7168, 4864], is 17.8 GB of fp32 draws
+_SLICE_ELEMS = 1 << 30
+
+
+def _draw_slices(out: torch.Tensor, generator: torch.Generator, std: float) -> None:
+    for i in range(out.shape[0]):
+        if out.dim() > 2 and out[i].numel() > _SLICE_ELEMS:
+            _draw_slices(out[i], generator, std)
+            continue
+        x = torch.randn(out.shape[1:], generator=generator, dtype=torch.float32,
+                        device=out.device)
+        out[i] = (x * std).to(out.dtype)
 
 
 def init_params(generator: torch.Generator, specs: PyTree,

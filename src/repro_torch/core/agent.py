@@ -79,7 +79,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core.communicator import device_type
 from repro_torch.core.exec.pickling import ensure_picklable
-from repro_torch.core.exec.remote import run_task_body
+from repro_torch.core.exec.remote import run_gang_body, run_task_body
 from repro_torch.core.pilot import Pilot
 from repro_torch.core.task import (
     DeviceFailure, ServicePreempted, Task, TaskDescription, TaskState,
@@ -510,7 +510,11 @@ class RemoteAgent:
         ``_run_one`` worker.  Remote: the picklable module-level
         ``run_task_body`` — scheduling state stays here (single master),
         only the execution crosses the process boundary, with the leased
-        width and device type (the worker carves its own pool)."""
+        width and device type (the worker carves its own pool).  A lease
+        wider than one worker holds (``transport.needs_gang``: distinct
+        cards, or more devices than a worker's pool) goes out as a gang of
+        ``run_gang_body`` ranks, one a leased device; a service task keeps
+        the one-worker path, at the worker's width."""
         if not self._remote:
             return self._transport.submit(self._run_one, task, devices,
                                           lease_uid)
@@ -531,6 +535,18 @@ class RemoteAgent:
         attempt_timeout = None if d.service else (
             d.policy.attempt_timeout_s if d.policy is not None
             else d.timeout_s)
+        needs_gang = getattr(self._transport, "needs_gang", None)
+        if not d.service and needs_gang is not None and needs_gang(devices):
+            # wider than one worker holds: one rank per leased device, in
+            # as many workers, meeting in a process mesh; the attempt's
+            # result is rank 0's
+            return self._transport.submit_gang(
+                run_gang_body, devices, d.fn, tuple(d.args), kwargs,
+                tuple(devices), d.mesh_shape, d.mesh_axes, self.pilot.uid,
+                on_done=lambda fut, t=task, lu=lease_uid:
+                    self._on_remote_exit(t, lu, fut),
+                label=f"{task.uid} ({d.name})",
+                attempt_timeout_s=attempt_timeout)
         return self._transport.submit(
             run_task_body, d.fn, tuple(d.args), kwargs,
             len(devices), d.mesh_shape, d.mesh_axes, device_type(devices[0]),

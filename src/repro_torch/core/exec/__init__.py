@@ -31,9 +31,12 @@ Public surface:
 - ``run_task_body`` — the module-level adapter the agent ships instead
   of its (unpicklable) bound ``_run_one``: carves a local communicator
   inside the worker and runs the task fn under it.
+- ``run_gang_body`` — one rank of a gang (``SubprocessTransport.submit_gang``):
+  joins a fresh process group and runs the task fn on a communicator
+  over a ``ProcessMesh`` of the gang's ranks.
 """
 from repro_torch.core.exec.pickling import ensure_picklable
-from repro_torch.core.exec.remote import run_task_body
+from repro_torch.core.exec.remote import run_gang_body, run_task_body
 from repro_torch.core.exec.transport import (DistributedTransport,
                                              RemoteTaskError,
                                              SubprocessTransport,
@@ -46,4 +49,5 @@ __all__ = [
     "RemoteTaskError",
     "ensure_picklable",
     "run_task_body",
+    "run_gang_body",
 ]

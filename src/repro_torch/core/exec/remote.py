@@ -23,6 +23,15 @@ a worker is reported as a plain task failure (worker-local device ids do
 not map onto the parent pilot's inventory); the real fault-detection
 path for remote execution is process death, which the transport turns
 into ``WorkerCrashed``.
+
+A task whose lease is wider than one worker can hold (distinct cards, or
+more devices than a worker's pool) runs as a *gang* instead: the
+transport ships :func:`run_gang_body` to N workers at once, one leased
+device each.  Every rank joins a fresh ``torch.distributed`` group,
+builds its communicator over a ``ProcessMesh`` and runs the task fn under
+the same kwarg contract; the attempt's result is rank 0's
+(``core/communicator.py``).  The group is destroyed on the way out, so
+the worker serves the next task clean.
 """
 from __future__ import annotations
 
@@ -39,6 +48,14 @@ def _prod(xs) -> int:
     for x in xs:
         out *= x
     return out
+
+
+def _mesh_of(n: int, mesh_shape, mesh_axes) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The task's mesh shape and axes at width ``n``, or a 1-D ``data``
+    mesh when the leased width does not fill the shape it asked for."""
+    shape = tuple(mesh_shape) if mesh_shape and n == _prod(mesh_shape) else (n,)
+    axes = tuple(mesh_axes) if len(shape) == len(mesh_axes) else ("data",)
+    return shape, axes
 
 
 def local_pool(device_type: str) -> List:
@@ -78,11 +95,7 @@ def run_task_body(fn,
     pool = local_pool(device_type)
     n = max(1, min(int(num_devices), len(pool)))
     devices = pool[:n]
-    shape = (tuple(mesh_shape)
-             if mesh_shape and len(devices) == _prod(mesh_shape)
-             else (len(devices),))
-    axes = (tuple(mesh_axes) if len(shape) == len(mesh_axes) else ("data",))
-    comm = build_communicator(devices, shape, axes)
+    comm = build_communicator(devices, *_mesh_of(n, mesh_shape, mesh_axes))
     overhead = {"communicator": time.time() - t0}
     call_kwargs = dict(kwargs)
     if control is not None:
@@ -91,3 +104,57 @@ def run_task_body(fn,
         call_kwargs["control"] = control
     result = fn(comm, *args, **call_kwargs)
     return {"result": result, "overhead": overhead}
+
+
+def run_gang_body(rendezvous: Mapping[str, Any],
+                  fn,
+                  args: Sequence[Any],
+                  kwargs: Mapping[str, Any],
+                  devices: Sequence,
+                  mesh_shape: Optional[Tuple[int, ...]],
+                  mesh_axes: Tuple[str, ...],
+                  pilot_uid: Optional[str] = None) -> Dict[str, Any]:
+    """Run one rank of a gang attempt inside a worker process.
+
+    ``rendezvous`` is this rank's part of the gang, from the transport:
+    ``rank``, ``world``, ``init_method`` (a fresh ``tcp://127.0.0.1:<port>``
+    per attempt), ``backend``, ``device`` (this worker's index of the
+    leased card, or ``"cpu"``) and ``timeout_s``, the process group's
+    bound on the rendezvous and on every collective.  ``devices`` are
+    the whole gang's leased devices, in rank order.  Returns what
+    :func:`run_task_body` returns, plus the rank and the seconds the
+    rendezvous took.
+    """
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.communicator import build_gang_communicator
+
+    t0 = time.time()
+    dev = torch.device(rendezvous["device"])
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the parent leased a CUDA device but this worker sees no GPU "
+                f"(CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        dist.destroy_process_group()  # never join a gang over a stale group
+    dist.init_process_group(
+        rendezvous["backend"], init_method=rendezvous["init_method"],
+        world_size=int(rendezvous["world"]), rank=int(rendezvous["rank"]),
+        timeout=datetime.timedelta(seconds=float(rendezvous["timeout_s"])))
+    try:
+        joined = time.time()
+        comm = build_gang_communicator(
+            devices, *_mesh_of(len(devices), mesh_shape, mesh_axes), device=dev,
+            pilot_uid=pilot_uid)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)  # the mesh may pick rank % count
+        overhead = {"rendezvous": joined - t0, "communicator": time.time() - t0}
+        result = fn(comm, *args, **dict(kwargs))
+        return {"result": result, "overhead": overhead, "rank": comm.rank}
+    finally:
+        dist.destroy_process_group()

@@ -52,6 +52,23 @@ token streams and terminal request states flow back and are applied to
 the client-held Request objects, so streaming semantics match the
 in-process transport.  A token frame that arrives after its request's
 ``finish`` frame is still applied (``_StreamTable``).
+
+Gangs: ``submit_gang(fn, devices, ...)`` runs one attempt on
+``len(devices)`` workers at once, one leased device each, as the ranks of
+one ``torch.distributed`` group (``remote.run_gang_body``).  The workers
+are checked out all or nothing under the pool's lock, so two gangs never
+each hold half the pool.  A rank runs on a worker that sees its leased
+card (cards are dealt to worker slots at spawn; the gang picks slots
+that hold its cards), and its task frame carries its rendezvous: rank,
+world size, a fresh ``tcp://127.0.0.1:<port>``, backend (NCCL for
+distinct cards, gloo for a shared card or the CPU) and device.  The one
+Future completes with rank 0's result once every rank has returned; the
+first rank that raises or dies fails it, and the workers of the ranks
+still running are killed at once (they may be blocked in a collective)
+and respawned under the respawn backoff.  A gang at the queue head that
+the pool's live slots (and those due for respawn) can no longer place,
+once the respawn cap is spent, fails at once instead of blocking the
+tasks queued behind it.
 """
 from __future__ import annotations
 
@@ -63,7 +80,8 @@ import sys
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, Deque, Dict, List, Optional
+from types import SimpleNamespace
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Union
 
 from repro_torch.core.exec import pickling, protocol
 from repro_torch.core.exec.remote import POOL_ENV
@@ -71,6 +89,10 @@ from repro_torch.core.resilience import faults as rfaults
 from repro_torch.core.resilience.policy import FailurePolicy
 from repro_torch.core.task import ServicePreempted
 from repro_torch.core.transport import Transport
+
+#: a gang's process-group bound on its rendezvous and collectives when
+#: its attempt has no deadline (otherwise the bound is the deadline)
+GROUP_TIMEOUT_S = 300.0
 
 
 class WorkerCrashed(RuntimeError):
@@ -101,11 +123,13 @@ class RemoteTaskError(RuntimeError):
 
 class _Job:
     __slots__ = ("jid", "payload", "future", "label", "service_control",
-                 "on_done", "worker_id", "attempt_timeout_s", "deadline")
+                 "on_done", "worker_id", "attempt_timeout_s", "deadline",
+                 "gang", "rank")
 
     def __init__(self, jid: int, payload: bytes, label: str,
                  service_control, on_done,
-                 attempt_timeout_s: Optional[float] = None):
+                 attempt_timeout_s: Optional[float] = None,
+                 gang: Optional["_Gang"] = None, rank: int = 0):
         self.jid = jid
         self.payload = payload
         self.label = label
@@ -115,16 +139,102 @@ class _Job:
         self.worker_id: Optional[int] = None
         self.attempt_timeout_s = attempt_timeout_s
         self.deadline: Optional[float] = None  # set at dispatch
+        self.gang = gang  # the gang this rank belongs to, or None
+        self.rank = rank
+
+
+class _Gang:
+    """One attempt over several workers: its rank jobs (sharing one
+    payload), the physical card of each rank (None on the CPU), and the
+    one Future that the caller holds."""
+
+    def __init__(self, on_done, cards: Sequence[Optional[str]], backend: str,
+                 timeout_s: float):
+        self.on_done = on_done
+        self.cards = list(cards)
+        self.backend = backend
+        self.timeout_s = timeout_s
+        self.future: Future = Future()
+        self.jobs: List[_Job] = []
+        self._lock = threading.Lock()
+        self._values: Dict[int, Any] = {}  # guarded-by: _lock
+        self._failed = False  # guarded-by: _lock
+
+    def rendezvous(self, rank: int, worker: "_WorkerHandle",
+                   port: int) -> Dict[str, Any]:
+        """Rank ``rank``'s part of the gang, for the worker it runs on."""
+        card = self.cards[rank]
+        return {"rank": rank, "world": len(self.cards),
+                "init_method": f"tcp://127.0.0.1:{port}",
+                "backend": self.backend, "timeout_s": self.timeout_s,
+                "device": "cpu" if card is None
+                else f"cuda:{worker.cards.index(card)}"}
+
+    def record(self, rank: int, fut: Future) -> Optional[str]:
+        """Note one rank's outcome: ``"ok"`` once every rank has returned,
+        ``"failed"`` for the first rank that did not, else None."""
+        exc = fut.exception(timeout=0)
+        with self._lock:
+            if self._failed:
+                return None
+            if exc is not None:
+                self._failed = True
+                return "failed"
+            self._values[rank] = fut.result(timeout=0)
+            return "ok" if len(self._values) == len(self.cards) else None
+
+    def value(self) -> Any:
+        """Rank 0's result: the attempt's."""
+        with self._lock:
+            return self._values[0]
+
+
+def _free_port() -> int:
+    """A port on 127.0.0.1 that the OS calls free now (a gang's rendezvous;
+    rank 0 binds it)."""
+    import socket as _socket
+    with _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _match(cards: Sequence[Optional[str]], workers: Sequence) -> Optional[List]:
+    """One distinct worker per rank whose cards hold the rank's card (any
+    worker for a CPU rank), or None: a small backtracking search, the
+    ranks with the fewest candidates first."""
+    cand = [[w for w in workers if c is None or c in w.cards] for c in cards]
+    order = sorted(range(len(cards)), key=lambda r: len(cand[r]))
+    out: List = [None] * len(cards)
+    used: set = set()
+
+    def place(i: int) -> bool:
+        if i == len(order):
+            return True
+        r = order[i]
+        for w in cand[r]:
+            if w.wid not in used:
+                used.add(w.wid)
+                out[r] = w
+                if place(i + 1):
+                    return True
+                used.discard(w.wid)
+        return False
+
+    return out if place(0) else None
 
 
 class _WorkerHandle:
     __slots__ = ("wid", "proc", "chan", "state", "last_seen", "job",
                  "spawned_at", "devices", "device_name", "boot_s",
-                 "ready_s", "max_gap_s")
+                 "ready_s", "max_gap_s", "cards")
 
-    def __init__(self, wid: int, proc: subprocess.Popen):
+    def __init__(self, wid: int, proc: subprocess.Popen,
+                 cards: Sequence[str] = ()):
         self.wid = wid
         self.proc = proc
+        #: the machine's card ids this worker sees (its
+        #: CUDA_VISIBLE_DEVICES, in its own order); empty on the CPU
+        self.cards = list(cards)
         self.chan: Optional[protocol.Channel] = None
         # starting (spawned) | booting (connected: torch, the CUDA
         # context) | idle (ready) | busy | dead
@@ -238,7 +348,9 @@ class SubprocessTransport(Transport):
 
         from repro_torch.launch.mesh import resolve_device
         self.capacity = max_workers
-        self._worker_devices = worker_devices
+        #: the devices one worker holds: a lease wider than this, or of
+        #: distinct cards, runs as a gang (``needs_gang``)
+        self.worker_devices = worker_devices
         #: the workers' device type: the card unless the caller asks for
         #: the CPU (raises here, in the parent, without a GPU)
         self.device = resolve_device(device).type
@@ -262,7 +374,7 @@ class SubprocessTransport(Transport):
 
         self._cond = threading.Condition()
         self._workers: Dict[int, _WorkerHandle] = {}  # guarded-by: _cond
-        self._queue: Deque[_Job] = collections.deque()  # guarded-by: _cond
+        self._queue: Deque[Union[_Job, _Gang]] = collections.deque()  # guarded-by: _cond
         self._inflight: Dict[int, _Job] = {}  # guarded-by: _cond (jid -> job)
         self._closed = False  # guarded-by: _cond
         self._respawns = 0  # guarded-by: _cond
@@ -338,6 +450,86 @@ class SubprocessTransport(Transport):
             self._cond.notify_all()
         return job.future
 
+    def needs_gang(self, devices: Sequence) -> bool:
+        """Whether one worker cannot hold a lease of ``devices``: distinct
+        cards (one process holds one card's communicator), or more
+        devices than a worker's pool."""
+        from repro_torch.core.communicator import device_id, device_type
+
+        if len(devices) <= 1:
+            return False
+        if (device_type(devices[0]) == "cuda"
+                and len({device_id(d) for d in devices}) > 1):
+            return True
+        return len(devices) > self.worker_devices
+
+    def submit_gang(self, fn: Callable, devices: Sequence, *args,
+                    on_done: Optional[Callable[[Future], None]] = None,
+                    label: Optional[str] = None,
+                    attempt_timeout_s: Optional[float] = None,
+                    **kwargs) -> Future:
+        """Run ``fn(rendezvous, *args, **kwargs)`` on ``len(devices)`` idle
+        workers at once, rank r on a worker that sees leased device r;
+        ``rendezvous`` is the rank's part of the gang (module docstring).
+
+        Returns one Future: rank 0's result once every rank has returned,
+        or the first failure.  Raises ``ValueError`` at once for a gang
+        wider than the pool, or one whose cards no set of worker slots
+        holds, and ``TypeError`` for an unpicklable call.
+        ``attempt_timeout_s`` bounds each rank's attempt, as in ``submit``,
+        and also the process group's rendezvous and collectives
+        (``GROUP_TIMEOUT_S`` when the attempt has no deadline).
+        """
+        from repro_torch.core.communicator import device_id, device_type
+
+        n = len(devices)
+        if n > self.capacity:
+            raise ValueError(
+                f"a gang of {n} ranks is wider than this pool of "
+                f"{self.capacity} workers")
+        if device_type(devices[0]) == "cuda":
+            if self.device != "cuda":
+                raise ValueError("a gang over CUDA devices needs a pool on "
+                                 f"the card, not on the {self.device}")
+            idx = [device_id(d) for d in devices]
+            if max(idx) >= len(self._cards):
+                raise ValueError(f"leased cards {idx}: this pool sees "
+                                 f"{len(self._cards)}")
+            cards: List[Optional[str]] = [self._cards[i] for i in idx]
+            backend = "nccl" if len(set(cards)) == n else "gloo"
+            slots = [SimpleNamespace(wid=w, cards=self._cards_for(w))
+                     for w in range(self.capacity)]
+            if _match(cards, slots) is None:
+                raise ValueError(
+                    f"no {n} worker slots hold the leased cards {cards} "
+                    f"(each slot holds {self.worker_devices} card(s))")
+        else:
+            cards, backend = [None] * n, "gloo"
+        pickling.ensure_picklable(fn, transport=self.name)
+        try:
+            payload = pickling.format_payload(fn, args, kwargs, service=False)
+        except Exception:  # noqa: BLE001 — re-raised, the leaf named first
+            pickling.ensure_picklable(fn, args, kwargs, transport=self.name)
+            raise
+        if attempt_timeout_s is None:
+            attempt_timeout_s = self._policy.attempt_timeout_s
+        label = label or getattr(fn, "__qualname__", repr(fn))
+        gang = _Gang(on_done, cards, backend,
+                     GROUP_TIMEOUT_S if attempt_timeout_s is None
+                     else attempt_timeout_s)
+        for r in range(n):
+            job = _Job(next(self._jid), payload, f"{label} [rank {r} of {n}]",
+                       None, None, attempt_timeout_s=attempt_timeout_s,
+                       gang=gang, rank=r)
+            job.on_done = lambda fut, j=job: self._on_rank_done(j, fut)
+            gang.jobs.append(job)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("SubprocessTransport is shut down")
+            self._queue.append(gang)
+            self._cond.notify_all()
+        return gang.future
+
     def shutdown(self, wait: bool = True) -> None:
         """Stop the pool.  ``wait=True`` drains in-flight attempts (up to
         ``drain_timeout_s``) then asks workers to exit; ``wait=False``
@@ -352,7 +544,7 @@ class SubprocessTransport(Transport):
             inflight = list(self._inflight.values())
             workers = list(self._workers.values())
             self._cond.notify_all()
-        for job in queued:
+        for job in queued:  # a task or a whole gang
             self._resolve(job, exc=RuntimeError(
                 "transport shut down before dispatch"))
         if wait:
@@ -434,25 +626,28 @@ class SubprocessTransport(Transport):
 
     # -- spawning / reaping ----------------------------------------------------
 
+    def _cards_for(self, wid: int) -> List[str]:
+        """Worker slot ``wid``'s share of the cards: worker_devices cards
+        round-robin over the visible ones (every worker gets card 0 on a
+        one-card machine); empty on the CPU.  A respawn keeps its slot's."""
+        if self.device != "cuda":
+            return []
+        k = min(self.worker_devices, len(self._cards))
+        return [self._cards[(wid * k + j) % len(self._cards)] for j in range(k)]
+
     def _spawn_locked(self, wid: int) -> _WorkerHandle:
         env = dict(os.environ if self._env is None else self._env)
         env["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
-        env[POOL_ENV] = str(self._worker_devices)
-        if self.device == "cuda":
-            # the worker's share: worker_devices cards round-robin over
-            # the visible ones (every worker gets card 0 on a one-card
-            # machine); its torch numbers them from 0
-            k = min(self._worker_devices, len(self._cards))
-            env["CUDA_VISIBLE_DEVICES"] = ",".join(
-                self._cards[(wid * k + j) % len(self._cards)] for j in range(k))
-        else:
-            env["CUDA_VISIBLE_DEVICES"] = ""
+        env[POOL_ENV] = str(self.worker_devices)
+        cards = self._cards_for(wid)
+        # the worker's torch numbers its cards from 0
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
         cmd = [sys.executable, "-m", "repro_torch.core.exec.worker",
                "--host", "127.0.0.1", "--port", str(self._port),
                "--worker-id", str(wid), "--device", self.device,
                "--heartbeat-s", str(self._heartbeat_s)]
         proc = subprocess.Popen(cmd, env=env)
-        return _WorkerHandle(wid, proc)
+        return _WorkerHandle(wid, proc, cards)
 
     def _reap_all(self, workers: List[_WorkerHandle], grace_s: float) -> None:
         for w in workers:
@@ -554,49 +749,90 @@ class SubprocessTransport(Transport):
 
     def _dispatch_loop(self) -> None:
         while True:
-            to_send: Optional[tuple] = None
+            sends: List[tuple] = []
+            stranded: Optional[_Gang] = None
             with self._cond:
-                while to_send is None:
+                while not sends and stranded is None:
                     if self._closed:
                         return
-                    job, w = self._pick_locked()
-                    if job is None:
+                    stranded = self._stranded_head_locked()
+                    if stranded is not None:
+                        break
+                    picked = self._pick_locked()
+                    if not picked:
                         self._cond.wait(0.5)
                         if self._closed:
                             return
                         continue
-                    if not job.future.set_running_or_notify_cancel():
+                    gang = picked[0][0].gang
+                    held = gang.future if gang is not None else picked[0][0].future
+                    if not held.set_running_or_notify_cancel():
                         continue  # cancelled while queued (agent close)
-                    w.state = "busy"
-                    w.job = job
-                    job.worker_id = w.wid
-                    if job.attempt_timeout_s is not None:
-                        job.deadline = time.time() + job.attempt_timeout_s
-                    self._inflight[job.jid] = job
-                    to_send = (job, w)
-            job, w = to_send
-            try:
-                # chaos site first: an injected crash/stall frame lands
-                # before the task, so the fault deterministically hits
-                # the attempt being dispatched (no result/death race)
-                self._maybe_inject_dispatch_fault(job, w)
-                w.chan.send({"type": "task", "task_id": job.jid,
-                             "payload": job.payload})
-            except (protocol.ConnectionClosed, OSError):
-                self._worker_lost(w, "send failed")
-                continue
-            if job.service_control is not None:
-                threading.Thread(
-                    target=self._bridge_loop, args=(job, w),
-                    name=f"rc-exec-bridge-{job.jid}", daemon=True).start()
+                    now = time.time()
+                    port = _free_port() if gang is not None else None
+                    for job, w in picked:
+                        w.state = "busy"
+                        w.job = job
+                        job.worker_id = w.wid
+                        if job.attempt_timeout_s is not None:
+                            job.deadline = now + job.attempt_timeout_s
+                        self._inflight[job.jid] = job
+                        frame = {"type": "task", "task_id": job.jid,
+                                 "payload": job.payload}
+                        if gang is not None:
+                            frame["rendezvous"] = gang.rendezvous(job.rank, w, port)
+                        sends.append((job, w, frame))
+            if stranded is not None and stranded.future.set_running_or_notify_cancel():
+                self._resolve(stranded, exc=RuntimeError(
+                    f"a gang over cards {stranded.cards} can no longer be "
+                    "placed: the pool's respawn cap is spent and too few "
+                    "worker slots are alive or due for respawn"))
+            for job, w, frame in sends:
+                try:
+                    # chaos site first: an injected crash/stall frame lands
+                    # before the task, so the fault deterministically hits
+                    # the attempt being dispatched (no result/death race)
+                    self._maybe_inject_dispatch_fault(job, w)
+                    w.chan.send(frame)
+                except (protocol.ConnectionClosed, OSError):
+                    self._worker_lost(w, "send failed")
+                    continue
+                if job.service_control is not None:
+                    threading.Thread(
+                        target=self._bridge_loop, args=(job, w),
+                        name=f"rc-exec-bridge-{job.jid}", daemon=True).start()
 
-    def _pick_locked(self):
+    def _stranded_head_locked(self) -> Optional[_Gang]:
+        """Pop and return the queue head if it is a gang that no set of
+        the pool's live slots, and those due for respawn, can place: a
+        slot that died past the respawn cap stays dead, so the gang would
+        wait at the head forever and hold up every task behind it."""
+        if not self._queue or not isinstance(self._queue[0], _Gang):
+            return None
+        live = [w for w in self._workers.values()
+                if w.state != "dead" or w.wid in self._respawn_due]
+        if _match(self._queue[0].cards, live) is not None:
+            return None
+        return self._queue.popleft()
+
+    def _pick_locked(self) -> List[tuple]:
+        """The queue head's (job, worker) pairs: one idle worker for a
+        task, one for each rank of a gang (all of them, or the gang waits
+        at the head)."""
         if not self._queue:
-            return None, None
-        for w in self._workers.values():
-            if w.state == "idle" and w.chan is not None:
-                return self._queue.popleft(), w
-        return None, None
+            return []
+        idle = [w for w in self._workers.values()
+                if w.state == "idle" and w.chan is not None]
+        head = self._queue[0]
+        if isinstance(head, _Gang):
+            placed = _match(head.cards, idle)
+            if placed is None:
+                return []
+            self._queue.popleft()
+            return list(zip(head.jobs, placed))
+        if not idle:
+            return []
+        return [(self._queue.popleft(), idle[0])]
 
     def _maybe_inject_dispatch_fault(self, job: _Job,
                                      w: _WorkerHandle) -> None:
@@ -643,9 +879,16 @@ class SubprocessTransport(Transport):
                 err.get("etype", "Exception"), err.get("message", ""),
                 err.get("traceback", "")))
 
-    def _worker_lost(self, w: _WorkerHandle, reason: str) -> None:
+    def _worker_lost(self, w: _WorkerHandle, reason: str,
+                     only_if_job: Optional[_Job] = None) -> None:
+        """Kill ``w``, fail its attempt and respawn its slot (under the
+        cap and backoff).  With ``only_if_job``, do nothing unless ``w``
+        still runs that job: a gang's kill must not land on a worker that
+        has since taken up other work."""
         with self._cond:
             if w.state == "dead":
+                return
+            if only_if_job is not None and w.job is not only_if_job:
                 return
             if self._closed:
                 w.state = "dead"
@@ -723,7 +966,26 @@ class SubprocessTransport(Transport):
                                          f"({w.state}: start timeout)")
             time.sleep(self._poll_s)
 
-    def _resolve(self, job: _Job, value: Any = None,
+    def _on_rank_done(self, job: _Job, fut: Future) -> None:
+        """One rank of a gang resolved: complete the gang with rank 0's
+        result once every rank has returned, or fail it at the first rank
+        that did not and kill the workers of the ranks still running
+        (they may wait in a collective for the failed one)."""
+        gang = job.gang
+        outcome = gang.record(job.rank, fut)
+        if outcome == "ok":
+            self._resolve(gang, value=gang.value())
+        elif outcome == "failed":
+            self._resolve(gang, exc=fut.exception(timeout=0))
+            for other in gang.jobs:
+                with self._cond:
+                    w = self._workers.get(other.worker_id)
+                if w is not None:
+                    self._worker_lost(
+                        w, f"rank {job.rank} of its gang failed",
+                        only_if_job=other)
+
+    def _resolve(self, job: Union[_Job, _Gang], value: Any = None,
                  exc: Optional[BaseException] = None) -> None:
         try:
             if exc is not None:

@@ -148,6 +148,9 @@ class _TaskRun:
         self.chan = chan
         self.task_id = msg["task_id"]
         self.payload = protocol.loads(msg["payload"])
+        #: a gang rank's part of its gang (the transport's ``submit_gang``):
+        #: passed to the task fn ahead of its arguments
+        self.rendezvous = msg.get("rendezvous")
         #: set just before the result frame goes out.  The busy check
         #: reads this, NOT thread.is_alive(): the parent marks the worker
         #: idle the instant the result frame lands, so a fast next
@@ -190,7 +193,9 @@ class _TaskRun:
     def _run(self) -> None:
         from repro_torch.core.task import ServicePreempted
         fn = self.payload["fn"]
-        args = self.payload["args"]
+        args = tuple(self.payload["args"])
+        if self.rendezvous is not None:
+            args = (self.rendezvous,) + args
         kwargs = dict(self.payload["kwargs"])
         if self.control is not None:
             kwargs["control"] = self.control

@@ -53,7 +53,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence, Tuple, Union)
 
 from repro_torch.core.agent import RemoteAgent
-from repro_torch.core.communicator import device_type
+from repro_torch.core.communicator import device_id, device_type
 from repro_torch.core.pilot import Pilot, PilotDescription, PilotManager
 from repro_torch.core.pipeline import Pipeline, Stage, aggregate_metrics
 from repro_torch.core.task import ServiceControl, Task
@@ -588,9 +588,13 @@ class Session:
         opts = dict(self._transport_options)
         if spec != "in-process":
             # each worker carries a torch runtime (and a CUDA context):
-            # default the pool small instead of one process per device
-            opts.setdefault("max_workers", min(max_workers, 2))
-            opts.setdefault("device", device_type(pilot.alive_devices()[0]))
+            # default the pool small instead of one process per device,
+            # but one worker a card, so a stage over every card of the
+            # pilot runs as a gang
+            alive = pilot.alive_devices()
+            cards = {device_id(d) for d in alive if device_type(d) == "cuda"}
+            opts.setdefault("max_workers", max(min(max_workers, 2), len(cards)))
+            opts.setdefault("device", device_type(alive[0]))
         return make_transport(spec, **opts)
 
     def _pod_descriptions(self) -> List[PilotDescription]:

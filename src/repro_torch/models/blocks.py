@@ -158,7 +158,9 @@ def _check_prefill_base(raw_len) -> None:
         raise ValueError(
             "prefill (S>1) requires a scalar cache length; per-slot "
             "lengths only apply to single-token decode")
-    if int(raw_len) != 0:
+    # a 0-d card tensor is read to the host here: only a prefill without
+    # chunk_lens gets here (once a layer), never a serving step
+    if int(raw_len) != 0:  # sync-ok: the no-chunk prefill's probe of its base
         raise NotImplementedError(
             f"prefill (S>1) writes into an EMPTY cache (got base length "
             f"{int(raw_len)}); pass chunk_lens for the ragged prefill over "

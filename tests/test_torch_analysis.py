@@ -6,9 +6,11 @@ numbers, lock-order cycles and clean nesting, the agent's live
 interleaving); each AST pass gives JAX's pass's findings, finding for
 finding, on the fixtures and on the port's own runtime files; the kernel
 pass flags a bad GQA grid, a head dim no kernel is built for and a step
-that breaks its output contract; and ``python -m repro_torch.analysis``
-exits 0 on the port against ``analysis-baseline-torch.json``, which makes
-it a tier-1 gate."""
+that breaks its output contract; the host-sync pass (``jit``) reports
+exactly the syncs seeded in ``tests/torch_host_sync_fixture.py``, has a
+counterpart for every jit root JAX's pass discovers, and is clean on the
+serving steps; and ``python -m repro_torch.analysis`` exits 0 on the port
+against ``analysis-baseline-torch.json``, which makes it a tier-1 gate."""
 import os
 import subprocess
 import sys
@@ -24,7 +26,9 @@ from repro.analysis import excepts as jexcepts  # noqa: E402
 from repro.analysis import locks as jlocks  # noqa: E402
 from repro.analysis import pickles as jpickles  # noqa: E402
 from repro.analysis import timeouts as jtimeouts  # noqa: E402
-from repro_torch.analysis import excepts, kernel_contracts, locks, pickles, timeouts  # noqa: E402
+from repro.analysis import jit_boundary as jjit  # noqa: E402
+from repro_torch.analysis import (excepts, host_sync, kernel_contracts, locks,  # noqa: E402
+                                  pickles, timeouts)
 from repro_torch.analysis.__main__ import LOCK_FILES, SRC_ROOT, TIMEOUT_FILES  # noqa: E402
 from repro_torch.analysis.findings import (  # noqa: E402
     Finding, diff_against_baseline, load_baseline, write_baseline,
@@ -319,15 +323,103 @@ def test_cli_is_clean_against_the_ports_baseline():
     assert (ROOT / "analysis-baseline-torch.json").exists()
 
 
+# ---------------------------------------------------------------------------
+# the host-sync pass (``jit``): the twin of JAX's jit-boundary pass
+# ---------------------------------------------------------------------------
+
+FIXTURE_ROOTS = (host_sync.Root("torch_host_sync_fixture", "make_leaky_step", "factory"),
+                 host_sync.Root("torch_host_sync_fixture", "clean_step"))
+
+
+def test_host_sync_pass_reports_exactly_the_seeded_syncs():
+    findings = host_sync.run(
+        {"torch_host_sync_fixture": ROOT / "tests" / "torch_host_sync_fixture.py"},
+        ROOT, roots=FIXTURE_ROOTS)
+    assert sorted((f.rule, f.line) for f in findings) == [
+        ("host-sync", 23),      # .tolist() in the helper leaky_step calls
+        ("host-sync", 28),      # time.perf_counter() in a step
+        ("host-sync", 32),      # float() of a tensor
+        ("host-sync", 33),      # .item()
+        ("host-sync", 34),      # boolean-mask indexing
+        ("host-sync", 35),      # torch.nonzero
+        ("host-sync", 36),      # np.asarray of a tensor
+        ("host-sync", 37),      # .to("cpu")
+        ("host-sync", 38),      # repeat_interleave with tensor repeats
+        ("host-sync", 39),      # torch.cuda.synchronize()
+        ("traced-branch", 30),  # if on a tensor
+        ("traced-branch", 40),  # while on a tensor
+    ]
+    # every finding names its function; clean_step (shapes, devices,
+    # static keyword-only parameters, int repeats, a marked read) gives none
+    assert {f.symbol for f in findings} == {"leaky_step", "_to_host"}
+    assert all(f.pass_name == "jit" for f in findings)
+
+
+def test_every_jax_jit_root_has_a_counterpart():
+    """JAX's pass discovers its roots in ``src/repro``; each one is named
+    by an entry of the port's root table, or stands in NO_COUNTERPART
+    with its reason."""
+    from repro.analysis.__main__ import REPO_ROOT, _src_modules
+
+    jax_roots = {f"{mod.name}.{fn.name}" for mod, fn, _ in
+                 jjit.JitBoundaryPass(_src_modules(), REPO_ROOT).discover_roots()}
+    assert len(jax_roots) >= 12
+    named = {j for r in host_sync.ROOTS for j in r.jax}
+    missing = jax_roots - named - set(host_sync.NO_COUNTERPART)
+    assert not missing, missing
+    assert not named - jax_roots, "a root table entry names no JAX root"
+    assert all(host_sync.NO_COUNTERPART.values())
+
+
+def test_every_root_of_the_table_resolves():
+    p = host_sync.HostSyncPass(host_sync.src_modules(SRC_ROOT), ROOT)
+    got = {(m.name, fn.name) for m, fn, _ in p.resolve_roots()}
+    for name in ("train_step", "loss_fn", "prefill_step", "last_logits_step",
+                 "chunk_step", "decode_step"):
+        assert ("repro_torch.train.step", name) in got, name
+    assert ("repro_torch.bridge.loader", "_gather") in got
+    assert ("repro_torch.serve.sampling", "sample_tokens") in got
+    assert sum(m == "repro_torch.kernels.ops" for m, _ in got) == 8
+
+
+@pytest.mark.parametrize("factory", ["make_decode_step", "make_prefill_chunk_step"])
+def test_host_sync_pass_is_clean_on_the_serving_steps(factory):
+    roots = [r for r in host_sync.ROOTS if r.name == factory]
+    assert host_sync.run(host_sync.src_modules(SRC_ROOT), ROOT, roots=roots) == []
+
+
+def test_host_sync_pass_needs_a_reason_to_be_quiet(tmp_path):
+    """``# sync-ok`` without a reason suppresses nothing; the prefill's
+    marked base probe is reached from make_prefill_step."""
+    src = tmp_path / "m.py"
+    src.write_text("def step(x):\n    a = x.item()  # sync-ok\n"
+                   "    b = x.item()  # sync-ok: counted once a call\n    return a, b\n")
+    got = host_sync.run({"m": src}, tmp_path, roots=[host_sync.Root("m", "step")])
+    assert [(f.rule, f.line) for f in got] == [("host-sync", 2)]
+    line = next(i for i, t in enumerate(
+        (SRC_ROOT / "models" / "blocks.py").read_text().splitlines(), 1)
+        if "int(raw_len) != 0" in t)
+    unmarked = (SRC_ROOT / "models" / "blocks.py").read_text().replace(
+        "# sync-ok: the no-chunk prefill's probe of its base", "")
+    files = host_sync.src_modules(SRC_ROOT)
+    (tmp_path / "blocks.py").write_text(unmarked)
+    files["repro_torch.models.blocks"] = tmp_path / "blocks.py"
+    roots = [r for r in host_sync.ROOTS if r.name == "make_prefill_step"]
+    got = host_sync.run(files, tmp_path, roots=roots)
+    assert [(f.rule, f.line, f.symbol) for f in got] == [
+        ("host-sync", line, "_check_prefill_base")]
+
+
 def test_cli_exit_codes_and_the_jit_pass_not_ported(tmp_path, capsys, monkeypatch):
     """JAX's exit codes: 0 clean, 1 on a finding outside the baseline, 0
-    again once ``--write-baseline`` has taken it in; ``jit`` says it is
-    not ported."""
+    again once ``--write-baseline`` has taken it in; ``jit`` runs, as in
+    JAX (its pass was once not ported, hence the name)."""
     from repro_torch.analysis import __main__ as cli
 
     baseline = str(tmp_path / "b.json")
     assert cli.main(["--passes", "jit,excepts", "--baseline", baseline]) == 0
-    assert "jit     : not ported" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "pass jit     : 0 finding(s)" in out and "not ported" not in out
     src = tmp_path / "src"
     src.mkdir()
     (src / "bad.py").write_text("try:\n    pass\nexcept Exception:\n    pass\n")

@@ -195,22 +195,29 @@ def test_port_imports_no_jax_and_no_repro():
     assert not bad, bad
 
 
-def _deferred_refusals():
-    """Each refusal of a piece the port defers, and the ROADMAP.md queue 1
-    item that lands it."""
+def _landed_refusals():
+    """Each piece the port once deferred with a refusal naming its
+    ROADMAP.md queue 1 item, and what its call says now that it landed."""
     import torch
 
     from repro_torch.core.communicator import build_communicator
 
     return {
-        "communicator_across_cards": (6, lambda: build_communicator(
+        # item 6: a gang over worker processes; one process still refuses
+        "communicator_across_cards": ('transport="subprocess"', lambda: build_communicator(
             [torch.device("cuda", 0), torch.device("cuda", 1)])),
     }
 
 
-@pytest.mark.parametrize("case", sorted(_deferred_refusals()))
+@pytest.mark.parametrize("case", sorted(_landed_refusals()))
 def test_every_deferred_refusal_names_its_item(case):
-    item, call = _deferred_refusals()[case]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, item {item}\\)"):
+    """No refusal in the port points to a ROADMAP.md queue 1 item any
+    more: every deferred piece landed, and a call the port still refuses
+    names its remedy."""
+    remedy, call = _landed_refusals()[case]
+    with pytest.raises(ValueError, match=remedy):
         call()
+    stale = [f"{f.relative_to(REPO)}:{i}" for f in sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+             for i, line in enumerate(f.read_text().splitlines(), 1)
+             if "ROADMAP.md queue 1, item" in line]
+    assert not stale, stale

@@ -145,3 +145,30 @@ def test_init_params_defaults_to_the_card(monkeypatch):
         tinit_params(torch.Generator().manual_seed(0), spec)
     w = tinit_params(torch.Generator().manual_seed(0), spec, "cpu")["w"]
     assert w.device.type == "cpu" and w.shape == (2, 3)
+
+
+def test_low_precision_leaves_draw_by_slices(monkeypatch):
+    """A bf16 leaf is drawn one leading slice at a time; a slice past the
+    limit (arctic-480b's 17.8 GB expert layer) is drawn by its own first
+    dim in turn, so no draw is larger than the limit, and a leaf under it
+    keeps its one-slice-at-a-time values."""
+    from repro_torch.common import params as P
+
+    spec = {"w": TParam((3, 4, 5, 6), (None,) * 4, torch.bfloat16)}
+    std = 1 / np.sqrt(3 * 4 * 5)
+
+    def draws(shape, n):
+        g = torch.Generator().manual_seed(0)
+        return [(torch.randn(shape, generator=g) * std).to(torch.bfloat16) for _ in range(n)]
+
+    got = tinit_params(torch.Generator().manual_seed(0), spec, "cpu")["w"]
+    assert torch.equal(got, torch.stack(draws((4, 5, 6), 3)))
+    sizes = []
+    real = torch.randn
+    monkeypatch.setattr(P, "_SLICE_ELEMS", 100)
+    monkeypatch.setattr(torch, "randn", lambda shape, **kw: sizes.append(
+        int(np.prod(shape))) or real(shape, **kw))
+    got = tinit_params(torch.Generator().manual_seed(0), spec, "cpu")["w"]
+    monkeypatch.setattr(torch, "randn", real)
+    assert sizes == [30] * 12
+    assert torch.equal(got, torch.stack(draws((5, 6), 12)).reshape(3, 4, 5, 6))

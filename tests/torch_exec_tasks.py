@@ -277,3 +277,141 @@ def engine_stage(ctx, **kw):
     carved on."""
     return serve(ctx.comm.device, control=ctx.control,
                  resume_state=ctx.resume_state, **kw)
+
+
+# ---------------------------------------------------------------------------
+# gangs: one task over several worker processes (SubprocessTransport.submit_gang)
+# ---------------------------------------------------------------------------
+
+
+def _gather(comm, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` along dim 0, in rank order (an all-gather over
+    the gang's ``data`` axis)."""
+    import torch.distributed as dist
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    out = wire.new_empty((comm.size * wire.shape[0],) + tuple(wire.shape[1:]))
+    dist.all_gather_into_tensor(out, wire, group=comm.mesh.group("data"))
+    return out.to(x.dtype)
+
+
+def gang_info(comm, n):
+    """Each rank's pid, rank and device, gathered: what the gang ran on.
+    The sum of ``n`` ones over every rank checks the group's all-reduce."""
+    import torch.distributed as dist
+    x = torch.ones(n, device=comm.device)
+    total = x.sum().reshape(1)
+    dist.all_reduce(total)
+    pids = _gather(comm, torch.tensor([os.getpid()], device=comm.device))
+    return {"rank": comm.rank, "size": comm.size, "backend": comm.backend,
+            "total": float(total), "pids": [int(p) for p in pids.cpu()],
+            "device": str(comm.device), "describe": comm.describe()}
+
+
+def gang_raises_once(comm, marker: str):
+    """First attempt: every rank meets in an all-reduce, rank 0 returns,
+    and rank 1 raises 2 s after it (so rank 0's worker is idle by then,
+    even on a loaded host).  The retry (``marker`` exists) runs
+    ``gang_info``: a fresh process group."""
+    import torch.distributed as dist
+    if not os.path.exists(marker):
+        dist.all_reduce(torch.ones(1, device=comm.device))
+        if comm.rank == 1:
+            time.sleep(2.0)
+            open(marker, "w").close()
+            raise RuntimeError("rank 1 fails its first attempt")
+        return {"attempt": 1, "pid": os.getpid()}
+    return gang_info(comm, 4)
+
+
+def gang_dies_in_collective(comm, marker: str):
+    """First attempt: rank 1 kills its own worker while rank 0 waits for
+    it in an all-reduce.  The retry (``marker`` exists) runs
+    ``gang_info``."""
+    import torch.distributed as dist
+    if not os.path.exists(marker):
+        if comm.rank == 1:
+            open(marker, "w").close()
+            os.kill(os.getpid(), signal.SIGKILL)
+        dist.all_reduce(torch.ones(1, device=comm.device))
+        return {"attempt": 1, "pid": os.getpid()}
+    return gang_info(comm, 4)
+
+
+GANG_OPS = ("shuffle", "join", "groupby", "reduce")
+
+
+def gang_tables(spec):
+    """The gang's seeded tables as numpy columns: ``rows`` int32 keys
+    uniform in [0, ``keys``) with fp32 normal values, and a ``keys``-row
+    right table (k, 10 k)."""
+    rng = np.random.default_rng(spec["seed"])
+    left = {"k": rng.integers(0, spec["keys"], spec["rows"]).astype(np.int32),
+            "v": rng.normal(size=spec["rows"]).astype(np.float32)}
+    rk = np.arange(spec["keys"], dtype=np.int32)
+    return left, {"k": rk, "w": (10 * rk).astype(np.float32)}
+
+
+def gang_calls(t, r, ops, groups_cap):
+    """The gang's operators on a left and a right table of either package
+    (both run ``ops`` = their ``ops_dist``): name -> call."""
+    return {"shuffle": lambda: ops.shuffle(t, "k"),
+            "join": lambda: ops.join(t, r, "k"),
+            "groupby": lambda: ops.groupby_sum(t, "k", ["v"],
+                                               groups_cap_per_shard=groups_cap),
+            "reduce": lambda: (ops.reduce_sum(t, ["v"]), 0)}
+
+
+def gang_dataframe(comm, spec):
+    """The dataframe over the gang's process mesh: this rank's shard of
+    ``gang_tables(spec)`` on its device, then shuffle, join, groupby and
+    reduce, each once to warm up when ``spec["warmup"]`` and once counted
+    and timed.  Rank 0 returns host values taken after the collectives:
+    every rank's result rows gathered in rank order (columns, the valid
+    mask, rows dropped; reduce's sums), and each rank's kernel 7 launches,
+    milliseconds and pid."""
+    dev = comm.device
+    W, r = comm.size, comm.rank
+    left, right = gang_tables(spec)
+    mine = lambda cols: {k: torch.from_numpy(v.reshape(W, -1)[r].copy()).to(dev)  # noqa: E731
+                         for k, v in cols.items()}
+    t = Table.from_columns(mine(left), comm.mesh)
+    rt = Table.from_columns(mine(right), comm.mesh)
+    calls = gang_calls(t, rt, ops_dist, spec["groups_cap"])
+    results, launches, ms = {}, [], []
+    for name in GANG_OPS:
+        if spec.get("warmup"):
+            calls[name]()
+        n0 = hp.hash_partition_histogram_kernel.launches
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, dropped = calls[name]()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(hp.hash_partition_histogram_kernel.launches - n0)
+        if name == "reduce":
+            results[name] = res
+            continue
+        cols = {k: _gather(comm, v) for k, v in res.columns.items()}
+        valid = _gather(comm, res.valid)
+        results[name] = None if r else {
+            "cols": {k: v.cpu().numpy() for k, v in cols.items()},
+            "valid": valid.cpu().numpy(), "dropped": int(dropped)}
+        del cols, valid
+    per_rank = _gather(comm, torch.tensor([[os.getpid()] + launches + ms],
+                                          dtype=torch.float64, device=dev))
+    if r:
+        return None
+    rows = per_rank.cpu().numpy()
+    k = len(GANG_OPS)
+    return {"results": results, "world": W, "backend": comm.backend,
+            "device": str(dev), "pids": [int(x) for x in rows[:, 0]],
+            "launches": [{n: int(x) for n, x in zip(GANG_OPS, row[1:1 + k])} for row in rows],
+            "ms": [{n: float(x) for n, x in zip(GANG_OPS, row[1 + k:])} for row in rows]}
+
+
+@stage(kind="data_engineering", name="wide", num_devices=2)
+def gang_stage(ctx):
+    """A stage two devices wide: on a pool of one-device workers, a gang."""
+    return gang_info(ctx.comm, 2)
