@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare 3 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --gang
+    python3 chip_smoke.py --cards [check]
 
 The second form builds the kernels, runs only the serve phase's rounds
 (3 rounds of both layouts in turn) and times the serving kernels'
@@ -12,7 +13,41 @@ wrappers at the serving shape, both decodes also in fp32
 script.  Run parent, change, change, parent in one call to compare two
 trees on one card.  The third builds the kernels and runs only the gang
 phase: on a machine with two or more cards, its ranks on distinct cards
-over NCCL.
+over NCCL.  The fourth needs a machine of at least CARDS (4) cards and
+refuses to run on fewer; it prints ``nvidia-smi topo -m`` (its error
+where the machine does not let it run) and which cards reach which by
+peer access, builds the kernels and runs these parts, each printing one
+JSON line (``cards_*``); a part that fails fails the run once the others
+have run:
+
+  check  (a) in a fresh process, the five tensor-core kernels launched on
+         card 0 at shapes whose dynamic shared memory exceeds 48 KB, then
+         the same on card 1 with card 1 current (the cap belongs to each
+         card's context); (b) every wrapper of the seven kernels and the
+         paged scatter on tensors on card 1, called from a thread whose
+         current card is card 0; each against its plain version on the
+         same card (``elem_limit``, the hash and the scatter bitwise).
+         ``--cards check`` runs this part alone (with ``--src``: on
+         another checkout's package, its kernels built from its sources).
+  mesh   ``tests/torch_dist_ranks.py``'s ``card`` scenario as 4 NCCL ranks,
+         rank r on card r: the dataframe at 2^26 rows (2^24 a rank)
+         against a 4-shard logical mesh on each rank's card, kernel 7
+         1 / 0 / 2 / 1 / 0 a rank; tinyllama-1.1b's whole gradient tree
+         from a B 2 x S 512 backward a rank (flash 2 x 22 a rank) through
+         the fp32 all-reduce and compressed_grad_sync, the ranks bitwise
+         equal, error feedback over 8 syncs; GPipe of 4 stages; on a
+         (data 2, pipe 2) mesh the int8 sync along data and GPipe along
+         pipe; every op on NCCL with tensors on the rank's own card; four
+         distinct cards (UUIDs, and PCI bus ids where the CUDA driver
+         gives them).
+  gang   the gang phase at 4 ranks on cards 0-3 over NCCL, the 2^26-row
+         tables, rank 0's result against a 4-shard logical mesh.
+  pods   ``launch.train.run --kind-pods`` (the runtime phase's settings):
+         preprocess on the data pod's card, train and postprocess on
+         another card of the DL pod; the loss falls; flash exactly 80
+         times, every launch on the train stage's card, no other kernel.
+
+Its last line is the contract line of the default run.
 
 Phases, each printing one JSON line per layout or run; any failure exits
 non-zero:
@@ -275,8 +310,9 @@ non-zero:
             ``compressed_grad_sync`` within INT8_REL_TOL of the fp32
             all_reduce mean, bitwise the same on every rank, bytes handed
             to the wire and ms of both; error feedback over DIST_EF_SYNCS
-            syncs of the embedding's gradient no further from the truth
-            than EF_RATIO x the plain syncs; GPipe over the ranks of
+            syncs of the embedding's gradient (each rank's own, and its
+            mean, which every rank holds, as in JAX's check) no further
+            from the truth than EF_RATIO x the plain syncs; GPipe over the ranks of
             DIST_MICRO microbatches of [8, 512, 2048] (JAX's stage x * 2 +
             w_i) equal to the sequential result within PIPE_RTOL on every
             rank, ms per microbatch.  Each op's backend, world size and
@@ -426,7 +462,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -437,6 +476,10 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 
+# the cards the multi-card mode needs
+CARDS = 4
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--compare", type=int, default=0, metavar="R",
@@ -445,6 +488,10 @@ def parse_args(argv):
     ap.add_argument("--gang", action="store_true",
                     help="build the kernels and run only the gang phase (on "
                          "distinct cards over NCCL where the machine has two)")
+    ap.add_argument("--cards", nargs="?", const="all", choices=("all", "check"),
+                    help="on a machine of at least 4 cards: build the kernels and "
+                         "run the multi-card mode (--cards check: its first part "
+                         "alone)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the package to drive (another checkout's src/)")
     return ap.parse_args(argv)
@@ -692,6 +739,12 @@ DIST_TIMEOUT_S = 400
 # where the machine has them (the distributed phase's tables); the
 # attempt's deadline
 GANG_RANKS, GANG_ATTEMPT_S = 2, 600.0
+# the multi-card mode (--cards): the mesh scenario's and the gang's tables
+# of CARDS_ROWS rows (2^24 a rank), the (data, pipe) mesh over the ranks
+CARDS_ROWS, CARDS_GRID = 1 << 26, (2, 2)
+# the five kernels that raise their dynamic shared-memory cap past 48 KB
+TC_KERNELS = ("decode_attention", "decode_attention_paged", "prefill_attention",
+              "prefill_attention_paged", "flash_attention")
 INT8_REL_TOL, EF_RATIO, PIPE_RTOL, DF_REDUCE_RTOL = 0.02, 1.05, 1e-5, 1e-5
 # recurrentgemma-9b trained under its published remat policy: 3 of its 38
 # layers (one unit), B x S in bf16 through the driver for as many steps,
@@ -716,10 +769,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def gpu_line() -> str:
+def gpu_lines() -> list:
+    """nvidia-smi's name and power limit of every card."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+
+
+def gpu_line() -> str:
+    return gpu_lines()[0]
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -836,7 +894,7 @@ def check_contig_prefill(args):
                                               base, clens)
     want, wk, wv = pf.prefill_attention_plain(q, kn, vn, kc.clone(), vc.clone(),
                                               base, clens)
-    pad = torch.arange(q.shape[1], device="cuda")[None, :] >= clens[:, None]
+    pad = torch.arange(q.shape[1], device=q.device)[None, :] >= clens[:, None]
     err, within = vs_plain(got, want)
     return err, (within and torch.equal(gk, wk) and torch.equal(gv, wv)
                  and bool((got[pad] == 0).all()))
@@ -861,7 +919,7 @@ def check_prefill(args):
         q, kn, vn, kp.clone(), vp.clone(), bt, base, clens)
     want, wk, wv = pf.prefill_attention_paged_plain(
         q, kn, vn, kp.clone(), vp.clone(), bt, base, clens)
-    pad = torch.arange(q.shape[1], device="cuda")[None, :] >= clens[:, None]
+    pad = torch.arange(q.shape[1], device=q.device)[None, :] >= clens[:, None]
     err, within = vs_plain(got, want)
     return err, (within and torch.equal(gk, wk) and torch.equal(gv, wv)
                  and bool((got[pad] == 0).all()))
@@ -3792,12 +3850,21 @@ def dist_spec(cfg):
             "pipe_micro": DIST_MICRO, "pipe_shape": [TRAIN_B, TRAIN_S, cfg.d_model]}
 
 
-def dist_problems(res, backend, world):
+# the ops of the card scenario's (data, pipe) mesh, each on a subgroup
+GRID_OPS = ("all_reduce", "send", "recv", "broadcast")
+
+
+def dist_problems(res, backend, world, device="cuda:0"):
     """What fails in one rank's card scenario: the dataframe pairs and
-    kernel 7's launches, the int8 sync's error, error feedback, GPipe,
-    and each op's backend, world and device (the pipeline's messages on
-    the host under gloo, every other tensor on the card)."""
+    kernel 7's launches, flash's launches in the backward (2 a layer,
+    under remat, as in the train phase's step), the int8 sync's error,
+    error feedback, GPipe, and each op's backend, world and device (the
+    pipeline's messages on the host under gloo, every other tensor on
+    the rank's card ``device``; the grid's ops also on subgroups)."""
     bad = []
+    if res["flash_launches"] != 2 * res["grads"]["layers"]:
+        bad.append(f"flash launched {res['flash_launches']} times in the backward, "
+                   f"expected {2 * res['grads']['layers']}")
     for name, row in res["dataframe"].items():
         if not row["equal"] or row["dropped"] or row["dropped_logical"]:
             bad.append(f"dataframe {name}: {row}")
@@ -3807,19 +3874,79 @@ def dist_problems(res, backend, world):
     g = res["grads"]
     if not g["max_rel_err"] < INT8_REL_TOL:
         bad.append(f"int8 sync error {g['max_rel_err']}")
-    if not g["ef_err"] <= EF_RATIO * g["plain_err"]:
-        bad.append(f"error feedback {g['ef_err']} vs plain {g['plain_err']}")
+    for what, e in (("own gradient", g), ("mean gradient", g["replicated"])):
+        if not e["ef_err"] <= EF_RATIO * e["plain_err"]:
+            bad.append(f"error feedback on the {what} {e['ef_err']} vs plain {e['plain_err']}")
     if not res["pipeline"]["max_rel_diff"] <= PIPE_RTOL:
         bad.append(f"pipeline {res['pipeline']}")
+    grid = res.get("grid")
+    sub = min(grid["shape"].values()) if grid else None
     for op, entries in res["wire"].items():
         host = backend == "gloo" and op in ("send", "recv")
-        want = {"backend": backend, "world": world,
-                "device": "cpu" if host else "cuda:0"}
-        if entries != [want]:
-            bad.append(f"{op} ran on {entries}, expected {want}")
+        allowed = [{"backend": backend, "world": w, "device": "cpu" if host else device}
+                   for w in [world] + ([sub] if grid and op in GRID_OPS else [])]
+        if any(e not in allowed for e in entries):
+            bad.append(f"{op} ran on {entries}, expected each of them in {allowed}")
+    if grid:
+        # every rank of a line takes part in its all-reduces and broadcast
+        for op in ("all_reduce", "broadcast"):
+            if sub not in {e["world"] for e in res["wire"].get(op, [])}:
+                bad.append(f"{op} never ran on a subgroup of {sub}")
+        if not grid["sync"]["max_rel_err"] < INT8_REL_TOL:
+            bad.append(f"grid: int8 sync along data {grid['sync']['max_rel_err']}")
+        if not grid["pipeline"]["max_rel_diff"] <= PIPE_RTOL:
+            bad.append(f"grid: pipeline along pipe {grid['pipeline']}")
     if world == 1 and not (res["identity"] and g["identity"]):
         bad.append("a collective at world 1 was not the identity")
     return bad
+
+
+def ranks_summary(ranks, spec) -> dict:
+    """The card scenario's per-rank numbers, side by side: the dataframe's,
+    the gradient syncs' and GPipe's (and the grid's, where it ran)."""
+    per_rank = lambda key: [{n: row[key] for n, row in r["dataframe"].items()}  # noqa: E731
+                            for r in ranks]
+    g = [r["grads"] for r in ranks]
+    out = {"dataframe": {"rows": spec["df_rows"], "rows_per_rank": spec["df_rows"] // len(ranks),
+                         "right_rows": spec["df_keys"], "ms_process": per_rank("ms_process"),
+                         "ms_logical": per_rank("ms_logical"),
+                         "hash_launches": per_rank("hash_launches"),
+                         "equal": per_rank("equal"),
+                         "groupby_sum_max_abs_diff": [r["dataframe"]["groupby"][
+                             "groupby_sum_max_abs_diff"] for r in ranks],
+                         "tolerance": {"groupby sums abs": DF_PAIR_ATOL,
+                                       "reduce rel": DF_REDUCE_RTOL, "else": "bitwise"}},
+           "flash_launches_per_rank": [r["flash_launches"] for r in ranks],
+           "grads": {"arch": ARCH, "layers": g[0]["layers"], "params": g[0]["params"],
+                     "leaves": g[0]["leaves"], "batch_per_rank": [DIST_GRAD_B, TRAIN_S],
+                     "fp32_ms": [x["fp32_ms"] for x in g],
+                     "int8_ms": [x["int8_ms"] for x in g],
+                     "fp32_bytes": g[0]["fp32_bytes"], "int8_bytes": g[0]["int8_bytes"],
+                     "max_rel_err": [x["max_rel_err"] for x in g], "tol": INT8_REL_TOL,
+                     "ranks_bitwise_equal": len({tuple(x["checksums"]) for x in g}) == 1,
+                     "ef_err": [x["ef_err"] for x in g],
+                     "plain_err": [x["plain_err"] for x in g], "ef_ratio_max": EF_RATIO,
+                     "replicated_ef_err": [x["replicated"]["ef_err"] for x in g],
+                     "replicated_plain_err": [x["replicated"]["plain_err"] for x in g],
+                     "ef_ms_per_sync": [x["ef_ms_per_sync"] for x in g],
+                     "embed_elems": g[0]["embed_elems"]},
+           "pipeline": {"stages": ranks[0]["pipeline"]["stages"],
+                        "microbatches": spec["pipe_micro"],
+                        "microbatch_shape": spec["pipe_shape"],
+                        "max_rel_diff": [r["pipeline"]["max_rel_diff"] for r in ranks],
+                        "ms_per_microbatch": [r["pipeline"]["ms_per_microbatch"]
+                                              for r in ranks],
+                        "bytes_per_message": ranks[0]["pipeline"]["bytes_per_message"],
+                        "tol_rel": PIPE_RTOL}}
+    if "grid" in ranks[0]:
+        out["grid"] = {
+            "shape": ranks[0]["grid"]["shape"], "coords": [r["grid"]["coords"] for r in ranks],
+            "int8_max_rel_err": [r["grid"]["sync"]["max_rel_err"] for r in ranks],
+            "int8_ms": [r["grid"]["sync"]["int8_ms"] for r in ranks],
+            "pipeline_max_rel_diff": [r["grid"]["pipeline"]["max_rel_diff"] for r in ranks],
+            "pipeline_ms_per_microbatch": [r["grid"]["pipeline"]["ms_per_microbatch"]
+                                           for r in ranks]}
+    return out
 
 
 def phase_distributed(cfg):
@@ -3858,43 +3985,13 @@ def phase_distributed(cfg):
                 for e in entries), flush=True)
     launches = sum(row["hash_launches"] for r in ranks + [one]
                    for row in r["dataframe"].values())
-    per_rank = lambda key: [{n: row[key] for n, row in r["dataframe"].items()}  # noqa: E731
-                            for r in ranks]
-    g = [r["grads"] for r in ranks]
     out = {"phase": "distributed", "ok": not bad, "gpu": gpu_line(),
            "torch": torch.__version__, "ranks": DIST_RANKS,
            "backends": {"world_2": "gloo (NCCL: 'Duplicate GPU detected' for two ranks "
                                    "on one device); the pipeline's send/recv through "
                                    "host copies (gloo's send of a card tensor aborts)",
                         "world_1": "nccl"},
-           "wire": wire,
-           "dataframe": {"rows": DIST_ROWS, "rows_per_rank": DIST_ROWS // DIST_RANKS,
-                         "right_rows": DF_KEYS, "ms_process": per_rank("ms_process"),
-                         "ms_logical": per_rank("ms_logical"),
-                         "hash_launches": per_rank("hash_launches"),
-                         "equal": per_rank("equal"),
-                         "groupby_sum_max_abs_diff": [r["dataframe"]["groupby"][
-                             "groupby_sum_max_abs_diff"] for r in ranks],
-                         "tolerance": {"groupby sums abs": DF_PAIR_ATOL,
-                                       "reduce rel": DF_REDUCE_RTOL, "else": "bitwise"}},
-           "grads": {"arch": ARCH, "layers": g[0]["layers"], "params": g[0]["params"],
-                     "leaves": g[0]["leaves"], "batch_per_rank": [DIST_GRAD_B, TRAIN_S],
-                     "fp32_ms": [x["fp32_ms"] for x in g],
-                     "int8_ms": [x["int8_ms"] for x in g],
-                     "fp32_bytes": g[0]["fp32_bytes"], "int8_bytes": g[0]["int8_bytes"],
-                     "max_rel_err": [x["max_rel_err"] for x in g], "tol": INT8_REL_TOL,
-                     "ranks_bitwise_equal": len({tuple(x["checksums"]) for x in g}) == 1,
-                     "ef_err": [x["ef_err"] for x in g],
-                     "plain_err": [x["plain_err"] for x in g], "ef_ratio_max": EF_RATIO,
-                     "ef_ms_per_sync": [x["ef_ms_per_sync"] for x in g],
-                     "embed_elems": g[0]["embed_elems"]},
-           "pipeline": {"stages": DIST_RANKS, "microbatches": DIST_MICRO,
-                        "microbatch_shape": spec["pipe_shape"],
-                        "max_rel_diff": [r["pipeline"]["max_rel_diff"] for r in ranks],
-                        "ms_per_microbatch": [r["pipeline"]["ms_per_microbatch"]
-                                              for r in ranks],
-                        "bytes_per_message": ranks[0]["pipeline"]["bytes_per_message"],
-                        "tol_rel": PIPE_RTOL},
+           "wire": wire, **ranks_summary(ranks, spec),
            "nccl_world_1": {"identity": one["identity"], "grads_identity":
                             one["grads"]["identity"],
                             "dataframe_equal": {n: row["equal"] for n, row in
@@ -3971,14 +4068,15 @@ def check_step_syncs(cfg, params):
                              f"disagree: {out}")
 
 
-def phase_gang():
+def phase_gang(ranks: int = GANG_RANKS, rows: int = DIST_ROWS, phase: str = "gang"):
     """A task ganged over worker processes (module docstring): the agent
-    leases 2 devices of a pilot that lists the one card twice (distinct
-    cards where the machine has them), wider than a worker of the pool
-    holds, so the transport runs the task as a gang of 2 gloo ranks (NCCL
-    on distinct cards); rank 0's result against the same tables on a
-    2-shard logical mesh here.  Returns kernel 7's launches, counted in
-    the ranks."""
+    leases ``ranks`` devices of a pilot that lists the one card ``ranks``
+    times (distinct cards where the machine has them), wider than a
+    worker of the pool holds, so the transport runs the task as a gang of
+    gloo ranks (NCCL on distinct cards) over tables of ``rows`` rows;
+    rank 0's result against the same tables on a logical mesh of
+    ``ranks`` shards here.  Returns kernel 7's launches, counted in the
+    ranks."""
     from repro_torch.core.agent import RemoteAgent
     from repro_torch.core.exec import SubprocessTransport
     from repro_torch.core.pilot import Pilot
@@ -3986,29 +4084,29 @@ def phase_gang():
 
     t_phase = time.perf_counter()
     n_cards = torch.cuda.device_count()
-    distinct = n_cards >= GANG_RANKS
+    distinct = n_cards >= ranks
     backend = "nccl" if distinct else "gloo"
     if distinct:
-        print(f"gang: this machine has {n_cards} cards: the gang's {GANG_RANKS} ranks "
-              f"run on cards 0-{GANG_RANKS - 1} over NCCL", flush=True)
+        print(f"gang: this machine has {n_cards} cards: the gang's {ranks} ranks "
+              f"run on cards 0-{ranks - 1} over NCCL", flush=True)
     else:
         print(f"gang: this machine has {n_cards} card, so NCCL between distinct cards "
-              f"cannot run here: the gang's {GANG_RANKS} ranks share the card on gloo",
+              f"cannot run here: the gang's {ranks} ranks share the card on gloo",
               flush=True)
-    spec = {"seed": SEED, "rows": DIST_ROWS, "keys": DF_KEYS, "groups_cap": DF_KEYS,
+    spec = {"seed": SEED, "rows": rows, "keys": DF_KEYS, "groups_cap": DF_KEYS,
             "warmup": True}
-    pool = SubprocessTransport(max_workers=GANG_RANKS, worker_devices=1)
+    pool = SubprocessTransport(max_workers=ranks, worker_devices=1)
     pids = []
     try:
         info = pool.wait_ready(timeout=300)
         pids = pool.worker_pids()
         pilot = Pilot("gang.0000", [torch.device("cuda", i if distinct else 0)
-                                    for i in range(GANG_RANKS)])
+                                    for i in range(ranks)])
         with RemoteAgent(pilot, transport=pool) as agent:
             t0 = time.perf_counter()
             task, = agent.submit([TaskDescription(
                 name="gang_dataframe", fn=XT.gang_dataframe, args=(spec,),
-                num_devices=GANG_RANKS, speculative=False, max_retries=0,
+                num_devices=ranks, speculative=False, max_retries=0,
                 timeout_s=GANG_ATTEMPT_S)])
             task_s = time.perf_counter() - t0
     finally:
@@ -4020,7 +4118,7 @@ def phase_gang():
         raise AssertionError(f"the gang's attempt failed: {task.error}")
     out = task.result
     bad = []
-    if out["world"] != GANG_RANKS or out["backend"] != backend or out["device"] != "cuda:0":
+    if out["world"] != ranks or out["backend"] != backend or out["device"] != "cuda:0":
         bad.append(f"gang of {out['world']} on {out['backend']}, {out['device']}")
     if sorted(out["pids"]) != sorted(pids) or os.getpid() in out["pids"]:
         bad.append(f"ranks ran in {out['pids']}, the pool's workers are {pids}")
@@ -4030,7 +4128,7 @@ def phase_gang():
             bad.append(f"rank {r}: kernel 7 launched {got}, expected {want}")
     # the same tables on a 2-shard logical mesh in this process
     left, right = XT.gang_tables(spec)
-    mesh = make_mesh((GANG_RANKS,), ("data",), device="cuda")
+    mesh = make_mesh((ranks,), ("data",), device="cuda")
     calls = XT.gang_calls(Table.from_columns(left, mesh), Table.from_columns(right, mesh),
                           dfo, spec["groups_cap"])
     logical_ms, diffs = {}, {}
@@ -4062,7 +4160,7 @@ def phase_gang():
     torch.cuda.empty_cache()
     result_mb = sum(a.nbytes for r in out["results"].values() if "cols" in r
                     for a in [*r["cols"].values(), r["valid"]]) / 1e6
-    line = {"phase": "gang", "ok": not bad, "gpu": gpu_line(), "ranks": GANG_RANKS,
+    line = {"phase": phase, "ok": not bad, "gpu": gpu_line(), "ranks": ranks,
             "backend": out["backend"], "device": out["device"],
             "cards": n_cards,
             "nccl_between_cards": ("measured: ranks on distinct cards" if distinct
@@ -4072,7 +4170,7 @@ def phase_gang():
             "rendezvous_s": task.overhead_s.get("rendezvous"),
             "communicator_s": task.overhead_s.get("communicator"),
             "queue_s": task.overhead_s.get("queue"), "task_s": task_s,
-            "rank_pids": out["pids"], "rows": DIST_ROWS, "right_rows": DF_KEYS,
+            "rank_pids": out["pids"], "rows": rows, "right_rows": DF_KEYS,
             "ms_per_rank": out["ms"], "ms_logical": logical_ms,
             "hash_launches_per_rank": out["launches"], "diffs": diffs,
             "tolerance": {"groupby sums abs": DF_PAIR_ATOL, "reduce rel": DF_REDUCE_RTOL,
@@ -4081,8 +4179,322 @@ def phase_gang():
             "seconds": time.perf_counter() - t_phase}
     emit(line)
     if bad:
-        raise AssertionError(f"the gang phase failed: {bad}")
+        raise AssertionError(f"the {phase} phase failed: {bad}")
     return sum(sum(r.values()) for r in out["launches"])
+
+
+# -- the multi-card mode (--cards) -------------------------------------------
+
+
+def settle() -> str:
+    """Synchronize every card; the error text where one fails, else ""."""
+    try:
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(card)
+        return ""
+    except Exception as e:  # noqa: BLE001 — recorded: the check reports it
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+
+
+def check_rms(args):
+    x, w = args
+    got, want = rms.rmsnorm_kernel(x, w).float(), rms.rmsnorm_plain(x, w).float()
+    diff = (got - want).abs()
+    tol = RMS_TOL[x.dtype]
+    return diff.max().item(), bool((diff <= tol + tol * want.abs()).all())
+
+
+def check_hash(args):
+    keys, = args
+    got = hp.hash_partition_histogram_kernel(keys, num_buckets=8)
+    ok = torch.equal(got, hp.hash_partition_histogram_plain(keys, num_buckets=8))
+    return 0.0 if ok else float("nan"), ok
+
+
+def check_scatter(args):
+    kp, vp, bt, kn, vn, bs, cl = args
+    gk, gv = pf.write_chunk_paged_kernel(kp.clone(), vp.clone(), bt, kn, vn, bs, cl)
+    ok = (torch.equal(gk, pf.write_chunk_paged(kp.clone(), bt, kn, bs, cl))
+          and torch.equal(gv, pf.write_chunk_paged(vp.clone(), bt, vn, bs, cl)))
+    return 0.0 if ok else float("nan"), ok
+
+
+def card_check_cases(gen):
+    """name -> (check, args on card 0, G, D): every wrapper of the seven
+    kernels and the paged scatter, bf16, at shapes of their paths;
+    the five tensor-core kernels above 48 KB of dynamic shared memory
+    (both decodes and flash at tinyllama's D 64, both prefills at
+    moonshot's H 16, KV 16, D 128)."""
+    bf = torch.bfloat16
+    lens = [0, 1, 17, 255, 300, 511, 512, 64]
+    base, clens = [0, 5, 100, 448, 0, 17, 200, 30], [64, 3, 64, 64, 0, 1, 33, 64]
+    sc = paged_scatter_cases
+    num_pages, (sbase, sclens, sbt) = sorted(sc.SCATTER_CASES.items())[0][1]
+    return {
+        "decode_attention": (check_contig_decode, contig_decode_case(
+            gen, 32, 4, 64, MAX_LEN, lens, bf), 8, 64),
+        "decode_attention_paged": (check_decode, decode_case(
+            gen, 32, 4, 64, MAX_LEN // PAGE, lens, bf), 8, 64),
+        "prefill_attention": (check_contig_prefill, contig_prefill_case(
+            gen, 64, 16, 16, 128, MAX_LEN, base, clens, bf), 1, 128),
+        "prefill_attention_paged": (check_prefill, prefill_case(
+            gen, 64, 16, 16, 128, MAX_LEN // PAGE, base, clens, bf), 1, 128),
+        "flash_attention": (check_flash, flash_case(gen, TRAIN_B, 32, 4, TRAIN_S, 64, bf),
+                            8, 64),
+        "rmsnorm": (check_rms, (randn(gen, RMS_SHAPE, bf), randn(gen, RMS_SHAPE[-1:], bf)),
+                    None, None),
+        "hash_partition_histogram": (check_hash, (hash_keys(gen, 1 << 23),), None, None),
+        "paged_scatter": (check_scatter, (
+            randn(gen, (num_pages, sc.PAGE, 2, 16), bf), randn(gen, (num_pages, sc.PAGE, 2, 16), bf),
+            i32(sbt), randn(gen, (sc.B, sc.T, 2, 16), bf), randn(gen, (sc.B, sc.T, 2, 16), bf),
+            i32(sbase), i32(sclens)), None, None)}
+
+
+def on_card(args, card: int):
+    return tuple(a.to(f"cuda:{card}") if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def run_check(check, args) -> dict:
+    """One check, its error text kept (the parent commit's faults are a
+    result here), then every card synchronized."""
+    try:
+        err, ok = check(args)
+        row = {"max_abs_err": err, "ok": bool(ok)}
+    except Exception as e:  # noqa: BLE001 — recorded and failed below
+        row = {"ok": False, "error": f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"}
+    sync_error = settle()
+    if sync_error:
+        row.update(ok=False, sync_error=sync_error)
+    return row
+
+
+def kernel_cards(prof) -> dict:
+    """{the port's kernel symbol: the cards it ran on} from a profile."""
+    symbols = sorted({s for v in SYMBOLS.values() for s in v})
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for sym in symbols:
+                if sym in e.name:
+                    out.setdefault(sym, set()).add(e.device_index)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def phase_cards_check():
+    """Both faults a machine of several cards can hit (module docstring,
+    ``check``).  Runs first in its process: no kernel has launched on any
+    card before (b).  The profiler names the card each of the port's
+    kernels ran on.  Every row is recorded; any failure fails the phase
+    after its line."""
+    t_phase = time.perf_counter()
+    cases = card_check_cases(torch.Generator(device="cuda").manual_seed(SEED))
+    settle()
+    activity = [torch.profiler.ProfilerActivity.CUDA]
+    # (b) card 0, then card 1 with card 1 current, in this fresh process
+    cap = []
+    with torch.profiler.profile(activities=activity) as prof:
+        for name in TC_KERNELS:
+            check, args, G, D = cases[name]
+            row = {"kernel": name, "head_dim": D, "group": G}
+            for card in (0, 1):
+                moved = on_card(args, card)
+                with torch.cuda.device(card):
+                    row[f"card_{card}"] = run_check(check, moved)
+            cap.append(row)
+    cap_cards = kernel_cards(prof)
+    # (a) every wrapper on card 1 from a thread whose current card is 0
+    moved = {name: on_card(args, 1) for name, (_, args, _, _) in cases.items()}
+    settle()
+    thread_rows = []
+
+    def body():
+        torch.cuda.set_device(0)
+        for name, (check, _, _, _) in cases.items():
+            row = {"kernel": name, **run_check(check, moved[name])}
+            row["current_card_after"] = torch.cuda.current_device()
+            thread_rows.append(row)
+
+    with torch.profiler.profile(activities=activity) as prof:
+        th = threading.Thread(target=body, name="card-0-thread")
+        th.start()
+        th.join()
+        settle()
+    thread_cards = kernel_cards(prof)
+    bad = []
+    for row in cap:
+        for card in (0, 1):
+            if not row[f"card_{card}"]["ok"]:
+                bad.append(f"(b) {row['kernel']} on card {card}: {row[f'card_{card}']}")
+        sym = SYMBOLS[row["kernel"]][-1]
+        if cap_cards.get(sym) != [0, 1]:
+            bad.append(f"(b) {sym} ran on cards {cap_cards.get(sym)}, expected [0, 1]")
+    for row in thread_rows:
+        if not row["ok"] or row["current_card_after"] != 0:
+            bad.append(f"(a) {row['kernel']} on card 1: {row}")
+        for sym in SYMBOLS[row["kernel"]]:
+            if thread_cards.get(sym) != [1]:
+                bad.append(f"(a) {sym} ran on cards {thread_cards.get(sym)}, expected [1]")
+    emit({"phase": "cards_check", "ok": not bad, "gpu": gpu_line(), "gpus": gpu_lines(),
+          "src": str(ARGS.src), "torch": torch.__version__,
+          "tol": {"bf16": TOL_NOTE[torch.bfloat16], "rmsnorm": RMS_TOL[torch.bfloat16],
+                  "hash and scatter": "bitwise"},
+          "b_cap_per_card": cap, "b_kernel_cards": cap_cards,
+          "a_thread_on_card_0": thread_rows, "a_kernel_cards": thread_cards,
+          "problems": bad, "seconds": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"the cards_check phase failed: {bad}")
+
+
+def phase_cards_mesh(cfg):
+    """The card scenario at world CARDS on NCCL, rank r on card r (module
+    docstring, ``mesh``); every check of the one-card distributed phase
+    in every rank, the grid's, and four distinct cards."""
+    t_phase = time.perf_counter()
+    spec = dict(dist_spec(cfg), df_rows=CARDS_ROWS, grid=list(CARDS_GRID))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        t0 = time.perf_counter()
+        ranks = DR.launch("card", CARDS, workdir, spec=spec, timeout=DIST_TIMEOUT_S,
+                          threads=2, backend="nccl")
+        ranks_s = time.perf_counter() - t0
+    bad = [f"rank {r['rank']}: {b}" for r in ranks
+           for b in dist_problems(r, "nccl", CARDS, f"cuda:{r['rank']}")]
+    if [r["device"] for r in ranks] != [f"cuda:{i}" for i in range(CARDS)]:
+        bad.append(f"ranks on {[r['device'] for r in ranks]}")
+    # four distinct cards: by UUID, and by PCI bus id where the CUDA
+    # driver gives one (nvidia-smi may read every bus id as [N/A])
+    uuids = [r["card"]["uuid"] for r in ranks]
+    buses = [r["card"]["pci_bus_id"] for r in ranks]
+    if len(set(uuids)) != CARDS or (None not in buses and len(set(buses)) != CARDS):
+        bad.append(f"the ranks' cards (UUIDs {uuids}, PCI bus ids {buses}) are not "
+                   f"{CARDS} distinct cards")
+    if len({tuple(r["grads"]["checksums"]) for r in ranks}) != 1:
+        bad.append("the ranks' int8-synced gradients differ")
+    lines = {}
+    for r in ranks:
+        lines.setdefault(r["grid"]["coords"]["pipe"], []).append(
+            tuple(r["grid"]["sync"]["checksums"]))
+    if sorted(len(v) for v in lines.values()) != [2, 2] \
+            or any(len(set(v)) != 1 for v in lines.values()):
+        bad.append("the two ranks of a data line synced different gradients")
+    seen = {(op, e["world"]) for r in ranks for op, entries in r["wire"].items()
+            for e in entries}
+    want = {(op, CARDS) for op in DR.WIRE_OPS} | {(op, 2) for op in GRID_OPS}
+    if seen != want:
+        bad.append(f"the ranks' ops at each world {sorted(seen)}, expected {sorted(want)}")
+    for r in ranks:
+        print(f"cards_mesh: rank {r['rank']} on {r['device']} (PCI {r['card']['pci_bus_id']}, "
+              f"UUID {r['card']['uuid']}): "
+              + "; ".join(f"{op} " + ", ".join(f"{e['backend']} world {e['world']} on "
+                                              f"{e['device']}" for e in entries)
+                          for op, entries in sorted(r["wire"].items())), flush=True)
+    out = {"phase": "cards_mesh", "ok": not bad, "gpu": gpu_line(), "gpus": gpu_lines(),
+           "torch": torch.__version__, "ranks": CARDS, "backend": "nccl",
+           "cards": [r["card"] for r in ranks], "devices": [r["device"] for r in ranks],
+           "wire": {r["rank"]: r["wire"] for r in ranks}, **ranks_summary(ranks, spec),
+           "ranks_s": ranks_s, "problems": bad, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if bad:
+        raise AssertionError(f"the cards_mesh phase failed: {bad}")
+
+
+def phase_cards_pods(cfg):
+    """``launch.train.run --kind-pods`` on the machine's cards at the
+    runtime phase's settings (module docstring, ``pods``): every counter
+    zeroed just before and read just after; each launch's card noted
+    through ``build.launch``."""
+    from repro_torch.launch import train as launch_train
+
+    t_phase = time.perf_counter()
+    layers = RUNTIME_LAYERS
+    full_config = launch_train.get_config
+    launch_train.get_config = lambda arch, smoke=False: full_config(
+        arch, smoke=smoke).with_overrides(num_layers=layers)
+    real_launch, on_cards = build.launch, Counter()
+
+    def noting_launch(name, t, *args):
+        on_cards[f"{name} on cuda:{t.get_device()}"] += 1
+        return real_launch(name, t, *args)
+
+    build.launch = noting_launch
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+            args = launch_train.build_parser().parse_args(
+                ["--arch", ARCH, "--steps", str(RUNTIME_STEPS), "--batch", str(TRAIN_B),
+                 "--seq", str(TRAIN_S), "--ckpt-dir", ckdir, "--kind-pods"])
+            settle()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = launch_train.run(args)
+            sync_error = settle()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            ckpt_step = store.latest_step(ckdir)
+    finally:
+        launch_train.get_config = full_config
+        build.launch = real_launch
+    dev = res["devices"]
+    want = 2 * layers * RUNTIME_STEPS
+    bad = [sync_error] if sync_error else []
+    if not res["kind_pods"] or len(set(res["placement"].values())) != 2 \
+            or res["placement"]["train"] != res["placement"]["postprocess"] \
+            or res["placement"]["preprocess"] == res["placement"]["train"]:
+        bad.append(f"pods {res['kind_pods']}, placement {res['placement']}")
+    if dev["preprocess"] in (dev["train"], dev["postprocess"]) \
+            or not all(d.startswith("cuda:") for d in dev.values()):
+        bad.append(f"stages on {dev}: the data pod's card must differ from the DL pod's")
+    if launches["flash_attention"] != want or any(
+            c for n, c in launches.items() if n != "flash_attention"):
+        bad.append(f"launches {launches}, expected flash {want} and nothing else")
+    if dict(on_cards) != {f"flash_attention on {dev['train']}": want}:
+        bad.append(f"launches by card {dict(on_cards)}, expected {want} on {dev['train']}")
+    if not (res["improved"] and np.isfinite([res["first_loss"], res["last_loss"]]).all()
+            and res["steps"] == RUNTIME_STEPS and ckpt_step == RUNTIME_STEPS):
+        bad.append(f"the run did not learn or save: {res}, checkpoint step {ckpt_step}")
+    emit({"phase": "cards_pods", "ok": not bad, "gpu": gpu_line(), "gpus": gpu_lines(),
+          "entry": "repro_torch.launch.train.run --kind-pods", "arch": cfg.name,
+          "layers": layers, "layers_published": cfg.num_layers, "batch": TRAIN_B,
+          "seq": TRAIN_S, "steps": res["steps"], "kind_pods": res["kind_pods"],
+          "placement": res["placement"], "devices": dev, "first_loss": res["first_loss"],
+          "last_loss": res["last_loss"], "improved": res["improved"],
+          "train_s": res["train_s"], "wall_s": wall, "overheads_s": res["overheads"],
+          "checkpoint_step": ckpt_step, "launches": launches,
+          "launches_by_card": dict(on_cards), "problems": bad,
+          "seconds": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"the cards_pods phase failed: {bad}")
+
+
+def run_cards(check_only: bool) -> None:
+    """The multi-card mode: ``nvidia-smi topo -m`` and the peer-access
+    matrix, the build, then its parts in order (``check`` alone where
+    ``check_only``)."""
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    for ln in (topo.stdout + topo.stderr).splitlines():
+        print(f"topo: {ln}", flush=True)
+    if topo.returncode:
+        print(f"topo: nvidia-smi topo -m exited {topo.returncode}", flush=True)
+    n = torch.cuda.device_count()
+    for i in range(n):  # which cards reach which by peer access (NVLink or PCIe)
+        print(f"topo: card {i} peer access to " + " ".join(
+            f"{j}:{int(torch.cuda.can_device_access_peer(i, j))}" for j in range(n) if j != i),
+            flush=True)
+    phase_build()
+    cfg = get_config(ARCH)
+    runs = {"check": phase_cards_check, "mesh": lambda: phase_cards_mesh(cfg),
+            "gang": lambda: phase_gang(CARDS, CARDS_ROWS, phase="cards_gang"),
+            "pods": lambda: phase_cards_pods(cfg)}
+    failed = []
+    for part, run in runs.items():  # a failed part fails the run after the others ran
+        if check_only and part != "check":
+            continue
+        try:
+            run()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            traceback.print_exc()
+            failed.append(f"{part}: {type(e).__name__}: {str(e)[:1000]}")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the multi-card mode failed: {failed}")
 
 
 def profile_paper_step(step, steps: int):
@@ -5282,6 +5694,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if ARGS.compare:
         phase_compare(ARGS.compare)
+        return 0
+    if ARGS.cards:
+        n_cards = torch.cuda.device_count()
+        if n_cards < CARDS:
+            print(f"chip_smoke: --cards needs a machine of {CARDS} cards, this one has "
+                  f"{n_cards}", file=sys.stderr)
+            return 2
+        run_cards(ARGS.cards == "check")
+        print(gpu_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
     if ARGS.gang:
         phase_build()

@@ -1,8 +1,9 @@
 """Length-prefixed pickle framing for the worker RPC channel (mirror of
 ``repro.core.exec.protocol``).
 
-Every message on the wire is ``4-byte big-endian length || pickle
-payload``.  Messages are plain dicts with a ``"type"`` key; the framing
+Every message on the wire is ``8-byte big-endian length || pickle
+payload`` (JAX's header is 4 bytes and its frames stop at 2 GiB; a gang's
+result may be larger).  Messages are plain dicts with a ``"type"`` key; the framing
 layer knows nothing about their meaning.
 
 Device tensors never cross the wire as device tensors: the pickler
@@ -26,9 +27,11 @@ import time
 import types
 from typing import Any, Optional
 
-_LEN = struct.Struct(">I")
+# a frame's length, 8 bytes: a task's result may pass 4 GiB (a gang's
+# rank 0 gathers every rank's rows: 3 GB at 2^26 rows over 4 cards)
+_LEN = struct.Struct(">Q")
 #: refuse absurd frames (corrupt length prefix) rather than allocating.
-MAX_FRAME = 1 << 31
+MAX_FRAME = 1 << 40
 #: frames below this many bytes go out in one write with their header
 _SMALL_FRAME = 1 << 16
 
@@ -144,6 +147,15 @@ class Channel:
         self._sock = sock
         self._send_lock = threading.Lock()  # guards frame writes on _sock
         self._recv_buf = bytearray()
+        #: when bytes last arrived, and whether a frame is being decoded: a
+        #: peer whose long frame streams in or decodes is alive, though its
+        #: heartbeats queue behind the frame (``quiet_s``)
+        self.last_rx = time.time()
+        self.decoding = False
+
+    def quiet_s(self, now: float) -> float:
+        """Seconds since a frame last made progress: 0 while one decodes."""
+        return 0.0 if self.decoding else now - self.last_rx
 
     def fileno(self) -> int:
         return self._sock.fileno()
@@ -170,7 +182,12 @@ class Channel:
                 raise ConnectionClosed(f"corrupt frame length {n}")
             frame = self._recv_exact(_LEN.size + n)
             self._recv_buf = bytearray()
-            msg = loads(memoryview(frame)[_LEN.size:])
+            self.decoding = True
+            try:
+                msg = loads(memoryview(frame)[_LEN.size:])
+            finally:
+                self.last_rx = time.time()
+                self.decoding = False
             ff = self.fault_filter
             if ff is not None:
                 act = ff(msg)
@@ -192,6 +209,7 @@ class Channel:
                 raise ConnectionClosed(str(e)) from e
             if not chunk:
                 raise ConnectionClosed("peer closed the channel")
+            self.last_rx = time.time()
             self._recv_buf += chunk
         return self._recv_buf
 

@@ -948,8 +948,9 @@ class SubprocessTransport(Transport):
                     # poll cadence, without waiting out a heartbeat timeout
                     self._worker_lost(
                         w, f"process exited with code {w.proc.returncode}")
-                elif (w.chan is not None
-                      and now - w.last_seen > self.heartbeat_timeout_s):
+                elif (w.chan is not None  # a long frame arriving or decoding is life
+                      and min(now - w.last_seen, w.chan.quiet_s(now))
+                      > self.heartbeat_timeout_s):
                     self._worker_lost(
                         w, f"no heartbeat for "
                            f"{now - w.last_seen:.1f}s (hung?)")

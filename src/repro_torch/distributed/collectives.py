@@ -8,9 +8,14 @@ int32 (``all_reduce(SUM)``) and dequantized.  As in JAX, the summed payload
 is int32, so the wire carries as many bytes as an fp32 all-reduce (plus a
 scale per block); the 4x saving JAX's docstring names would need an int8
 wire.  ``compressed_grad_sync`` applies it leaf by leaf to a gradient tree,
-with optional error feedback (the quantization error carried into the next
-sync).  The arithmetic is JAX's op for op (``torch.round`` rounds half to
-even, as ``jnp.round`` does; every division is fp32 division).
+with optional error feedback: each rank carries its own quantization error
+(what it put in minus its own payload dequantized on the shared grid) into
+the next sync.  JAX's ``carry_in - synced`` is that error on the replicated
+input its ``shard_map`` is given (the same bits at a power-of-two axis);
+on gradients that differ by rank it would also carry each rank's distance
+from the mean, which grows a sync.  The arithmetic is JAX's op for op
+(``torch.round`` rounds half to even, as ``jnp.round`` does; every
+division is fp32 division).
 """
 from __future__ import annotations
 
@@ -44,6 +49,12 @@ def int8_psum(x: torch.Tensor, mesh, axis: str, *, block: int = 256) -> torch.Te
     """The quantized sum of ``x`` over the ranks of ``mesh``'s ``axis``
     (a ``ProcessMesh``), in ``x``'s shape and dtype, the same on every
     rank.  int32 accumulators do not overflow below ~2^24 ranks."""
+    return _int8_sum(x, mesh, axis, block)[0]
+
+
+def _int8_sum(x: torch.Tensor, mesh, axis: str, block: int):
+    """``int8_psum``'s sum, and this rank's own payload dequantized on the
+    shared grid (its term of the sum), both in ``x``'s shape and dtype."""
     group = mesh.group(axis)
     q, scales, pad = _quantize_int8(x.reshape(-1).float(), block)
     gmax = scales.clone()
@@ -51,10 +62,15 @@ def int8_psum(x: torch.Tensor, mesh, axis: str, *, block: int = 256) -> torch.Te
     requant = torch.clamp(
         torch.round((q.reshape(-1, block).float() * scales[:, None]) / gmax[:, None]),
         -127, 127).to(torch.int32)
+    own = requant.float() * gmax[:, None]
     dist.all_reduce(requant, op=dist.ReduceOp.SUM, group=group)
-    out = (requant.float() * gmax[:, None]).reshape(-1)
-    out = out[: out.shape[0] - pad] if pad else out
-    return out.reshape(x.shape).to(x.dtype)
+    total = requant.float() * gmax[:, None]
+
+    def shaped(v):
+        v = v.reshape(-1)
+        v = v[: v.shape[0] - pad] if pad else v
+        return v.reshape(x.shape).to(x.dtype)
+    return shaped(total), shaped(own)
 
 
 def wire_bytes(x: torch.Tensor, *, block: int = 256) -> int:
@@ -69,17 +85,17 @@ def compressed_grad_sync(grads, mesh, axis: str = "data", *, block: int = 256,
     """All-reduce the mean of a gradient tree (nested dicts and lists of
     tensors) with int8 compression over ``mesh``'s ``axis``.  Returns
     ``(synced_grads, new_error_feedback)``: the tree averaged over the
-    axis's ranks, and each leaf's fp32 error (what went in, the carried
-    error added, minus what came out), to pass as ``error_feedback`` to the
-    next sync."""
+    axis's ranks, and each leaf's fp32 error on this rank (what went in,
+    the carried error added, minus this rank's payload dequantized on the
+    shared grid), to pass as ``error_feedback`` to the next sync."""
     n = mesh.shape[axis]
     efs = tree_leaves(error_feedback) if error_feedback is not None else None
     outs, new_ef = [], []
     for i, g in enumerate(tree_leaves(grads)):
         carry_in = g if efs is None else g + efs[i].to(g.dtype)
-        synced = int8_psum(carry_in, mesh, axis, block=block) / g.new_tensor(n)
-        outs.append(synced)
-        new_ef.append((carry_in - synced).float())
+        total, own = _int8_sum(carry_in, mesh, axis, block)
+        outs.append(total / g.new_tensor(n))
+        new_ef.append((carry_in - own).float())
     it_out, it_ef = iter(outs), iter(new_ef)
     return (map_tree(lambda _: next(it_out), grads),
             map_tree(lambda _: next(it_ef), grads))

@@ -8,7 +8,9 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is never served by a stale library.  The first launch
 of a kernel builds it; ``build_all`` builds every source at once, one
 ``nvcc`` per source, all running together.  A library may export more
-than one entry point (``EXTRA_ENTRIES``).
+than one entry point (``EXTRA_ENTRIES``).  Every launch goes through
+``launch``, which runs it on the current stream of its tensors' card
+with that card current, from whichever thread calls it.
 """
 from __future__ import annotations
 
@@ -190,11 +192,31 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def current_stream(t: torch.Tensor) -> int:
-    """The raw handle of the current CUDA stream on ``t``'s device (what
-    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
-    building a Stream object on every launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+def entry_point(name: str):
+    """The typed ctypes function of entry point ``name`` (a library's own,
+    or one of ``EXTRA_ENTRIES``), its library built on first use."""
+    lib = EXTRA_ENTRIES[name][0] if name in EXTRA_ENTRIES else name
+    return getattr(load(lib), name)
+
+
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call entry point ``name`` with ``args`` and, appended, the raw
+    handle of the current stream of ``t``'s card, with that card current
+    for the call; raise on a CUDA error.  A thread's current card is card
+    0 unless something made it another (torch's own ops carry a device
+    guard, a ctypes call does not), and torch's current stream there is
+    the legacy default stream, a null handle: without the guard a kernel
+    on card 1's tensors runs on card 0 without an error, reading card 1's
+    memory over peer access.  When the card already is current this costs
+    one integer compare."""
+    fn = entry_point(name)
+    card = t.get_device()
+    if torch._C._cuda_getDevice() == card:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(card))
+    raise_on_error(name, err)
 
 
 def raise_on_error(name: str, err: int) -> None:

@@ -1,6 +1,7 @@
-// Device code shared by the kernels: fp32/bf16 conversions (the attention
-// kernels and rmsnorm), and the empty span and the split-K combine pass of
-// the two decode kernels.  Each kernel source includes this header and is
+// Code shared by the kernels: fp32/bf16 conversions (the attention
+// kernels and rmsnorm), the empty span and the split-K combine pass of the
+// two decode kernels, and the per-card raise of a kernel's dynamic
+// shared-memory cap.  Each kernel source includes this header and is
 // built into its own library, so everything here sits in an anonymous
 // namespace.
 #pragma once
@@ -75,6 +76,25 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
     out[((size_t)b * H + (size_t)kv * G + g) * D + d] =
         from_f32<T>(acc / fmaxf(l_tot, 1e-30f));
   }
+}
+
+// cudaFuncSetAttribute sets the attribute of the function in the current
+// card's context, so a kernel's cap is raised once on each card it runs on:
+// `raised` is the caller's flags, one a card (a static array of the
+// launcher, zero-initialised); the launcher's card is current (the Python
+// wrappers make the tensors' card current around every launch).
+constexpr int kMaxCards = 64;
+
+template <typename Kernel>
+inline cudaError_t raise_smem_cap(bool (&raised)[kMaxCards], Kernel kernel, int bytes) {
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (raised[card]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) raised[card] = true;
+  return e;
 }
 
 }  // namespace

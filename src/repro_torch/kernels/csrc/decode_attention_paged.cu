@@ -256,14 +256,10 @@ cudaError_t launch_mma(const void* q, const void* k_pages, const void* v_pages,
                        float* acc, void* out, int B, int H, int KV, int num_pages,
                        int page_size, int max_pages, int span, int nsplit, int window,
                        float scale, cudaStream_t stream) {
-  static bool attr_set = false;  // raise the dynamic shared-memory cap once
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_mma_kernel<D, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dec_smem_bytes<D, MT>(16 * MT));
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool raised[kMaxCards] = {};  // the dynamic shared-memory cap, a card each
+  cudaError_t cap = raise_smem_cap(raised, paged_decode_mma_kernel<D, MT>,
+                                   dec_smem_bytes<D, MT>(16 * MT));
+  if (cap != cudaSuccess) return cap;
   paged_decode_mma_kernel<D, MT>
       <<<dim3(nsplit, B * KV), kDecThreads, dec_smem_bytes<D, MT>(H / KV), stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),

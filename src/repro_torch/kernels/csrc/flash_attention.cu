@@ -213,13 +213,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, St
                       Strides ks, Strides vs, Strides os, int B, int S, int H, int KV,
                       int causal, float scale, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>(kFlashWG);
-  static bool attr_set = false;  // raise the dynamic shared-memory cap once
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool raised[kMaxCards] = {};  // the dynamic shared-memory cap, a card each
+  cudaError_t cap = raise_smem_cap(raised, flash_fwd_wgmma_kernel<D>, smem);
+  if (cap != cudaSuccess) return cap;
   const int n_qt = (S + kFlashRows - 1) / kFlashRows;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

@@ -220,13 +220,9 @@ cudaError_t launch_tc(const void* q, const void* k_cache, const void* v_cache,
                       const int* base, const int* clens, void* out, int B, int T_len,
                       int S, int H, int KV, float scale, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>(1);
-  static bool attr_set = false;  // raise the dynamic shared-memory cap once
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(contig_prefill_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool raised[kMaxCards] = {};  // the dynamic shared-memory cap, a card each
+  cudaError_t cap = raise_smem_cap(raised, contig_prefill_wgmma_kernel<D>, smem);
+  if (cap != cudaSuccess) return cap;
   const int n_qt = (int)(((long long)T_len * (H / KV) + kTcRows - 1) / kTcRows);
   const long long blocks = (long long)n_qt * B * KV;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

@@ -250,13 +250,9 @@ cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
                       int T_len, int H, int KV, int num_pages, int page_size, int max_pages,
                       float scale, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>(1);
-  static bool attr_set = false;  // raise the dynamic shared-memory cap once
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(prefill_paged_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool raised[kMaxCards] = {};  // the dynamic shared-memory cap, a card each
+  cudaError_t cap = raise_smem_cap(raised, prefill_paged_wgmma_kernel<D>, smem);
+  if (cap != cudaSuccess) return cap;
   const int n_qt = (int)(((long long)T_len * (H / KV) + kTcRows - 1) / kTcRows);
   const long long blocks = (long long)n_qt * B * KV;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

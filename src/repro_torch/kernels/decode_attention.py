@@ -160,12 +160,12 @@ def decode_attention_kernel(q, k, v, cache_len, *, window: int = 0) -> torch.Ten
         raise ValueError("the tensor-core body takes H/KV <= 16 at head dim 256")
     parts = decode_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
-    err = build.load("decode_attention").decode_attention(
+    build.launch(
+        "decode_attention", q,
         build.DTYPE_CODE[q.dtype], int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cache_len.data_ptr(), *(None if t is None else t.data_ptr() for t in parts),
         out.data_ptr(), B, S, H, KV, D, span, nsplit, int(window),
-        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
-    build.raise_on_error("decode_attention", err)
+        ctypes.c_float(1.0 / math.sqrt(D)))
     build.count_launch(decode_attention_kernel)
     return out
 
@@ -205,13 +205,13 @@ def decode_attention_paged_kernel(q, k_pages, v_pages, block_table, cache_len, *
         raise ValueError("the tensor-core body takes H/KV <= 32")
     parts = decode_partials(nsplit, B, KV, G, D, q.device)
     out = torch.empty_like(q)
-    err = build.load("decode_attention_paged").decode_attention_paged(
+    build.launch(
+        "decode_attention_paged", q,
         build.DTYPE_CODE[q.dtype], int(tc), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), cache_len.data_ptr(),
         *(None if t is None else t.data_ptr() for t in parts), out.data_ptr(),
         B, H, KV, D, num_pages, page_size, max_pages, span, nsplit, int(window),
-        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
-    build.raise_on_error("decode_attention_paged", err)
+        ctypes.c_float(1.0 / math.sqrt(D)))
     build.count_launch(decode_attention_paged_kernel)
     return out
 

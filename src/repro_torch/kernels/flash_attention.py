@@ -64,12 +64,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True) -> torch.Tensor:
     out = torch.empty_like(q)  # keeps q's strides when q is dense
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-    lib = build.load("flash_attention")
-    err = lib.flash_attention(
+    build.launch(
+        "flash_attention", q,
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), strides, B, S, H, k.shape[1], D, int(causal),
-        ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
-    build.raise_on_error("flash_attention", err)
+        ctypes.c_float(1.0 / math.sqrt(D)))
     build.count_launch(flash_attention_kernel)
     return out
 

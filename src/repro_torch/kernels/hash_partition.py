@@ -71,10 +71,8 @@ def hash_partition_histogram_kernel(keys, *, num_buckets: int,
     block, nb = _blocks(n, block)
     out = torch.empty((R, nb, num_buckets), dtype=torch.int32, device=keys.device)
     if R:
-        err = build.load("hash_partition").hash_partition(
-            keys.data_ptr(), out.data_ptr(), R, n, block, nb, num_buckets,
-            torch.cuda.current_stream(keys.device).cuda_stream)
-        build.raise_on_error("hash_partition", err)
+        build.launch("hash_partition", keys, keys.data_ptr(), out.data_ptr(), R, n,
+                     block, nb, num_buckets)
         build.count_launch(hash_partition_histogram_kernel)
     return out.reshape(*keys.shape[:-1], nb, num_buckets)
 

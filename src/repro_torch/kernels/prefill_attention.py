@@ -145,26 +145,25 @@ def write_chunk_paged_kernel(k_pages, v_pages, block_table, k_new, v_new,
     dev = k_pages.device
     clens32 = None if chunk_lens is None else _ref.rows_i32(chunk_lens, B, dev)
     _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(), v_new.contiguous(),
-                    _ref.rows_i32(base, B, dev), clens32,
-                    build.current_stream(k_pages))
+                    _ref.rows_i32(base, B, dev), clens32)
     return k_pages, v_pages
 
 
 write_chunk_paged_kernel.launches = 0
 
 
-def _launch_scatter(k_pages, v_pages, block_table, k_new, v_new, base32, clens32,
-                    stream) -> None:
+def _launch_scatter(k_pages, v_pages, block_table, k_new, v_new, base32,
+                    clens32) -> None:
     """The scatter's launch on checked, contiguous tensors."""
     num_pages, page_size = k_pages.shape[0], k_pages.shape[1]
     row_elems = k_pages.numel() // max(num_pages * page_size, 1)
-    err = build.load("prefill_attention_paged").paged_scatter(
+    build.launch(
+        "paged_scatter", k_pages,
         k_pages.element_size(), k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
         base32.data_ptr(), None if clens32 is None else clens32.data_ptr(),
         k_new.shape[0], k_new.shape[1], row_elems, num_pages, page_size,
-        block_table.shape[1], stream)
-    build.raise_on_error("paged_scatter", err)
+        block_table.shape[1])
     build.count_launch(write_chunk_paged_kernel)
 
 
@@ -230,13 +229,12 @@ def prefill_attention_kernel(q, k_new, v_new, k_cache, v_cache, base,
     base32 = _ref.rows_i32(base, B, q.device)
     clens32 = _ref.rows_i32(chunk_lens, B, q.device)
     out = torch.empty_like(q)
-    lib = build.load("prefill_attention")
-    err = lib.prefill_attention(
+    build.launch(
+        "prefill_attention", q,
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         base32.data_ptr(), clens32.data_ptr(), out.data_ptr(), B, T, S, H, KV,
-        D, ctypes.c_float(1.0 / math.sqrt(D)), build.current_stream(q))
-    build.raise_on_error("prefill_attention", err)
+        D, ctypes.c_float(1.0 / math.sqrt(D)))
     build.count_launch(prefill_attention_kernel)
     return out, k_cache, v_cache
 
@@ -277,17 +275,15 @@ def prefill_attention_paged_kernel(q, k_new, v_new, k_pages, v_pages,
     max_pages = block_table.shape[1]
     base32 = _ref.rows_i32(base, B, q.device)
     clens32 = _ref.rows_i32(chunk_lens, B, q.device)
-    stream = build.current_stream(q)
     _launch_scatter(k_pages, v_pages, block_table, k_new.contiguous(),
-                    v_new.contiguous(), base32, clens32, stream)
+                    v_new.contiguous(), base32, clens32)
     out = torch.empty_like(q)
-    lib = build.load("prefill_attention_paged")
-    err = lib.prefill_attention_paged(
+    build.launch(
+        "prefill_attention_paged", q,
         build.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), base32.data_ptr(),
         clens32.data_ptr(), out.data_ptr(), B, T, H, KV, D, num_pages,
-        page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)), stream)
-    build.raise_on_error("prefill_attention_paged", err)
+        page_size, max_pages, ctypes.c_float(1.0 / math.sqrt(D)))
     build.count_launch(prefill_attention_paged_kernel)
     return out, k_pages, v_pages
 

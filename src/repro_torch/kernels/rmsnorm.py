@@ -40,11 +40,9 @@ def rmsnorm_kernel(x, w, *, eps: float = 1e-5) -> torch.Tensor:
         raise ValueError(f"{rows} rows: at most 2^31 - 1")
     out = torch.empty_like(x)
     if rows:
-        err = build.load("rmsnorm").rmsnorm(
-            build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[w.dtype], x.data_ptr(),
-            w.data_ptr(), out.data_ptr(), rows, d, ctypes.c_float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        build.raise_on_error("rmsnorm", err)
+        build.launch("rmsnorm", x, build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[w.dtype],
+                     x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+                     ctypes.c_float(eps))
         build.count_launch(rmsnorm_kernel)
     return out
 

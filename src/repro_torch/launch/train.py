@@ -10,8 +10,9 @@ The full paper pipeline as ONE stage graph under the port's Session:
 
 Under ``--kind-pods`` the same graph runs with its data-engineering stage
 placed on a data pod and its DL stages on a DL pod — per-stage placement,
-the dependency edge crossing pilots; a machine with one card falls back
-to one shared pod, as the JAX package's does.  Every stage runs on the
+the dependency edge crossing pilots, each pod on cards of its own (the
+result's ``placement`` and ``devices``); a machine with one card falls
+back to one shared pod, as the JAX package's does.  Every stage runs on the
 device its communicator was carved on: the card unless ``--device cpu``.
 
 CLI:
@@ -129,7 +130,7 @@ def run(args) -> dict:
         ckpt.save(args.steps, state)
         ckpt.close()
         return {"losses": losses, "state_step": int(state["step"]),
-                "train_s": time.time() - t0}
+                "train_s": time.time() - t0, "device": str(ctx.comm.device)}
 
     @stage(kind="inference")
     def postprocess(ctx):  # noqa: PKL001 — in-process driver stage
@@ -138,7 +139,7 @@ def run(args) -> dict:
         last = np.mean(r["losses"][-5:])
         return {"first_loss": float(first), "last_loss": float(last),
                 "improved": bool(last < first), "train_s": r["train_s"],
-                "steps": len(r["losses"])}
+                "steps": len(r["losses"]), "device": str(ctx.comm.device)}
 
     # ONE pipeline regardless of pod layout: under --kind-pods the
     # preprocess stage resolves to pod-data and train/postprocess to
@@ -156,6 +157,9 @@ def run(args) -> dict:
     res["overheads"] = {**pipe.tasks["train"].overhead_s,
                         "execute": pipe.tasks["train"].duration_s}
     res["placement"] = pipe.stage_placements()
+    # the device each stage ran on (its communicator's)
+    res["devices"] = {"preprocess": str(out["preprocess"].col("tokens").device),
+                      "train": out["train"]["device"], "postprocess": res.pop("device")}
     res["kind_pods"] = {p.uid: sorted(p.task_kinds) for p in session.pilots} \
         if kind_pods else None
     print(f"[deep-rc] {cfg.name}: loss {res['first_loss']:.4f} -> "

@@ -137,6 +137,20 @@ def test_compressed_grad_sync_matches_jax_bitwise(jax8, port8, leaf):
     assert err_ef <= err_plain * 1.05, (err_ef, err_plain)
 
 
+@pytest.mark.parametrize("leaf", ["w", "m"])
+def test_error_feedback_on_each_ranks_own_gradient(port8, leaf):
+    """Each of the 8 ranks syncs a gradient of its own, as data
+    parallelism gives it: 8 syncs with error feedback land no further
+    from 8 x the fp32 mean than 1.05 x the plain syncs (JAX's check, which
+    JAX runs on one gradient that every rank holds).  Each rank carries
+    its own quantization error, within one step of the shared grid;
+    carrying ``carry_in - synced`` would add its distance from the mean."""
+    for rank, res in enumerate(port8):
+        err_ef, err_plain = res[f"own/{leaf}/ef_err"], res[f"own/{leaf}/plain_err"]
+        assert err_ef <= err_plain * 1.05, (rank, err_ef, err_plain)
+        assert res[f"own/{leaf}/residual_max"] <= res[f"own/{leaf}/grid_step"], rank
+
+
 def test_pipeline_forward_matches_jax_on_every_rank(jax8, port4):
     want = jax8[1]["pipe/out"]
     seq = jax8[1]["pipe/x"]
@@ -158,22 +172,26 @@ CARD_SPEC = {"device": "cpu", "seed": 0, "df_rows": 1 << 12, "df_keys": 1 << 8,
              "grad_s": 16, "ef_syncs": R.SYNC_STEPS, "pipe_micro": 8, "pipe_shape": [2, 4, 16]}
 
 
-@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("world", [1, 2, 4])
 def test_card_scenario_holds_on_the_cpu(world, tmp_path):
-    """Every check of the card's phase holds on gloo ranks: the process
-    mesh's operators equal the logical mesh's, the int8 sync within JAX's
-    bound and the same on every rank, error feedback no worse than 1.05x,
-    GPipe the sequential result; at one rank every collective is the
+    """Every check of the card's phase holds on gloo ranks (at 4, the
+    four-card run's world on NCCL): the process mesh's operators equal
+    the logical mesh's, the int8 sync within JAX's bound and the same on
+    every rank, error feedback no worse than 1.05x, GPipe over ``world``
+    stages the sequential result; at one rank every collective is the
     identity; each op names its backend, world and device."""
     ranks = R.launch("card", world, tmp_path, spec=CARD_SPEC)
     for res in ranks:
         assert res["world"] == world and res["backend"] == "gloo"
+        assert res["pipeline"]["stages"] == world and res["card"] == {}
+        assert res["flash_launches"] == 0  # the plain attention on the CPU
         assert all(row["equal"] for row in res["dataframe"].values()), res["dataframe"]
         assert all(row["dropped"] == 0 for row in res["dataframe"].values())
         # the plain histogram on the CPU: no kernel launches
         assert all(row["hash_launches"] == 0 for row in res["dataframe"].values())
         g = res["grads"]
         assert g["max_rel_err"] < 0.02 and g["ef_err"] <= 1.05 * g["plain_err"]
+        assert g["replicated"]["ef_err"] <= 1.05 * g["replicated"]["plain_err"]
         assert g["int8_bytes"] >= g["fp32_bytes"]  # int32 payloads, plus the scales
         assert res["pipeline"]["max_rel_diff"] <= PIPE_RTOL
         assert {e["backend"] for v in res["wire"].values() for e in v} == {"gloo"}
@@ -183,6 +201,40 @@ def test_card_scenario_holds_on_the_cpu(world, tmp_path):
         assert ranks[0]["identity"] and ranks[0]["grads"]["identity"]
     else:
         assert set(R.WIRE_OPS) == set(ranks[0]["wire"]) | set(ranks[1]["wire"])
+
+
+def test_card_scenario_on_a_data_pipe_grid_holds_on_the_cpu(tmp_path):
+    """The four-card run's (data 2, pipe 2) mesh on 4 gloo ranks: each axis
+    a subgroup of 2; the int8 sync along ``data`` the same on both ranks
+    of a line and within JAX's bound of the line's fp32 mean; GPipe of 2
+    stages along ``pipe`` the sequential result; the subgroups' ops at
+    world 2 beside the default group's at world 4."""
+    ranks = R.launch("card", 4, tmp_path, spec=dict(CARD_SPEC, grid=[2, 2]))
+    lines = {}
+    for res in ranks:
+        grid = res["grid"]
+        assert grid["shape"] == {"data": 2, "pipe": 2}
+        assert grid["sync"]["max_rel_err"] < 0.02
+        assert grid["pipeline"]["stages"] == 2
+        assert grid["pipeline"]["max_rel_diff"] <= PIPE_RTOL
+        lines.setdefault(grid["coords"]["pipe"], []).append(grid["sync"]["checksums"])
+        assert {e["world"] for v in res["wire"].values() for e in v} == {2, 4}
+    assert sorted(len(v) for v in lines.values()) == [2, 2]
+    assert all(a == b for a, b in lines.values())
+    # the two lines sync different pairs of batches
+    assert lines[0][0] != lines[1][0]
+
+
+def test_nccl_ranks_need_a_card_each(tmp_path, monkeypatch):
+    """NCCL asked for on a machine with fewer cards than ranks (two, on
+    any machine) raises, naming both counts, before a rank starts or its
+    folder is made; it never becomes gloo."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="4 ranks need 4 cards, this machine has 2"):
+        R.launch("card", 4, tmp_path / "nccl", spec=CARD_SPEC, backend="nccl")
+    with pytest.raises(ValueError, match="backend 'mpi'"):
+        R.launch("card", 1, tmp_path / "mpi", backend="mpi")
+    assert not any(tmp_path.iterdir())
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ as a script in a subprocess for them (``python
 tests/test_torch_exec_transport.py OUT.npz``)."""
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -100,6 +101,69 @@ def test_tensors_cross_bitwise(pool):
     # a view ships its own 64 elements, not its 64000-element base
     assert len(protocol.dumps(view)) < 4 * view.numel() + 512
     assert len(protocol.dumps(base)) > 4 * base.numel()
+
+
+def test_frame_lengths_past_4_gib_fit_the_header():
+    """A frame's length is 8 bytes: a gang's result gathered to rank 0
+    passes 2 GiB at 2^26 rows over 4 ranks (~3 GB), which a 4-byte
+    header under JAX's 2 GiB cap took for a corrupt frame (the parent
+    then reported the worker dead); a length past MAX_FRAME is still
+    refused as corrupt."""
+    n = 5 << 30
+    assert protocol._LEN.unpack(protocol._LEN.pack(n)) == (n,) and n <= protocol.MAX_FRAME
+    server = socket.create_server(("127.0.0.1", 0))
+    a = socket.create_connection(server.getsockname())
+    b, _ = server.accept()
+    try:
+        tx, rx = protocol.Channel(a), protocol.Channel(b)
+        tx.send({"type": "echo", "v": list(range(5))})
+        assert rx.recv(timeout=10) == {"type": "echo", "v": [0, 1, 2, 3, 4]}
+        a.sendall(protocol._LEN.pack(protocol.MAX_FRAME + 1))
+        with pytest.raises(protocol.ConnectionClosed, match="corrupt frame length"):
+            rx.recv(timeout=10)
+    finally:
+        for sock in (a, b, server):
+            sock.close()
+
+
+def test_a_frame_in_flight_counts_as_life():
+    """The heartbeat monitor reads ``Channel.last_rx``: bytes of a frame
+    that takes longer than the heartbeat timeout to arrive (a gang's
+    3 GB result, its heartbeats queued behind it) keep the worker alive;
+    the frame still arrives whole after a receive timed out mid-way."""
+    server = socket.create_server(("127.0.0.1", 0))
+    a = socket.create_connection(server.getsockname())
+    b, _ = server.accept()
+    try:
+        rx = protocol.Channel(b)
+        payload = protocol.dumps({"type": "result", "v": list(range(1000))})
+        frame = protocol._LEN.pack(len(payload)) + payload
+        t0 = rx.last_rx
+        time.sleep(0.05)
+        a.sendall(frame[:100])
+        with pytest.raises(socket.timeout):
+            rx.recv(timeout=0.5)
+        assert rx.last_rx > t0 + 0.04  # the partial frame moved it
+        a.sendall(frame[100:])
+        assert rx.recv(timeout=10)["v"] == list(range(1000))
+    finally:
+        for sock in (a, b, server):
+            sock.close()
+
+
+def test_a_frame_that_decodes_longer_than_the_heartbeat_timeout_counts_as_life():
+    """A result whose unpickling in the parent outlasts the heartbeat
+    timeout (a gang's 3 GB result decodes for seconds) leaves the worker
+    alive: the monitor reads a frame being decoded as life."""
+    t = SubprocessTransport(max_workers=1, worker_devices=1, device="cpu",
+                            heartbeat_s=0.1, heartbeat_timeout_s=1.0)
+    try:
+        assert t.submit(T.echo, 0).result(timeout=120) == 0
+        (pid,) = t.worker_pids()
+        assert t.submit(T.slow_to_load, 2.5).result(timeout=60) == 2.5
+        assert t.worker_pids() == [pid] and t.submit(T.echo, 1).result(timeout=60) == 1
+    finally:
+        t.shutdown(wait=False)
 
 
 def test_remote_exception_is_typed(pool):

@@ -1,12 +1,13 @@
 """A task ganged over worker processes, on the CPU: the port's counterpart
 of JAX's communicator over several devices (``repro.core.communicator``).
 
-JAX's ``RemoteAgent`` runs a ``num_devices=2`` task on a mesh of 2 host
-devices in one process; the port's runs it as a gang of 2 ranks, one a
-worker process of a ``SubprocessTransport`` (``worker_devices=1``), over
-a gloo ``ProcessMesh``.  The attempt's result is rank 0's.  JAX's side
-runs in a subprocess at 2 host devices (``python tests/test_torch_gang.py
-OUT.npz``), as ``tests/test_torch_dataframe.py`` starts its own.
+JAX's ``RemoteAgent`` runs a ``num_devices=2`` (and 4) task on a mesh of
+as many host devices in one process; the port's runs it as a gang of as
+many ranks, one a worker process of a ``SubprocessTransport``
+(``worker_devices=1``), over a gloo ``ProcessMesh``.  The attempt's
+result is rank 0's.  JAX's side runs in a subprocess at that many host
+devices (``python tests/test_torch_gang.py OUT.npz RANKS``), as
+``tests/test_torch_dataframe.py`` starts its own.
 
 Tolerances: columns, masks and rows dropped bitwise; groupby sums within
 1e-4 absolute and reduce within 1e-5 relative (the card's distributed
@@ -38,10 +39,10 @@ SPEC = {"seed": 0, "rows": 4096, "keys": 1000, "groups_cap": 4096, "warmup": Fal
 SUM_ATOL, REDUCE_RTOL = 1e-4, 1e-5
 
 
-def _jax_main(path):
+def _jax_main(path, ranks):
     """JAX's agent runs the gang's operators as one task over a mesh of
-    2 host devices; its host values go to an ``.npz``.  The shard_map
-    bodies are jitted, as in ``tests/test_torch_dataframe.py``."""
+    ``ranks`` host devices; its host values go to an ``.npz``.  The
+    shard_map bodies are jitted, as in ``tests/test_torch_dataframe.py``."""
     import jax
 
     from repro.core.agent import RemoteAgent as JAgent
@@ -70,21 +71,26 @@ def _jax_main(path):
                 out[f"{name}/{col}"] = np.asarray(v)
         return out
 
-    pilot = JManager().submit_pilot(JDesc(num_devices=RANKS))
+    pilot = JManager().submit_pilot(JDesc(num_devices=ranks))
     agent = JAgent(pilot, max_workers=1)
     try:
-        t, = agent.submit([JTask(name="df", fn=task, num_devices=RANKS)])
+        t, = agent.submit([JTask(name="df", fn=task, num_devices=ranks)])
     finally:
         agent.close()
     assert t.state.name == "DONE", t.error
     np.savez(path, **t.result)
 
 
-@pytest.fixture(scope="module")
-def pool():
-    t = SubprocessTransport(max_workers=RANKS, worker_devices=1, device="cpu",
+def _pool(n):
+    t = SubprocessTransport(max_workers=n, worker_devices=1, device="cpu",
                             heartbeat_s=0.1, heartbeat_timeout_s=3.0)
     t.wait_ready(timeout=120)
+    return t
+
+
+@pytest.fixture(scope="module")
+def pool():
+    t = _pool(RANKS)
     yield t
     t.shutdown(wait=False)
 
@@ -139,43 +145,57 @@ def test_session_stage_wider_than_a_worker_runs_as_a_gang(pool):
 # -- (b) parity with JAX's num_devices=2 task -----------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax2(tmp_path_factory):
-    path = tmp_path_factory.mktemp("jax2") / "gang.npz"
+def _jax_gang(tmp_path_factory, ranks):
+    path = tmp_path_factory.mktemp(f"jax{ranks}") / "gang.npz"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([os.path.join(repo, "src"),
                                            os.path.dirname(os.path.abspath(__file__))]),
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={RANKS}")
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={ranks}")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(path), str(ranks)],
                        capture_output=True, text=True, timeout=600, env=env)
     assert r.returncode == 0, f"JAX side failed:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}"
     with np.load(path) as f:
         return dict(f)
 
 
-@pytest.fixture(scope="module")
-def gang2(pool):
-    task, _ = _run(pool, T.gang_dataframe, SPEC)
+# the gang's widths: 2, and the 4 ranks chip_smoke.py --cards gangs over
+# four cards (JAX: num_devices=4 on 4 host devices)
+GANG_WIDTHS = (RANKS, 4)
+
+
+@pytest.fixture(scope="module", params=GANG_WIDTHS, ids=lambda n: f"ranks{n}")
+def gang_and_jax(request, tmp_path_factory):
+    """(ranks, JAX's task at num_devices=ranks, the port's gang of ranks)."""
+    n = request.param
+    want = _jax_gang(tmp_path_factory, n)
+    wide = request.getfixturevalue("pool") if n == RANKS else _pool(n)
+    try:
+        task, _ = _run(wide, T.gang_dataframe, SPEC, n=n)
+    finally:
+        if n != RANKS:
+            wide.shutdown(wait=False)
     assert task.state is TaskState.DONE, task.error
-    return task.result
+    return n, want, task.result
 
 
 @pytest.mark.parametrize("op", T.GANG_OPS)
-def test_gang_dataframe_matches_jax(jax2, gang2, op):
-    assert int(jax2["size"]) == gang2["world"] == RANKS
-    assert gang2["backend"] == "gloo" and len(set(gang2["pids"])) == RANKS
-    res = gang2["results"][op]
+def test_gang_dataframe_matches_jax(gang_and_jax, op):
+    n, jaxr, gang = gang_and_jax
+    assert int(jaxr["size"]) == gang["world"] == n
+    assert gang["backend"] == "gloo" and len(set(gang["pids"])) == n
+    assert [sorted(x) for x in gang["launches"]] == [sorted(T.GANG_OPS)] * n
+    res = gang["results"][op]
     if op == "reduce":
-        want = float(jax2["reduce/v"])
+        want = float(jaxr["reduce/v"])
         assert abs(res["v"] - want) <= REDUCE_RTOL * abs(want)
         return
-    assert res["dropped"] == int(jax2[f"{op}/dropped"])
-    np.testing.assert_array_equal(res["valid"], jax2[f"{op}/valid"])
-    assert set(res["cols"]) == {k.split("/", 1)[1] for k in jax2
+    assert res["dropped"] == int(jaxr[f"{op}/dropped"])
+    np.testing.assert_array_equal(res["valid"], jaxr[f"{op}/valid"])
+    assert set(res["cols"]) == {k.split("/", 1)[1] for k in jaxr
                                 if k.startswith(f"{op}/")} - {"dropped", "valid"}
     for col, got in res["cols"].items():
-        want = jax2[f"{op}/{col}"]
+        want = jaxr[f"{op}/{col}"]
         assert got.dtype == want.dtype and got.shape == want.shape, col
         if op == "groupby" and col == "v":
             np.testing.assert_allclose(got, want, rtol=0, atol=SUM_ATOL)
@@ -311,4 +331,4 @@ def test_ranks_land_on_workers_that_see_their_cards():
 
 
 if __name__ == "__main__":
-    _jax_main(sys.argv[1])
+    _jax_main(sys.argv[1], int(sys.argv[2]))

@@ -102,6 +102,7 @@ def test_launch_train_runs_as_a_stage_graph_and_resumes(tmp_path):
     assert len(set(res["placement"].values())) == 1, "one card, one pod"
     assert {"queue", "communicator"} <= set(res["overheads"])
     assert res["kind_pods"] is None
+    assert res["devices"] == {"preprocess": "cpu", "train": "cpu", "postprocess": "cpu"}
     assert store.latest_step(str(tmp_path / "ckpt")) == 3
     # the train stage computes what the plain loop computes: its first
     # loss is the first step's on the corpus' first batch
@@ -122,6 +123,24 @@ def test_launch_train_runs_as_a_stage_graph_and_resumes(tmp_path):
 def test_launch_train_kind_pods_fall_back_to_one_pod(tmp_path):
     res = tlaunch.run(_train_args(tmp_path, "--steps", "1", "--kind-pods"))
     assert res["kind_pods"] is None and res["steps"] == 1
+
+
+def test_launch_train_kind_pods_split_over_four_stand_in_devices(tmp_path, monkeypatch):
+    """--kind-pods over a pilot manager of four devices (CPU stand-ins for
+    the four cards ``chip_smoke.py --cards`` runs it on): a data pod of
+    one device takes preprocess, the DL pod of three takes train and
+    postprocess, and the run computes what the one-pod run computes."""
+    one = tlaunch.run(_train_args(tmp_path / "one", "--steps", "2"))
+    real = tlaunch.PilotManager
+    monkeypatch.setattr(tlaunch, "PilotManager",
+                        lambda devices=None: real(devices=[torch.device("cpu")] * 4))
+    res = tlaunch.run(_train_args(tmp_path / "pods", "--steps", "2", "--kind-pods"))
+    pods = {uid: kinds for uid, kinds in res["kind_pods"].items()}
+    data = next(uid for uid, kinds in pods.items() if kinds == ["data_engineering"])
+    dl = next(uid for uid, kinds in pods.items() if kinds == ["inference", "train"])
+    assert res["placement"] == {"preprocess": data, "train": dl, "postprocess": dl}
+    assert res["devices"] == {"preprocess": "cpu", "train": "cpu", "postprocess": "cpu"}
+    assert (res["first_loss"], res["last_loss"]) == (one["first_loss"], one["last_loss"])
 
 
 def test_entry_points_need_the_card_unless_the_cpu_is_asked(tmp_path):

@@ -4,18 +4,21 @@ group that meets through a TCP store on 127.0.0.1 (held by the launching
 process, on a port the OS picks), runs one scenario in each and returns
 what each rank's scenario returned, in rank order.
 
-    python tests/torch_dist_ranks.py SCENARIO RANK WORLD DIR STORE_PORT SPEC_JSON
+    python tests/torch_dist_ranks.py SCENARIO RANK WORLD DIR STORE_PORT SPEC_JSON BACKEND
 
 The CPU tests run the scenarios as gloo ranks on the CPU
 (``tests/test_torch_distributed.py``, ``test_torch_sharding.py``,
 ``test_torch_dataframe.py``); ``chip_smoke.py``'s distributed phase runs
 ``card`` as 2 gloo ranks on the one card, and in its own process at world
-1 on NCCL.  Every rank is reaped on every exit path: a rank that fails
-stops the others.  This module imports no jax.
+1 on NCCL; its ``--cards`` mode runs ``card`` as 4 NCCL ranks, rank r on
+card r (``launch(..., backend="nccl")``).  Every rank is reaped on every
+exit path: a rank that fails stops the others.  This module imports no
+jax.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -50,21 +53,36 @@ def host_store(world: int):
     return dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False)
 
 
+BACKENDS = ("gloo", "nccl")
+
+
 def launch(scenario: str, world: int, workdir, *, spec=None, timeout: float = 120.0,
-           threads: int = 1):
-    """Run ``scenario`` in ``world`` gloo rank processes and return each
-    rank's result.  A rank that exits non-zero, or the deadline, kills the rest;
-    the error carries the failed ranks' logs."""
+           threads: int = 1, backend: str = "gloo"):
+    """Run ``scenario`` in ``world`` rank processes on ``backend`` and
+    return each rank's result.  Under ``"nccl"`` rank r owns card r: it
+    makes the card current before it joins the group, and its spec's
+    ``device`` is ``cuda:r``; a machine with fewer cards than ranks is an
+    error before any rank starts.  A rank that exits non-zero, or the
+    deadline, kills the rest; the error carries the failed ranks' logs."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        if cards < world:
+            raise ValueError(f"NCCL ranks own a card each: {world} ranks need {world} "
+                             f"cards, this machine has {cards}")
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     store = host_store(world)
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                PYTHONPATH=os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
-    argv = [scenario, "", str(world), str(workdir), str(store.port), json.dumps(spec or {})]
+    argv = [scenario, "", str(world), str(workdir), str(store.port), "", backend]
     procs, logs = [], []
     try:
         for r in range(world):
             argv[1] = str(r)
+            argv[5] = json.dumps(dict(spec or {}, device=f"cuda:{r}") if backend == "nccl"
+                                 else spec or {})
             logs.append(open(workdir / f"rank{r}.log", "w"))
             procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *argv],
                                           stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
@@ -118,6 +136,33 @@ def collectives(spec):
         x = torch.from_numpy(data[f"int8/{name}/in"][pm.rank])
         out[f"int8/{name}"] = (C.int8_psum(x, pm, "data") / float(n)).numpy()
     grads = {k: torch.from_numpy(data[f"sync/{k}/in"]) for k in ("w", "m")}
+    (acc_ef, acc_plain), ef = _syncs(grads, pm)
+    for k in grads:
+        out[f"sync/{k}/ef"] = acc_ef[k].numpy()
+        out[f"sync/{k}/plain"] = acc_plain[k].numpy()
+        out[f"sync/{k}/residual"] = ef[k].numpy()
+    # each rank's own gradient, as data parallelism gives it (JAX's test
+    # syncs one that every rank holds): both sums against the fp32 mean
+    gen = torch.Generator().manual_seed(100 + pm.rank)
+    own = {k: torch.randn(v.shape, generator=gen) * 0.01 for k, v in grads.items()}
+    (acc_ef, acc_plain), ef = _syncs(own, pm)
+    for k, g in own.items():
+        true = _mean(g, pm.group("data"), n) * SYNC_STEPS
+        out[f"own/{k}/ef_err"] = float(torch.linalg.norm(acc_ef[k] - true))
+        out[f"own/{k}/plain_err"] = float(torch.linalg.norm(acc_plain[k] - true))
+        # one step of the shared grid at most: a block's scale is the
+        # largest |carried-in value| of any rank / 127, and what is carried
+        # in is the gradient plus at most one step
+        top = g.abs().max().reshape(1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=pm.group("data"))
+        out[f"own/{k}/residual_max"] = float(ef[k].abs().max())
+        out[f"own/{k}/grid_step"] = float(top) / 127 * (128 / 127)
+    return out
+
+
+def _syncs(grads, pm):
+    """SYNC_STEPS syncs of ``grads`` along ``data`` with error feedback and
+    as many without, each accumulated: (the two sums, the last residual)."""
     ef = None
     acc_ef = {k: torch.zeros_like(v) for k, v in grads.items()}
     acc_plain = {k: torch.zeros_like(v) for k, v in grads.items()}
@@ -126,11 +171,7 @@ def collectives(spec):
         plain, _ = C.compressed_grad_sync(grads, pm, "data")
         acc_ef = {k: acc_ef[k] + synced[k] for k in grads}
         acc_plain = {k: acc_plain[k] + plain[k] for k in grads}
-    for k in grads:
-        out[f"sync/{k}/ef"] = acc_ef[k].numpy()
-        out[f"sync/{k}/plain"] = acc_plain[k].numpy()
-        out[f"sync/{k}/residual"] = ef[k].numpy()
-    return out
+    return (acc_ef, acc_plain), ef
 
 
 def pipeline(spec):
@@ -289,20 +330,14 @@ def _card_dataframe(spec, pm, dev):
     return out
 
 
-def _card_grads(spec, pm, dev):
-    """One backward of a seeded model on this rank's own batch; its
-    gradient tree synced exactly (fp32 all_reduce, then / ranks) and with
-    ``compressed_grad_sync``: ms, bytes handed to the all-reduces, the
-    largest relative error of a leaf (max |int8 - exact| / max |exact|),
-    a checksum of every synced leaf; then error feedback on the
-    embedding's gradient over ``ef_syncs`` syncs against as many plain
-    ones (JAX's check).  At one rank, whether every collective was the
-    identity."""
+def _card_backward(spec, pm, dev):
+    """One backward of a seeded model on this rank's own batch: (config,
+    gradient tree, flash kernel launches of the backward's forward)."""
     from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.train.state import model_specs
     from repro_torch.train.step import make_loss_fn
 
-    W = pm.shape["data"]
     cfg = get_config(spec["arch"], smoke=spec["smoke"])
     params = init_params(torch.Generator(device=dev).manual_seed(spec["seed"]),
                          model_specs(cfg), dev)
@@ -311,19 +346,33 @@ def _card_grads(spec, pm, dev):
                         generator=gen, device=dev)
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     it = iter(leaves)
+    n0 = fa.flash_attention_kernel.launches
     loss = make_loss_fn(cfg, RunConfig())(map_tree(lambda _: next(it), params),
                                           {"tokens": tok, "labels": torch.roll(tok, -1, 1)})
     it = iter(torch.autograd.grad(loss, leaves))
     grads = map_tree(lambda _: next(it), params)
-    del leaves, loss
+    return cfg, grads, fa.flash_attention_kernel.launches - n0
+
+
+def _mean(t, group, n):
+    """The fp32 all-reduce mean of ``t`` over ``group``'s ``n`` ranks."""
+    out = t.clone()
+    dist.all_reduce(out, group=group)
+    return out / n
+
+
+def _card_grads(spec, pm, cfg, grads, dev):
+    """The gradient tree synced exactly (fp32 all_reduce, then / ranks) and
+    with ``compressed_grad_sync``: ms, bytes handed to the all-reduces, the
+    largest relative error of a leaf (max |int8 - exact| / max |exact|),
+    a checksum of every synced leaf; then error feedback over ``ef_syncs``
+    syncs against as many plain ones (JAX's check) on this rank's own
+    embedding gradient, and on its mean (``replicated``).  At one rank,
+    whether every collective was the identity."""
+    W = pm.shape["data"]
     flat = tree_leaves(grads)
-
-    def mean(t):
-        out = t.clone()
-        dist.all_reduce(out, group=pm.group("data"))
-        return out / W
-
-    exact, fp32_ms = _timed(lambda: [mean(g) for g in flat], dev)
+    group = pm.group("data")
+    exact, fp32_ms = _timed(lambda: [_mean(g, group, W) for g in flat], dev)
     (synced, _), int8_ms = _timed(lambda: C.compressed_grad_sync(grads, pm, "data"), dev)
     synced = tree_leaves(synced)
     rel = max(float((s - e).abs().max() / e.abs().max()) for s, e in zip(synced, exact))
@@ -338,8 +387,22 @@ def _card_grads(spec, pm, dev):
             torch.equal(s, C._dequantize_int8(*C._quantize_int8(g.reshape(-1)))
                         .reshape(g.shape)) for s, g in zip(synced, flat))
     del exact, synced
-    emb = {"embed": grads["embed"]}
-    true = mean(emb["embed"]) * spec["ef_syncs"]
+    # error feedback on this rank's own embedding gradient, and on its
+    # fp32 mean, which every rank holds (JAX's own check,
+    # tests/spawn/distributed_extras.py, syncs such a gradient)
+    out.update(_error_feedback(spec, pm, grads["embed"], dev))
+    rep = _error_feedback(spec, pm, _mean(grads["embed"], group, W), dev)
+    out["replicated"] = {"ef_err": rep["ef_err"], "plain_err": rep["plain_err"]}
+    return out
+
+
+def _error_feedback(spec, pm, grad, dev):
+    """``ef_syncs`` syncs of ``grad`` along ``data`` with error feedback and
+    as many plain ones, each accumulated, against ``ef_syncs`` x the fp32
+    mean: both errors' norms, ms a sync with feedback."""
+    W = pm.shape["data"]
+    emb = {"embed": grad}
+    true = _mean(grad, pm.group("data"), W) * spec["ef_syncs"]
 
     def feedback():
         ef, acc = None, torch.zeros_like(true)
@@ -353,47 +416,91 @@ def _card_grads(spec, pm, dev):
     acc_plain = torch.zeros_like(true)
     for _ in range(spec["ef_syncs"]):  # the same sum each time, as JAX's loop adds it
         acc_plain += plain
-    out.update(ef_err=float(torch.linalg.norm(acc_ef - true)),
-               plain_err=float(torch.linalg.norm(acc_plain - true)),
-               ef_ms_per_sync=ef_ms / spec["ef_syncs"], embed_elems=true.numel())
-    return out
+    return {"ef_err": float(torch.linalg.norm(acc_ef - true)),
+            "plain_err": float(torch.linalg.norm(acc_plain - true)),
+            "ef_ms_per_sync": ef_ms / spec["ef_syncs"], "embed_elems": true.numel()}
 
 
-def _card_pipeline(spec, dev):
-    """GPipe over the ranks on ``pipe_micro`` seeded microbatches of
+def _card_pipeline(spec, pm, axis, dev):
+    """GPipe over ``pm``'s ``axis`` on ``pipe_micro`` seeded microbatches of
     ``pipe_shape``, JAX's test stage ``x * 2 + w_i``: the largest relative
     difference from the sequential result, ms per microbatch."""
-    W = dist.get_world_size()
-    pm = make_process_mesh((W,), ("pipe",), device=dev)
+    S = pm.shape[axis]
     gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 100)
     x = torch.randn([spec["pipe_micro"], *spec["pipe_shape"]], generator=gen, device=dev)
-    w = torch.arange(1.0, W + 1, device=dev)[:, None] * torch.ones(W, x.shape[-1], device=dev)
+    w = torch.arange(1.0, S + 1, device=dev)[:, None] * torch.ones(S, x.shape[-1], device=dev)
 
     def run():
-        return pipeline_forward(lambda p, h: h * 2.0 + p, w, x, pm, "pipe")
+        return pipeline_forward(lambda p, h: h * 2.0 + p, w, x, pm, axis)
 
-    run()  # warm-up: the wire
+    run()  # warm-up: the wire (NCCL makes a pair's communicator at its first send)
     y, ms = _timed(run, dev)
     want = x
-    for i in range(W):
+    for i in range(S):
         want = want * 2.0 + w[i]
-    return {"max_rel_diff": float((y - want).abs().max() / want.abs().max()),
+    return {"stages": S, "max_rel_diff": float((y - want).abs().max() / want.abs().max()),
             "ms": ms, "ms_per_microbatch": ms / spec["pipe_micro"],
             "bytes_per_message": x[0].numel() * 4}
 
 
+def _card_grid(spec, grads, dev):
+    """On a (data, pipe) mesh of the ranks (``spec["grid"]``), each axis a
+    subgroup: the gradient tree's ``compressed_grad_sync`` along ``data``
+    against the line's fp32 mean (the largest relative error of a leaf, a
+    checksum of every synced leaf), and GPipe along ``pipe``."""
+    pm = make_process_mesh(spec["grid"], ("data", "pipe"), device=dev)
+    n = pm.shape["data"]
+    flat = tree_leaves(grads)
+    exact = [_mean(g, pm.group("data"), n) for g in flat]
+    (synced, _), int8_ms = _timed(lambda: C.compressed_grad_sync(grads, pm, "data"), dev)
+    synced = tree_leaves(synced)
+    rel = max(float((s - e).abs().max() / e.abs().max()) for s, e in zip(synced, exact))
+    return {"shape": dict(pm.shape), "coords": dict(pm.coords),
+            "sync": {"max_rel_err": rel, "int8_ms": int8_ms,
+                     "checksums": [_bits(s) for s in synced]},
+            "pipeline": _card_pipeline(spec, pm, "pipe", dev)}
+
+
+def _pci_bus_id(index: int):
+    """Card ``index``'s PCI bus id from the CUDA driver API
+    (``cuDeviceGetPCIBusId``, which numbers the cards as the runtime
+    does), or None where it gives none."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    card, buf = ctypes.c_int(), ctypes.create_string_buffer(64)
+    if cu.cuInit(0) or cu.cuDeviceGet(ctypes.byref(card), index) \
+            or cu.cuDeviceGetPCIBusId(buf, len(buf), card):
+        return None
+    return buf.value.decode()
+
+
+def _card_id(dev) -> dict:
+    """This rank's card: its name, UUID and PCI bus id."""
+    if dev.type != "cuda":
+        return {}
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    props = torch.cuda.get_device_properties(index)
+    return {"name": props.name, "uuid": str(props.uuid), "pci_bus_id": _pci_bus_id(index)}
+
+
 def card(spec):
     """The card's checks on this rank: the dataframe, the gradient syncs,
-    GPipe; which backend, world and tensor device each op ran on."""
+    GPipe, and on ``spec["grid"]`` (a (data, pipe) shape) the grid's;
+    which backend, world and tensor device each op ran on; this rank's
+    card."""
     dev = torch.device(spec["device"])
     seen: dict = {}
     with recording_wire(seen):
         pm = make_process_mesh((dist.get_world_size(),), ("data",), device=dev)
         out = {"rank": pm.rank, "world": pm.shape["data"], "backend": pm.backend,
-               "device": str(dev)}
+               "device": str(dev), "card": _card_id(dev)}
         out["dataframe"] = _card_dataframe(spec, pm, dev)
-        out["grads"] = _card_grads(spec, pm, dev)
-        out["pipeline"] = _card_pipeline(spec, dev)
+        cfg, grads, out["flash_launches"] = _card_backward(spec, pm, dev)
+        out["grads"] = _card_grads(spec, pm, cfg, grads, dev)
+        out["pipeline"] = _card_pipeline(
+            spec, make_process_mesh((pm.shape["data"],), ("pipe",), device=dev), "pipe", dev)
+        if spec.get("grid"):
+            out["grid"] = _card_grid(spec, grads, dev)
+        del grads
         if pm.shape["data"] == 1:  # each collective the identity on its own
             x = torch.randn(4096, generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev)
@@ -415,12 +522,15 @@ SCENARIOS = {"collectives": collectives, "pipeline": pipeline, "sharding": shard
 
 
 def main(argv) -> int:
-    scenario, rank, world, workdir, port, spec = argv
+    scenario, rank, world, workdir, port, spec, backend = argv
+    spec = json.loads(spec)
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
+    if backend == "nccl":  # this rank's card, current before the group exists
+        torch.cuda.set_device(torch.device(spec["device"]))
     store = dist.TCPStore("127.0.0.1", int(port), int(world), is_master=False)
-    dist.init_process_group("gloo", store=store, rank=int(rank), world_size=int(world))
+    dist.init_process_group(backend, store=store, rank=int(rank), world_size=int(world))
     try:
-        out = SCENARIOS[scenario](json.loads(spec))
+        out = SCENARIOS[scenario](spec)
     finally:
         dist.destroy_process_group()
     torch.save(out, Path(workdir) / f"rank{rank}.pt")

@@ -94,6 +94,26 @@ def sleep_for(seconds):
     return seconds
 
 
+class SlowToLoad:
+    """A result whose unpickling takes ``seconds``: the parent's receive
+    thread decodes it while the worker's heartbeats queue behind it."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def __reduce__(self):
+        return _load_slowly, (self.seconds,)
+
+
+def _load_slowly(seconds):
+    time.sleep(seconds)
+    return seconds
+
+
+def slow_to_load(seconds):
+    return SlowToLoad(seconds)
+
+
 def train_then_die(comm, ckpt_dir, resume_step=None):
     """First attempt: checkpoint step 7 then kill its own worker (a node
     death).  Retry: report the step the agent threaded back in."""
