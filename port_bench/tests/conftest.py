@@ -1,0 +1,9 @@
+"""Paths for the benchmark's tests: the repository root (``port_bench``)
+and the program's sources."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
