@@ -23,15 +23,24 @@ partition whose pass 1, the per-destination counts, comes from the
 (shuffle, join and so groupby); ``sort``'s destinations come from
 splitters, so it counts with plain torch.  The slots, drops and received
 rows equal JAX's one-hot cumsum bit for bit.
+
+While ``common/spans`` traces, ``groupby_sum``, ``join`` and
+``reduce_sum`` record ``df.groupby_sum``, ``df.join`` and
+``df.reduce_sum``; each bucket exchange ``df.exchange`` (its slots,
+columns and bytes sent), and the local group-by and join
+``df.local_groupby`` and ``df.local_join``, all three timed on the card
+too; and each read of a card's value on the host ``df.wait``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.common import spans
 from repro_torch.dataframe import ops_local as L
 from repro_torch.dataframe.table import Table
 from repro_torch.kernels import ops
@@ -117,28 +126,34 @@ def _bucket_exchange(cols: Dict, valid, dest, counts, cap: int, table: Table):
     ``[L, N * cap, ...]``, valid, rows dropped on every shard of the axis)."""
     Ls, per = valid.shape
     N = counts.shape[1]
-    # pass 2 of the radix partition: a stable sort by dest, invalid rows
-    # last; a row's rank in it minus its bucket's offset is its pos
-    eff = torch.where(valid, dest, N)
-    sorted_dest, order = torch.sort(eff, dim=1, stable=True)
-    offsets = torch.cumsum(counts, 1) - counts
-    rank = torch.arange(per, device=valid.device).expand(Ls, per)
-    pos_sorted = rank - torch.gather(offsets, 1, sorted_dest.clamp(max=N - 1))
-    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
-    keep = valid & (pos < cap)
-    dropped = int(_psum((valid & ~keep).sum(1), table))
-    slot = torch.where(keep, dest * cap + pos, N * cap)  # sentinel slot
+    with spans.span("df.exchange", valid.device) as sp:
+        if spans.on:
+            row = sum(c.element_size() * math.prod(c.shape[2:]) for c in cols.values()) + 1
+            sp.set(slots=N * cap, columns=len(cols), bytes=Ls * N * cap * row)
+        # pass 2 of the radix partition: a stable sort by dest, invalid rows
+        # last; a row's rank in it minus its bucket's offset is its pos
+        eff = torch.where(valid, dest, N)
+        sorted_dest, order = torch.sort(eff, dim=1, stable=True)
+        offsets = torch.cumsum(counts, 1) - counts
+        rank = torch.arange(per, device=valid.device).expand(Ls, per)
+        pos_sorted = rank - torch.gather(offsets, 1, sorted_dest.clamp(max=N - 1))
+        pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+        keep = valid & (pos < cap)
+        lost = _psum((valid & ~keep).sum(1), table)
+        with spans.wait("df.wait"):
+            dropped = int(lost)
+        slot = torch.where(keep, dest * cap + pos, N * cap)  # sentinel slot
 
-    def exchange(col):
-        trail = tuple(col.shape[2:])
-        mask = keep.view(keep.shape + (1,) * len(trail))
-        buf = col.new_zeros((Ls, N * cap + 1) + trail)
-        buf.scatter_(1, slot.view(slot.shape + (1,) * len(trail)).expand(col.shape),
-                     torch.where(mask, col, col.new_zeros(())))
-        return _all_to_all(buf[:, :-1].view((Ls, N, cap) + trail), table)
+        def exchange(col):
+            trail = tuple(col.shape[2:])
+            mask = keep.view(keep.shape + (1,) * len(trail))
+            buf = col.new_zeros((Ls, N * cap + 1) + trail)
+            buf.scatter_(1, slot.view(slot.shape + (1,) * len(trail)).expand(col.shape),
+                         torch.where(mask, col, col.new_zeros(())))
+            return _all_to_all(buf[:, :-1].view((Ls, N, cap) + trail), table)
 
-    recv = {k: exchange(v) for k, v in cols.items()}
-    return recv, exchange(keep), dropped
+        recv = {k: exchange(v) for k, v in cols.items()}
+        return recv, exchange(keep), dropped
 
 
 def shuffle(table: Table, key: str, *, capacity_factor: float = 2.0,
@@ -213,34 +228,43 @@ def join(left: Table, right: Table, key: str, *, capacity_factor: float = 2.0,
          impl: str = "auto"):
     """Distributed hash join: co-partition both sides by key hash, then
     local join (right side = build side, at most one match per left row)."""
-    nshards, lc, lv = _shards(left)
-    _, rc, rv = _shards(right)
-    capL = max(int(lv.shape[1] / nshards * capacity_factor), 16)
-    capR = max(int(rv.shape[1] / nshards * capacity_factor), 16)
-    sides = []
-    for cols, valid, cap in ((lc, lv, capL), (rc, rv, capR)):
-        keys = cols[key]
-        sides.append(_bucket_exchange(
-            cols, valid, _hash_dest(keys, nshards),
-            _hash_counts(keys, valid, nshards, impl), cap, left))
-    (lrecv, lrv, ldrop), (rrecv, rrv, rdrop) = sides
-    out, ov = L.local_hash_join(lrecv, lrv, rrecv, rrv, key)
-    return _table(out, ov, left), ldrop + rdrop
+    with spans.span("df.join"):
+        nshards, lc, lv = _shards(left)
+        _, rc, rv = _shards(right)
+        capL = max(int(lv.shape[1] / nshards * capacity_factor), 16)
+        capR = max(int(rv.shape[1] / nshards * capacity_factor), 16)
+        sides = []
+        for cols, valid, cap in ((lc, lv, capL), (rc, rv, capR)):
+            keys = cols[key]
+            sides.append(_bucket_exchange(
+                cols, valid, _hash_dest(keys, nshards),
+                _hash_counts(keys, valid, nshards, impl), cap, left))
+        (lrecv, lrv, ldrop), (rrecv, rrv, rdrop) = sides
+        with spans.span("df.local_join", lv.device):
+            out, ov = L.local_hash_join(lrecv, lrv, rrecv, rrv, key)
+        return _table(out, ov, left), ldrop + rdrop
 
 
 def groupby_sum(table: Table, key: str, value_cols: Sequence[str], *,
                 groups_cap_per_shard: int = 4096, impl: str = "auto"):
     """Distributed group-by-sum: shuffle by key, then local segment-sum."""
-    shuffled, dropped = shuffle(table, key, impl=impl)
-    _, cols, valid = _shards(shuffled)
-    keys, sums, count = L.local_groupby_sum(cols, valid, key, value_cols,
-                                            groups_cap_per_shard)
-    return _table({key: keys, **sums, "_count": count}, count > 0, table), dropped
+    with spans.span("df.groupby_sum"):
+        shuffled, dropped = shuffle(table, key, impl=impl)
+        _, cols, valid = _shards(shuffled)
+        with spans.span("df.local_groupby", valid.device):
+            keys, sums, count = L.local_groupby_sum(cols, valid, key, value_cols,
+                                                    groups_cap_per_shard)
+        return _table({key: keys, **sums, "_count": count}, count > 0, table), dropped
 
 
 def reduce_sum(table: Table, cols: Sequence[str]) -> Dict[str, float]:
     """Sum of each column over the valid rows: per shard, then across
     shards (psum)."""
-    _, columns, valid = _shards(table.project(list(cols)))
-    return {k: float(_psum(torch.where(valid, v, 0).sum(1), table))
-            for k, v in columns.items()}
+    with spans.span("df.reduce_sum"):
+        _, columns, valid = _shards(table.project(list(cols)))
+        out = {}
+        for k, v in columns.items():
+            total = _psum(torch.where(valid, v, 0).sum(1), table)
+            with spans.wait("df.wait"):
+                out[k] = float(total)
+        return out

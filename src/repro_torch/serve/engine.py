@@ -48,6 +48,13 @@ through ``submit`` and imports it into fresh pages of its own pool.
 ``steal_queued`` and ``recover_outstanding`` hand unbound and crashed
 work back to the router, and ``step()`` is the ``engine.step`` fault site
 (``core/resilience``), fired only when the engine has work.
+
+While ``common/spans`` traces, a step with work records ``serve.step``
+over ``serve.admit``, ``serve.prefill`` and ``serve.decode``, and a
+``serve.wait`` around every copy between host and card (``kind``
+``upload`` or ``readback``): each is a point where the host waits for the
+card.  ``prefill_slab_positions`` counts the chunk's ``max_slots * T``
+positions beside the ``prefill_tokens`` they carry.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import spans
 from repro_torch.common.params import init_params, map_tree, tree_bytes
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.resilience import faults as rfaults
@@ -183,6 +191,7 @@ class ServeEngine:
         self._outbox: Deque[KVHandoff] = collections.deque()  # guarded-by: _lock
         self._stats: Dict[str, int] = collections.defaultdict(int)  # guarded-by: _lock
         self._seen_shapes: Dict[str, set] = collections.defaultdict(set)  # guarded-by: _lock
+        self._step_index = itertools.count()   # steps traced with work
         self._init_state()
         self._cache_bytes = tree_bytes(self.cache)
         self._page_bytes = self._cache_bytes // self.num_pages if self.paged else 0
@@ -464,16 +473,16 @@ class ServeEngine:
                 or (req.stop_token is not None and tok == req.stop_token)
                 or length >= self.max_len)
 
-    def _admit(self) -> int:
+    def _admit(self) -> tuple:
         """Bind queued requests to free slots, reserving their prompt
         pages when paged; the prompt itself is processed chunk by chunk in
-        ``_prefill_step``.  Returns the number admitted."""
+        ``_prefill_step``.  Returns the requests bound."""
         free = [i for i, r in enumerate(self.slots) if r is None]
         with self._lock:
             if not free or not self.queue:
-                return 0
+                return ()
             if not self.continuous and len(free) < self.max_slots:
-                return 0  # static batching: wait for the whole batch to end
+                return ()  # static batching: wait for the whole batch to end
             batch: List[Any] = []
             reserved = 0
             while self.queue and len(batch) < len(free):
@@ -522,7 +531,7 @@ class ServeEngine:
                     reserved += need
                 batch.append(self.queue.popleft())
         if not batch:
-            return 0
+            return ()
         now = time.time()
         for j, req in enumerate(batch):
             i = free[j]
@@ -544,7 +553,7 @@ class ServeEngine:
         with self._lock:
             self._stats["admitted"] += len(batch)
             self._stats["prefill_batches"] += 1
-        return len(batch)
+        return tuple(self.slots[free[j]] for j in range(len(batch)))
 
     def _pad_pids(self, pids: np.ndarray) -> np.ndarray:
         """Pad a page-id list to its power-of-two bucket by repeating the
@@ -579,9 +588,10 @@ class ServeEngine:
         padded = self._pad_pids(pids)
         self._count_retrace("handoff_gather", len(padded))
         idx = self._tensor(padded.astype(np.int64))
-        pages = _map_cache(lambda l: l.index_select(0, idx)[:n].cpu(),
-                           lambda l: l.index_select(1, idx)[:, :n].cpu(),
-                           self.cache)
+        with spans.wait("serve.wait", kind="readback"):
+            pages = _map_cache(lambda l: l.index_select(0, idx)[:n].cpu(),
+                               lambda l: l.index_select(1, idx)[:, :n].cpu(),
+                               self.cache)
         hand = KVHandoff(
             request=req, length=int(self.lengths[i]),
             last_tok=int(self.last_tok[i]), slot_key=self.slot_keys[i].copy(),
@@ -604,9 +614,10 @@ class ServeEngine:
         pids = np.asarray(self.slot_pages[i], np.int64)
         self._count_retrace("handoff_scatter", len(self._pad_pids(pids)))
         idx = self._tensor(pids)
-        _map_cache(lambda l, d: l.index_copy_(0, idx, d.to(l.device, l.dtype)),
-                   lambda l, d: l.index_copy_(1, idx, d.to(l.device, l.dtype)),
-                   self.cache, hand.pages)
+        with spans.wait("serve.wait", kind="upload"):
+            _map_cache(lambda l, d: l.index_copy_(0, idx, d.to(l.device, l.dtype)),
+                       lambda l, d: l.index_copy_(1, idx, d.to(l.device, l.dtype)),
+                       self.cache, hand.pages)
         req = hand.request
         self.slots[i] = req
         self.lengths[i] = hand.length
@@ -624,7 +635,13 @@ class ServeEngine:
             self._stats["handoff_bytes_imported"] += hand.kv_bytes
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with spans.wait("serve.wait", kind="upload"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    @staticmethod
+    def _read(t: torch.Tensor) -> np.ndarray:
+        with spans.wait("serve.wait", kind="readback"):
+            return t.cpu().numpy()
 
     def _sample(self, logits: torch.Tensor):
         """Every slot's token from ``logits [max_slots, V]`` under its own
@@ -633,7 +650,7 @@ class ServeEngine:
         toks, keys = sample_tokens(
             logits, self._tensor(self.slot_keys.astype(np.int64)),
             self._tensor(self.slot_temp), self._tensor(self.slot_topk))
-        return toks.cpu().numpy(), keys.cpu().numpy().astype(np.uint32)
+        return self._read(toks), self._read(keys).astype(np.uint32)
 
     def _prefill_step(self) -> bool:
         """Spend up to ``prefill_chunk_tokens`` prompt tokens across the
@@ -654,59 +671,65 @@ class ServeEngine:
         if not taking:
             return False
         T = _bucket(max(taking.values()))
-        tokens = np.zeros((self.max_slots, T), np.int32)
-        base = np.zeros(self.max_slots, np.int32)
-        clens = np.zeros(self.max_slots, np.int32)
-        for i, take in taking.items():
-            pos = int(self.prefill_pos[i])
-            tokens[i, :take] = self.slot_prompt[i][pos:pos + take]
-            base[i] = pos
-            clens[i] = take
-        if self.paged:
-            # bucket the table to the prefilling rows' own page frontier
-            need = max(-(-(int(base[i]) + take) // self.page_size)
-                       for i, take in taking.items())
-            mb = min(_bucket(need, lo=1), self.max_pages)
-            self._count_retrace("prefill", (T, mb))
-            bt = self._tensor(self.block_table[:, :mb])
-        else:
-            self._count_retrace("prefill", (T,))
-            bt = None
-        next_tok, last_logits, self.cache = self._prefill_chunk(
-            self._run_params, self._tensor(tokens), self._tensor(base),
-            self._tensor(clens), self.cache, bt)
-        done = [i for i, take in taking.items()
-                if int(self.prefill_pos[i]) + take >= self.slots[i].prompt_len]
-        for i, take in taking.items():
-            self.prefill_pos[i] += take
-        if done:
-            # the first token: each finished row's own sampling and stream
-            # (all-greedy rows keep the chunk step's argmax, no sampler)
-            if any(self.slot_temp[i] > 0 for i in done):
-                toks, new_keys = self._sample(last_logits)
-                for i in done:
-                    if self.slot_temp[i] > 0:
-                        self.slot_keys[i] = new_keys[i]
+        with spans.span("serve.prefill") as sp:
+            tokens = np.zeros((self.max_slots, T), np.int32)
+            base = np.zeros(self.max_slots, np.int32)
+            clens = np.zeros(self.max_slots, np.int32)
+            for i, take in taking.items():
+                pos = int(self.prefill_pos[i])
+                tokens[i, :take] = self.slot_prompt[i][pos:pos + take]
+                base[i] = pos
+                clens[i] = take
+            mb = None
+            if self.paged:
+                # bucket the table to the prefilling rows' own page frontier
+                need = max(-(-(int(base[i]) + take) // self.page_size)
+                           for i, take in taking.items())
+                mb = min(_bucket(need, lo=1), self.max_pages)
+                self._count_retrace("prefill", (T, mb))
+                bt = self._tensor(self.block_table[:, :mb])
             else:
-                toks = next_tok.cpu().numpy()
-            now = time.time()
-            for i in done:
-                req = self.slots[i]
-                self.lengths[i] = req.prompt_len
-                self.prefill_pos[i] = -1
-                self.slot_prompt[i] = None
-                req.first_token_at = now
-                tok = int(toks[i])
-                req.tokens.append(tok)
-                req.token_times.append(now)
-                self.last_tok[i] = tok
-                if self._should_stop(req, tok, int(self.lengths[i])):
-                    self._finish_slot(i, RequestState.DONE)
-                elif self.prefill_only:
-                    self._export_slot(i)
+                self._count_retrace("prefill", (T,))
+                bt = None
+            if spans.on:
+                sp.set(rids=[self.slots[i].rid for i in taking], T=T, mb=mb, tokens=used,
+                       slab=self.max_slots * T)
+            next_tok, last_logits, self.cache = self._prefill_chunk(
+                self._run_params, self._tensor(tokens), self._tensor(base),
+                self._tensor(clens), self.cache, bt)
+            done = [i for i, take in taking.items()
+                    if int(self.prefill_pos[i]) + take >= self.slots[i].prompt_len]
+            for i, take in taking.items():
+                self.prefill_pos[i] += take
+            if done:
+                # the first token: each finished row's own sampling and stream
+                # (all-greedy rows keep the chunk step's argmax, no sampler)
+                if any(self.slot_temp[i] > 0 for i in done):
+                    toks, new_keys = self._sample(last_logits)
+                    for i in done:
+                        if self.slot_temp[i] > 0:
+                            self.slot_keys[i] = new_keys[i]
+                else:
+                    toks = self._read(next_tok)
+                now = time.time()
+                for i in done:
+                    req = self.slots[i]
+                    self.lengths[i] = req.prompt_len
+                    self.prefill_pos[i] = -1
+                    self.slot_prompt[i] = None
+                    req.first_token_at = now
+                    tok = int(toks[i])
+                    req.tokens.append(tok)
+                    req.token_times.append(now)
+                    self.last_tok[i] = tok
+                    if self._should_stop(req, tok, int(self.lengths[i])):
+                        self._finish_slot(i, RequestState.DONE)
+                    elif self.prefill_only:
+                        self._export_slot(i)
         with self._lock:
             self._stats["prefill_chunks"] += 1
             self._stats["prefill_tokens"] += used
+            self._stats["prefill_slab_positions"] += self.max_slots * T
         return True
 
     def step(self) -> bool:
@@ -721,66 +744,79 @@ class ServeEngine:
             act = inj.fire("engine.step", engine=self.uid)
             if act is not None and act.get("action") == "crash":
                 raise rfaults.InjectedFault(f"injected crash at {self.uid} step")
-        progressed = self._admit() > 0
-        progressed = self._prefill_step() or progressed
+        if spans.on and self.has_work():
+            with spans.span("serve.step", step=next(self._step_index)):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> bool:
+        with spans.span("serve.admit") as sp:
+            admitted = self._admit()
+            if spans.on:
+                sp.set(rids=[r.rid for r in admitted])
+        progressed = self._prefill_step() or bool(admitted)
         if self.paged:
             self._ensure_decode_pages()
         active = np.array([r is not None and self.prefill_pos[i] < 0
                            for i, r in enumerate(self.slots)])
         if not active.any():
             return progressed
-        # the sampler runs only when a live slot samples: greedy slots
-        # never read their keys, so skipping it changes no stream
-        sampling = bool((self.slot_temp[active] > 0).any())
-        if self.paged:
-            # bucket the block table (and with it the kernel grid) to the
-            # pages actually in use
-            mb = min(_bucket(max(len(p) for p in self.slot_pages), lo=1),
-                     self.max_pages)
-            self._count_retrace("decode", (mb, sampling))
-            # rows that must not decode (free or mid-prefill) see an
-            # all-sentinel table, so their junk appends drop
-            bt_step = self.block_table[:, :mb].copy()
-            bt_step[~active] = self.num_pages
-            lengths, bt = self.lengths, self._tensor(bt_step)
-        else:
-            self._count_retrace("decode", (self.max_len, sampling))
-            # rows that must not decode (free, or mid-prefill with the
-            # prompt already at position 0 on) get length -1: their append
-            # drops, so their rows stay bitwise intact, and they attend
-            # nothing, so the kernel reads none of their cache
-            lengths, bt = np.where(active, self.lengths, -1), None
-        greedy, logits, self.cache = self._decode(
-            self._run_params, self._tensor(self.last_tok)[:, None], self.cache,
-            self._tensor(lengths.astype(np.int32)), bt)
-        if sampling:
-            toks, new_keys = self._sample(logits[:, -1])
-            self.slot_keys = np.where(active[:, None], new_keys, self.slot_keys)
-        else:
-            toks = greedy.cpu().numpy()
-        toks = np.where(active, toks, 0)
-        self.lengths = self.lengths + active.astype(np.int32)
-        # paged holds only its allocated pages, contiguous always holds
-        # the full [max_slots, max_len] rows
-        bytes_now = (self.pages_in_use() * self._page_bytes if self.paged
-                     else self._cache_bytes)
-        with self._lock:
-            self._stats["decode_steps"] += 1
-            self._stats["decode_slot_steps"] += int(active.sum())
-            self._stats["kv_bytes_step_sum"] += bytes_now
-            self._stats["kv_tokens_step_sum"] += int(self.lengths[active].sum())
-        generated = 0
-        now = time.time()
-        for i, req in enumerate(self.slots):
-            if req is None or not active[i]:
-                continue
-            tok = int(toks[i])
-            req.tokens.append(tok)
-            req.token_times.append(now)
-            self.last_tok[i] = tok
-            generated += 1
-            if self._should_stop(req, tok, int(self.lengths[i])):
-                self._finish_slot(i, RequestState.DONE)
+        with spans.span("serve.decode") as sp:
+            # the sampler runs only when a live slot samples: greedy slots
+            # never read their keys, so skipping it changes no stream
+            sampling = bool((self.slot_temp[active] > 0).any())
+            mb = None
+            if self.paged:
+                # bucket the block table (and with it the kernel grid) to the
+                # pages actually in use
+                mb = min(_bucket(max(len(p) for p in self.slot_pages), lo=1),
+                         self.max_pages)
+                self._count_retrace("decode", (mb, sampling))
+                # rows that must not decode (free or mid-prefill) see an
+                # all-sentinel table, so their junk appends drop
+                bt_step = self.block_table[:, :mb].copy()
+                bt_step[~active] = self.num_pages
+                lengths, bt = self.lengths, self._tensor(bt_step)
+            else:
+                self._count_retrace("decode", (self.max_len, sampling))
+                # rows that must not decode (free, or mid-prefill with the
+                # prompt already at position 0 on) get length -1: their append
+                # drops, so their rows stay bitwise intact, and they attend
+                # nothing, so the kernel reads none of their cache
+                lengths, bt = np.where(active, self.lengths, -1), None
+            if spans.on:
+                sp.set(rows=int(active.sum()), mb=mb, sampling=sampling)
+            greedy, logits, self.cache = self._decode(
+                self._run_params, self._tensor(self.last_tok)[:, None], self.cache,
+                self._tensor(lengths.astype(np.int32)), bt)
+            if sampling:
+                toks, new_keys = self._sample(logits[:, -1])
+                self.slot_keys = np.where(active[:, None], new_keys, self.slot_keys)
+            else:
+                toks = self._read(greedy)
+            toks = np.where(active, toks, 0)
+            self.lengths = self.lengths + active.astype(np.int32)
+            # paged holds only its allocated pages, contiguous always holds
+            # the full [max_slots, max_len] rows
+            bytes_now = (self.pages_in_use() * self._page_bytes if self.paged
+                         else self._cache_bytes)
+            with self._lock:
+                self._stats["decode_steps"] += 1
+                self._stats["decode_slot_steps"] += int(active.sum())
+                self._stats["kv_bytes_step_sum"] += bytes_now
+                self._stats["kv_tokens_step_sum"] += int(self.lengths[active].sum())
+            generated = 0
+            now = time.time()
+            for i, req in enumerate(self.slots):
+                if req is None or not active[i]:
+                    continue
+                tok = int(toks[i])
+                req.tokens.append(tok)
+                req.token_times.append(now)
+                self.last_tok[i] = tok
+                generated += 1
+                if self._should_stop(req, tok, int(self.lengths[i])):
+                    self._finish_slot(i, RequestState.DONE)
         if generated:
             self._bump("tokens_generated", generated)
         return True

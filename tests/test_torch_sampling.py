@@ -247,7 +247,8 @@ def test_sampling_stream_survives_preemption(tiny, layout):
 
 def test_reset_stats(tiny):
     """reset_stats zeroes the counters and the derived figures, and the
-    engine goes on counting from zero; the JAX engine's keys come back."""
+    engine goes on counting from zero; the JAX engine's keys come back,
+    with the port's own slab counter beside them."""
     engines = _engines(tiny, max_slots=2, max_len=64)
     for e in engines:
         e.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=4)
@@ -260,4 +261,4 @@ def test_reset_stats(tiny):
         e.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=4)
         e.run_until_drained()
         assert e.stats()["tokens_generated"] == 3
-    assert set(engines[1].stats()) == set(engines[0].stats())
+    assert set(engines[1].stats()) == set(engines[0].stats()) | {"prefill_slab_positions"}
