@@ -53,8 +53,8 @@ While ``common/spans`` traces, a step with work records ``serve.step``
 over ``serve.admit``, ``serve.prefill`` and ``serve.decode``, and a
 ``serve.wait`` around every copy between host and card (``kind``
 ``upload`` or ``readback``): each is a point where the host waits for the
-card.  ``prefill_slab_positions`` counts the chunk's ``max_slots * T``
-positions beside the ``prefill_tokens`` they carry.
+card.  ``prefill_slab_positions`` counts the positions a chunk runs
+(rows times ``T``) beside the ``prefill_tokens`` they carry.
 """
 from __future__ import annotations
 
@@ -643,20 +643,29 @@ class ServeEngine:
         with spans.wait("serve.wait", kind="readback"):
             return t.cpu().numpy()
 
-    def _sample(self, logits: torch.Tensor):
-        """Every slot's token from ``logits [max_slots, V]`` under its own
+    def _sample(self, logits: torch.Tensor, slots=None):
+        """Each row's token from ``logits [R, V]`` under its slot's own
         temperature, top-k and key -> (tokens, advanced keys), on the
-        host as int32 [max_slots] and uint32 [max_slots, 2]."""
+        host as int32 [R] and uint32 [R, 2].  Row ``r`` is slot
+        ``slots[r]`` (default: every slot, in order); rows past ``slots``
+        are filler and draw greedily from a zero key."""
+        sl = np.arange(self.max_slots) if slots is None else np.asarray(slots)
+        pad = logits.shape[0] - len(sl)
+        keys = np.pad(self.slot_keys[sl].astype(np.int64), ((0, pad), (0, 0)))
         toks, keys = sample_tokens(
-            logits, self._tensor(self.slot_keys.astype(np.int64)),
-            self._tensor(self.slot_temp), self._tensor(self.slot_topk))
+            logits, self._tensor(keys), self._tensor(np.pad(self.slot_temp[sl], (0, pad))),
+            self._tensor(np.pad(self.slot_topk[sl], (0, pad))))
         return self._read(toks), self._read(keys).astype(np.uint32)
 
     def _prefill_step(self) -> bool:
         """Spend up to ``prefill_chunk_tokens`` prompt tokens across the
-        prefilling slots in ONE ragged chunk forward (rows not taking
-        tokens ride with ``chunk_lens == 0``).  Rows whose prompt completes
-        take their first token here and move on to decode."""
+        prefilling slots in ONE ragged chunk forward.  Paged, the slab's
+        rows are the slots that take tokens, in slot order, bucketed to a
+        power of two (filler rows ride inert: ``chunk_lens == 0`` and an
+        all-sentinel table row); contiguous, a batch row is its slot's
+        cache row, so every slot rides and those not taking tokens have
+        ``chunk_lens == 0``.  Rows whose prompt completes take their first
+        token here and move on to decode."""
         taking: Dict[int, int] = {}
         budget = (self.prefill_chunk_tokens if self.prefill_chunk_tokens
                   is not None else self.max_len)
@@ -671,29 +680,38 @@ class ServeEngine:
         if not taking:
             return False
         T = _bucket(max(taking.values()))
+        if self.paged:
+            rows = list(taking)
+            R = min(_bucket(len(rows), lo=1), self.max_slots)
+        else:
+            rows = list(range(self.max_slots))
+            R = self.max_slots
+        row_of = {i: r for r, i in enumerate(rows)}
         with spans.span("serve.prefill") as sp:
-            tokens = np.zeros((self.max_slots, T), np.int32)
-            base = np.zeros(self.max_slots, np.int32)
-            clens = np.zeros(self.max_slots, np.int32)
+            tokens = np.zeros((R, T), np.int32)
+            base = np.zeros(R, np.int32)
+            clens = np.zeros(R, np.int32)
             for i, take in taking.items():
-                pos = int(self.prefill_pos[i])
-                tokens[i, :take] = self.slot_prompt[i][pos:pos + take]
-                base[i] = pos
-                clens[i] = take
+                pos, r = int(self.prefill_pos[i]), row_of[i]
+                tokens[r, :take] = self.slot_prompt[i][pos:pos + take]
+                base[r] = pos
+                clens[r] = take
             mb = None
             if self.paged:
                 # bucket the table to the prefilling rows' own page frontier
-                need = max(-(-(int(base[i]) + take) // self.page_size)
+                need = max(-(-(int(self.prefill_pos[i]) + take) // self.page_size)
                            for i, take in taking.items())
                 mb = min(_bucket(need, lo=1), self.max_pages)
                 self._count_retrace("prefill", (T, mb))
-                bt = self._tensor(self.block_table[:, :mb])
+                table = np.full((R, mb), self.num_pages, np.int32)
+                table[:len(rows)] = self.block_table[rows, :mb]
+                bt = self._tensor(table)
             else:
                 self._count_retrace("prefill", (T,))
                 bt = None
             if spans.on:
                 sp.set(rids=[self.slots[i].rid for i in taking], T=T, mb=mb, tokens=used,
-                       slab=self.max_slots * T)
+                       rows=R, slab=R * T)
             next_tok, last_logits, self.cache = self._prefill_chunk(
                 self._run_params, self._tensor(tokens), self._tensor(base),
                 self._tensor(clens), self.cache, bt)
@@ -705,10 +723,10 @@ class ServeEngine:
                 # the first token: each finished row's own sampling and stream
                 # (all-greedy rows keep the chunk step's argmax, no sampler)
                 if any(self.slot_temp[i] > 0 for i in done):
-                    toks, new_keys = self._sample(last_logits)
+                    toks, new_keys = self._sample(last_logits, rows)
                     for i in done:
                         if self.slot_temp[i] > 0:
-                            self.slot_keys[i] = new_keys[i]
+                            self.slot_keys[i] = new_keys[row_of[i]]
                 else:
                     toks = self._read(next_tok)
                 now = time.time()
@@ -718,7 +736,7 @@ class ServeEngine:
                     self.prefill_pos[i] = -1
                     self.slot_prompt[i] = None
                     req.first_token_at = now
-                    tok = int(toks[i])
+                    tok = int(toks[row_of[i]])
                     req.tokens.append(tok)
                     req.token_times.append(now)
                     self.last_tok[i] = tok
@@ -729,7 +747,7 @@ class ServeEngine:
         with self._lock:
             self._stats["prefill_chunks"] += 1
             self._stats["prefill_tokens"] += used
-            self._stats["prefill_slab_positions"] += self.max_slots * T
+            self._stats["prefill_slab_positions"] += R * T
         return True
 
     def step(self) -> bool:

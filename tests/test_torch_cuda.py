@@ -4,7 +4,8 @@ hash-partition histogram) against their plain PyTorch versions, on the
 card, at every head dim the attention kernels take (16, 32, 64, 96,
 128; the contiguous decode also 24), and at the shapes each served
 config's path gives them (the fleet's whole-prompt prefill widths too);
-the smoke MLA and MoE engines, the threefry sampler, a disaggregated
+the smoke MLA and MoE engines, the compacted paged chunk against the
+full slab, the threefry sampler, a disaggregated
 fleet, whisper's and qwen2-vl's paths, and kernels 5 and 3 launched by a
 worker process of the subprocess transport, on the card.  Every test here needs an
 NVIDIA GPU with nvcc and skips elsewhere; on the card:
@@ -642,6 +643,72 @@ def test_mla_and_moe_engines_kernel_path_equals_plain_path(arch, layout):
                                  "prefill_attention_paged_kernel"} if layout == "paged"
                                 else {"decode_attention_kernel", "prefill_attention_kernel"})
     assert streams["auto"] == streams["ref"]
+
+
+@pytest.mark.cuda
+def test_a_compacted_chunk_writes_what_the_full_slab_writes():
+    """One paged chunk step of phi3-mini's smoke config at head dim 96 in
+    bf16, over 8 slots of 8 pages of 16 whose pools hold noise, run twice
+    from the same pools: the full slab (every slot a row; slots 1, 2 and 5
+    take 40, 64 and 23 tokens at bases 16, 0 and 37) and the compacted one
+    (those three rows and a filler: chunk length 0, an all-sentinel table
+    row).  The real rows' pages are within one bf16 ulp (or 2e-2) of the
+    full slab's, every other page is bitwise untouched by either, and the
+    real rows' last logits are within 2% of the full slab's largest."""
+    _card()
+    from repro_torch.common.params import init_params, map_tree, tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import lm_paged_cache_specs
+    from repro_torch.serve.engine import _map_cache
+    from repro_torch.train.state import model_specs
+    from repro_torch.train.step import make_prefill_chunk_step
+    cfg = get_config("phi3-mini-3.8b", smoke=True).with_overrides(head_dim=96)
+    assert cfg.compute_dtype == torch.bfloat16
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), model_specs(cfg),
+                         "cuda")
+    run = map_tree(lambda t: t.to(cfg.compute_dtype), params)  # as the engine casts
+    S, page, mp, T = 8, 16, 8, 64
+    rng = np.random.default_rng(32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pools = map_tree(lambda p: torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype),
+                     lm_paged_cache_specs(cfg, S * mp, page))
+    table = rng.permutation(S * mp).astype(np.int32).reshape(S, mp)
+    real = {1: (16, 40), 2: (0, 64), 5: (37, 23)}  # slot: (base, take)
+    prompt = {i: rng.integers(1, cfg.vocab_size, take).astype(np.int32)
+              for i, (_, take) in real.items()}
+    step = make_prefill_chunk_step(cfg)
+
+    def chunk(slots, R):
+        tok, base, clen = np.zeros((R, T), np.int32), np.zeros(R, np.int32), np.zeros(R, np.int32)
+        bt = np.full((R, mp), S * mp, np.int32)
+        for r, i in enumerate(slots):
+            bt[r] = table[i]
+            if i in real:
+                base[r], clen[r] = real[i]
+                tok[r, :clen[r]] = prompt[i]
+        cache = map_tree(torch.clone, pools)
+        _, last, cache = step(run, *(torch.from_numpy(a).cuda() for a in (tok, base, clen)),
+                              cache, torch.from_numpy(bt).cuda())
+        return last, cache
+
+    full_last, full = chunk(range(S), S)
+    last, compact = chunk(sorted(real), 4)
+    torch.cuda.synchronize()
+    owned = torch.from_numpy(table[sorted(real)].reshape(-1)).long()
+    keep = torch.ones(S * mp, dtype=torch.bool)
+    keep[owned] = False
+    # every pool as [layers, pages, ...]
+    layered = (tree_leaves(_map_cache(lambda x: x[None], lambda x: x, t))
+               for t in (pools, full, compact))
+    for b, f, c in zip(*layered):
+        assert torch.equal(b[:, keep], f[:, keep]) and torch.equal(b[:, keep], c[:, keep])
+        assert _within_limit(c[:, owned], f[:, owned], 2e-2)
+        print("pages: bitwise", torch.equal(c[:, owned], f[:, owned]),
+              "max diff", (c[:, owned].float() - f[:, owned].float()).abs().max().item())
+    want, got = full_last[sorted(real)].float(), last[:3].float()
+    gap = (got - want).abs().max().item()
+    print("last logits: max diff", gap, "largest", want.abs().max().item())
+    assert gap <= 2e-2 * want.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ from repro_torch.dataframe import ops_dist as D  # noqa: E402
 from repro_torch.dataframe.table import Table  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import _bucket  # noqa: E402
 from repro_torch.serve.request import Request  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -206,7 +207,9 @@ def test_the_steps_span_tree():
     assert sum(c["attrs"]["tokens"] for c in chunks) == sum(r.prompt_len for r in reqs)
     for c in chunks:
         a = c["attrs"]
-        assert a["slab"] == eng.max_slots * a["T"] and a["tokens"] <= 16
+        # paged: the slab is the rows that take tokens, bucketed
+        assert a["rows"] == min(_bucket(len(a["rids"]), lo=1), eng.max_slots)
+        assert a["slab"] == a["rows"] * a["T"] and a["tokens"] <= 16
         assert a["mb"] >= 1 and len(a["rids"]) >= 1
     st = eng.stats()
     assert st["prefill_slab_positions"] == sum(c["attrs"]["slab"] for c in chunks)
@@ -247,14 +250,22 @@ def test_streams_are_the_same_with_tracing_on_and_off(layout, sampled):
 
 
 def test_the_slab_counter_counts_whole_chunks_with_tracing_off():
-    """``prefill_slab_positions`` is always on: ``max_slots`` rows of each
-    chunk's power-of-two width, against the prompt tokens they carry."""
-    eng, reqs, _ = _serve(slots=4)
-    st = eng.stats()
-    assert st["prefill_slab_positions"] % 4 == 0
-    assert st["prefill_tokens"] == sum(r.prompt_len for r in reqs)
-    assert st["prefill_tokens"] < st["prefill_slab_positions"]
-    assert st["prefill_slab_positions"] <= 4 * 16 * st["prefill_chunks"]
+    """``prefill_slab_positions`` is always on: each chunk's rows times its
+    power-of-two width, against the prompt tokens they carry.  Paged, the
+    rows are those that take tokens, bucketed; contiguous, every slot."""
+    for layout in ("paged", "contiguous"):
+        eng, reqs, _ = _serve(layout, slots=4)
+        chunks = [r["attrs"] for r in _serve(layout, slots=4, trace=True)[2]
+                  if r["name"] == "serve.prefill"]
+        rows = [min(_bucket(len(a["rids"]), lo=1), 4) if layout == "paged" else 4
+                for a in chunks]
+        assert [a["rows"] for a in chunks] == rows
+        st = eng.stats()
+        assert st["prefill_chunks"] == len(chunks)
+        assert st["prefill_slab_positions"] == sum(r * a["T"] for r, a in zip(rows, chunks))
+        assert st["prefill_tokens"] == sum(r.prompt_len for r in reqs)
+        assert st["prefill_tokens"] < st["prefill_slab_positions"]
+        assert st["prefill_slab_positions"] <= 4 * 16 * st["prefill_chunks"]
     eng.reset_stats()
     assert "prefill_slab_positions" not in eng.stats()
 
